@@ -4,15 +4,23 @@
     python3 chip_smoke.py
 
 1. Card: its name and power limit; fails without a CUDA device.
-2. Build: every CUDA source of the serving path, with nvcc, from this checkout.
+2. Build: every CUDA source of the port, with nvcc, from this checkout.
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
-   serving shape and at adversarial ones, with a stated tolerance, and timed.
+   serving shape and at adversarial ones, with a stated tolerance, and timed
+   beside its bound: the forward K1, then the backward K2 and K2a + K2b
+   against the plain backward, on all five gradients.
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
    (V40000, d256, 8 heads, 4 layers, L256, batch 8) with random weights from a
    seed, through ``SeqTrainer.evaluate`` / ``predict_logits``, dense and
    chunked; the kernels' launch counts over that run; the fused model's
    logits against the same weights without the kernel.
-5. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+5. Training: the same configuration through ``SeqTrainer.train_one_epoch``,
+   chunked 8192 (the bench's path) and dense, on seeded bench-style data;
+   tokens/s, ms per step, and where a step's time goes; the loss finite and
+   every parameter moved; K1 and K2 launched once per layer per step, and
+   one step with ``_FUSED_BWD[0] = False`` through K2a and K2b; one batch's
+   parameter gradients against the same weights without the kernels.
+6. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -43,11 +51,40 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # kernel vs plain version: fp32 sums of up to L products in another order than cuBLAS
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+# backward kernels vs the plain backward: dq, dk, dv as the forward (K2's dq
+# adds per-tile fp32 atomics, in an order that changes between runs); dpos
+# and dts sum up to B*L^2/2 terms of either sign into one slot, in another
+# order than autograd's scatter-add, so their absolute tolerance is relative
+# to the table's largest slot
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+TABLE_RTOL, TABLE_ATOL_REL = 1e-4, 1e-5
 # fused vs unfused model logits: the kernel's error carried through 4 layers and the vocab projection
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-4
+# fused vs unfused parameter gradients of one batch: the backward's error
+# carried back through 4 layers; elements near zero are sums that cancel, so
+# the absolute tolerance is relative to each tensor's largest gradient
+GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-4
 SERVE = dict(vocab_size=40000, d_model=256, n_heads=8, n_layers=4, dqk=32, dv=32, max_seq_len=256, num_time_buckets=128, time_bucket_fn="sqrt", time_bucket_unit="minutes", tie_embeddings=True, dropout=0.0)
 BATCH, N_BATCHES = 8, 4
+TRAIN_BATCHES = 6  # steps per timed training epoch
 REPS = 30
+GRAD_NAMES = ("dq", "dk", "dv", "dpos", "dts")
+# the backward kernels: wrapper, outputs, FMAs per causal pair per unit of (dqk, dv), TPU kernel line
+BWD_KERNELS = {
+    "hstu_rab_bwd": dict(fn=rab.rab_backward_fused, outs=GRAD_NAMES, fma=(3, 2), line=459),
+    "hstu_rab_bwd_dq": dict(fn=rab.rab_backward_dq, outs=("dq", "dpos", "dts"), fma=(2, 1), line=313),
+    "hstu_rab_bwd_dkv": dict(fn=rab.rab_backward_dkv, outs=("dk", "dv"), fma=(2, 2), line=404),
+}
+COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv"}
+
+
+def reset_counts():
+    for attr in COUNTERS.values():
+        setattr(rab, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(rab, attr) for name, attr in COUNTERS.items()}
 
 
 def spin_cycles_per_ms():
@@ -137,18 +174,38 @@ def run_plain(c):
     return rab.dense_forward(c["q"], c["k"], c["v"], c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["ts"] is not None)
 
 
-def rab_bound(c):
-    """(bound ms, what bounds it): causal-half fp32 FLOPs vs bytes moved once."""
-    b, h, l, dqk = c["q"].shape
-    dv = c["v"].shape[-1]
-    flops = 2 * b * h * (l * l / 2) * (dqk + dv)
-    nbytes = sum(t.numel() * t.element_size() for k, t in c.items() if isinstance(t, torch.Tensor)) + b * h * l * dv * 4
+def valid_pairs(c):
+    """(query, key) pairs this run's data needs: m <= l < L with key m unmasked, over all heads."""
+    b, h, l, _ = c["q"].shape
+    keys = torch.ones((b, l), dtype=torch.int64, device=c["q"].device) if c["mask"] is None else c["mask"].to(torch.int64)
+    return h * int(keys.cumsum(1).sum())
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it): fp32 FLOPs at the fp32 peak vs bytes at the HBM rate."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_phase(cycles_per_ms):
-    cases = {
+def input_bytes(c):
+    return sum(t.numel() * t.element_size() for t in c.values() if isinstance(t, torch.Tensor))
+
+
+def rab_bound(c):
+    """K1: 2 (dqk + dv) FLOP per valid pair; inputs read and the output written once."""
+    dqk, dv = c["q"].shape[-1], c["v"].shape[-1]
+    return bound(2 * valid_pairs(c) * (dqk + dv), input_bytes(c) + c["v"].numel() * 4)
+
+
+def bwd_bound(c, g, kernel, outs):
+    """A backward kernel: its FMAs per valid pair; inputs and g read, its outputs written once."""
+    fq, fv = BWD_KERNELS[kernel]["fma"]
+    dqk, dv = c["q"].shape[-1], c["v"].shape[-1]
+    return bound(2 * valid_pairs(c) * (fq * dqk + fv * dv), input_bytes(c) + g.numel() * 4 + sum(o.numel() * 4 for o in outs))
+
+
+def kernel_cases():
+    return {
         "serve B8 L256 sorted times, suffix padding": rab_case(0, 8, 256, 256),
         "B8 L256 shuffled times, scattered mask, one empty row": rab_case(1, 8, 256, 256, times="shuffled", mask="scattered"),
         "B8 L256 stamps at both ends of int32 (wrapping differences)": rab_case(5, 8, 256, 256, times="wrapping"),
@@ -156,6 +213,9 @@ def kernel_phase(cycles_per_ms):
         "B8 L200 ragged, maxL256": rab_case(3, 8, 200, 256),
         "B8 L1024 maxL1024": rab_case(4, 8, 1024, 1024),
     }
+
+
+def kernel_phase(cases, cycles_per_ms):
     worst = 0.0
     timings = {}
     for name, c in cases.items():
@@ -181,15 +241,55 @@ def kernel_phase(cycles_per_ms):
     return dict(max_abs_err=worst, **serve)
 
 
+def backward_phase(cases, cycles_per_ms):
+    """K2, and K2a + K2b, against the plain backward on every case, all five gradients."""
+    worst = {name: 0.0 for name in BWD_KERNELS}
+    timings = {}
+    for case, c in cases.items():
+        g = torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+        args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+        ref = dict(zip(GRAD_NAMES, rab.dense_backward(*args[:-1], c["ts"] is not None)))
+        empty_row = c["mask"] is not None and not bool(c["mask"][0].any())
+        for kernel, spec in BWD_KERNELS.items():
+            got = dict(zip(spec["outs"], spec["fn"](*args)))
+            torch.cuda.synchronize()
+            parts = []
+            for o, t in got.items():
+                r = ref[o]
+                tables = o in ("dpos", "dts")
+                rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(r.abs().max()) + 1e-12) if tables else (BWD_RTOL, BWD_ATOL)
+                err = float((t - r).abs().max())
+                ratio = float(((t - r).abs() / (atol + rtol * r.abs())).max())
+                parts.append(f"{o} {err:.2e} ({ratio:.3f})")
+                if not (torch.isfinite(t).all() and ratio <= 1.0):
+                    raise AssertionError(f"{kernel} disagrees with the plain backward on {o}, {case}: max abs err {err:.3e}, ratio {ratio:.3f}")
+                if empty_row and not tables and not bool((t[0] == 0).all()):
+                    raise AssertionError(f"{kernel}: a fully masked row must give zero {o}")
+                worst[kernel] = max(worst[kernel], err)
+            print(f"  {case}, {kernel}: max abs err (max |d|/(atol+rtol|ref|)) " + ", ".join(parts))
+            if case.startswith("serve") or "L1024" in case:
+                ms, wall = timed(lambda: spec["fn"](*args), cycles_per_ms)
+                bound_ms, bound_by = bwd_bound(c, g, kernel, got.values())
+                timings.setdefault(kernel, {})[case] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+                print(f"    {kernel} device {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {valid_pairs(c):,} valid pairs), host clock per call {wall:.4f} ms")
+        if case.startswith("serve") or "L1024" in case:
+            plain_ms, plain_wall = timed(lambda: rab.dense_backward(*args[:-1], c["ts"] is not None), cycles_per_ms)
+            for kernel in BWD_KERNELS:
+                timings[kernel][case]["plain_ms"] = plain_ms
+            print(f"    plain backward device {plain_ms:.4f} ms, host clock {plain_wall:.4f} ms (medians of {REPS})")
+    print(f"  tolerances: dq/dk/dv rtol {BWD_RTOL} atol {BWD_ATOL}; dpos/dts rtol {TABLE_RTOL}, atol {TABLE_ATOL_REL} x the table's max |ref|")
+    return {kernel: dict(max_abs_err=worst[kernel], **next(iter(timings[kernel].values()))) for kernel in BWD_KERNELS}
+
+
 # ---------------------------------------------------------------------------
 # 4. serving phase
 # ---------------------------------------------------------------------------
 
-def serving_data(n, l, vocab, seed=0):
-    """Sequences as in hstu_train_bench.py:50-55, with a left-padded PAD prefix on half the rows."""
+def serving_data(n, l, vocab, seed=0, pad=True):
+    """Sequences as in hstu_train_bench.py:50-55; with ``pad``, a left-padded PAD prefix on half the rows."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(1, vocab, (n, l)).astype(np.int32)
-    for i in range(0, n, 2):
+    for i in range(0, n, 2) if pad else ():
         tokens[i, : rng.integers(1, l // 2)] = 0
     positions = np.broadcast_to(np.arange(l, dtype=np.int32), (n, l)).copy()
     time_diffs = np.sort(rng.integers(0, 10**6, (n, l)), axis=1).astype(np.int32)
@@ -210,7 +310,8 @@ def serving_phase(cycles_per_ms):
         tr.evaluate(loader)
     torch.cuda.synchronize()
 
-    rab.launches, forwards[0] = 0, 0
+    reset_counts()
+    forwards[0] = 0
     results = {}
     for name, tr in trainers.items():
         t0 = time.perf_counter()
@@ -264,6 +365,144 @@ def serving_phase(cycles_per_ms):
     return launches
 
 
+def kernel_class(name):
+    for key, label in (("hstu_rab_fwd_kernel", "K1 hstu_rab_fwd"), ("bwd_kv_kernel<", "K2 / K2b hstu_rab_bwd(_dkv)"), ("bwd_q_kernel<", "K2a hstu_rab_bwd_dq")):
+        if key in name:
+            return label
+    lowered = name.lower()
+    if "gemm" in lowered:
+        return "matrix products (cuBLAS / CUTLASS, fp32)"
+    if "multi_tensor_apply" in lowered or "adam" in lowered:
+        return "Adam (foreach kernels)"
+    if lowered.startswith("memcpy") or lowered.startswith("memset"):
+        return "copies and fills"
+    return "elementwise, reductions, gathers"
+
+
+def kernel_breakdown(name, fn, steps=3):
+    """Device time per call of ``fn`` by kernel class, from torch.profiler's kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    classes = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            ms, n = classes.get(kernel_class(e.key), (0.0, 0))
+            classes[kernel_class(e.key)] = (ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps)
+    total = sum(ms for ms, _ in classes.values())
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    print(f"  {name} train_step kernels by class (torch.profiler, {steps} steps): {total:.4f} ms of kernels per step")
+    for label, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {ms:.4f} ms {ms / total:6.1%} {n:6.1f} launches  {label}")
+
+
+# ---------------------------------------------------------------------------
+# 5. training phase
+# ---------------------------------------------------------------------------
+
+def training_phase(cycles_per_ms):
+    l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
+    data = serving_data(BATCH * TRAIN_BATCHES, l, vocab, seed=1, pad=False)  # the bench's data: no PAD
+    loader = SeqLoader(*data, batch_size=BATCH)
+    first = SeqLoader(*(a[:BATCH] for a in data), batch_size=BATCH)
+    trainers = {
+        name: SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(1), device="cuda"), vocab_chunk_size=chunk)
+        for name, chunk in (("chunked 8192", 8192), ("dense", None))
+    }
+    for tr in trainers.values():  # warm-up: cuBLAS handles, allocator, the optimizer's state
+        tr.train_one_epoch(first, log_interval=0)
+    torch.cuda.synchronize()
+    before = {name: [p.detach().clone() for p in tr.model.parameters()] for name, tr in trainers.items()}
+
+    reset_counts()
+    results = {}
+    for name, tr in trainers.items():
+        t0 = time.perf_counter()
+        loss = tr.train_one_epoch(loader, log_interval=0)  # ends in a host read of the losses
+        results[name] = (loss, time.perf_counter() - t0)
+    rab._FUSED_BWD[0] = False  # one step through the split pair K2a + K2b
+    try:
+        split_loss = trainers["chunked 8192"].train_one_epoch(first, log_interval=0)
+    finally:
+        rab._FUSED_BWD[0] = True
+    counts = read_counts()
+
+    fused_steps = len(trainers) * TRAIN_BATCHES
+    print(f"  launches over {fused_steps} steps + 1 split step, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    expected = {"hstu_rab_fwd": n_layers * (fused_steps + 1), "hstu_rab_bwd": n_layers * fused_steps, "hstu_rab_bwd_dq": n_layers, "hstu_rab_bwd_dkv": n_layers}
+    if counts != expected:
+        raise AssertionError(f"the training path did not run each kernel once per layer per step: {counts}, expected {expected}")
+    tokens = BATCH * TRAIN_BATCHES * l
+    for name, (loss, seconds) in results.items():
+        print(f"  {name}: train loss {loss:.6f}, {tokens / seconds:,.0f} tokens/s, {seconds / TRAIN_BATCHES * 1e3:.3f} ms per step of {BATCH} x L{l} (host clock, {TRAIN_BATCHES} steps)")
+        if not (math.isfinite(loss) and 0 < loss < 2 * math.log(vocab)):
+            raise AssertionError(f"training loss out of range ({name}): {loss}")
+        moved = [float((p.detach() - q).abs().max()) > 0 for p, q in zip(trainers[name].model.parameters(), before[name])]
+        if not all(moved):
+            raise AssertionError(f"{moved.count(False)} parameters did not move ({name})")
+    print(f"  split-pair step (K2a + K2b): loss {split_loss:.6f}")
+    if not math.isfinite(split_loss):
+        raise AssertionError("the split-pair step gave a non-finite loss")
+
+    # where a training step's time goes: its stages on one batch, device time
+    # against the host clock (the difference is the device waiting for the host)
+    toks, _, tds, tgts = next(iter(first))
+    toks, tds, tgts = (torch.from_numpy(a).cuda() for a in (toks, tds, tgts))
+    cotangent = torch.from_numpy(np.random.default_rng(2).normal(size=(BATCH, l, SERVE["d_model"])).astype(np.float32)).cuda()
+    for name, tr in trainers.items():
+        tr.model.train()
+
+        def fwd_layers_bwd(tr=tr):  # the layers' backward alone: a cotangent on the hidden states
+            tr.optimizer.zero_grad(set_to_none=True)
+            tr.model(toks, tds, return_hidden=True, generator=tr.generator)["hidden"].backward(cotangent)
+
+        def fwd_bwd(tr=tr):
+            tr.optimizer.zero_grad(set_to_none=True)
+            tr.loss_fn(toks, tds, tgts).backward()
+
+        stages = {
+            f"forward, {n_layers} HSTU layers (hidden states, autograd on)": lambda tr=tr: tr.model(toks, tds, return_hidden=True, generator=tr.generator),
+            "forward + backward of the hidden states (no loss)": fwd_layers_bwd,
+            "forward + loss": lambda tr=tr: tr.loss_fn(toks, tds, tgts),
+            "forward + loss + backward": fwd_bwd,
+            "train_step (+ Adam)": lambda tr=tr: tr.train_step(toks, tds, tgts),
+        }
+        t = []
+        for stage, fn in stages.items():
+            device, wall = timed(fn, cycles_per_ms)
+            t.append(device)
+            print(f"  {name} stage {stage}: device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
+        print(f"  {name} by difference (device ms): forward {t[0]:.4f}, loss {t[2] - t[0]:.4f}, backward of the layers and embeddings {t[1] - t[0]:.4f}, "
+              f"backward of the loss {t[3] - t[2] - (t[1] - t[0]):.4f}, Adam and zero_grad {t[4] - t[3]:.4f}")
+
+    for name, tr in trainers.items():
+        kernel_breakdown(name, lambda tr=tr: tr.train_step(toks, tds, tgts))
+
+    # one batch's parameter gradients against the same weights without the kernels
+    fused = trainers["chunked 8192"]
+    plain = SeqTrainer(HSTUModel(**SERVE, use_fused_kernel=False, device="cuda"), vocab_chunk_size=8192)
+    plain.model.load_state_dict(fused.model.state_dict())
+    for tr in (fused, plain):
+        tr.model.train()
+        tr.optimizer.zero_grad(set_to_none=True)
+        tr.loss_fn(toks, tds, tgts).backward()
+    worst = (0.0, "")
+    for (pname, a), b in zip(fused.model.named_parameters(), plain.model.parameters(), strict=True):
+        diff = (a.grad - b.grad).abs()
+        ratio = float((diff / (GRAD_ATOL_REL * float(b.grad.abs().max()) + 1e-12 + GRAD_RTOL * b.grad.abs())).max())
+        worst = max(worst, (ratio, pname))
+        if not (torch.isfinite(a.grad).all() and ratio <= 1.0):
+            raise AssertionError(f"the fused model's gradient of {pname} disagrees with the unfused one: max abs err {float(diff.max()):.3e}, ratio {ratio:.3f}")
+    print(f"  fused vs unfused parameter gradients, one batch: worst max |d|/(atol+rtol|ref|) {worst[0]:.3f} ({worst[1]}; rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x the tensor's max |ref|)")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -280,25 +519,34 @@ def main():
     print(f"  built in {seconds:.2f} s")
 
     cycles_per_ms = spin_cycles_per_ms()
+    cases = kernel_cases()
     print("kernel phase (hstu_rab_fwd vs plain PyTorch, fp32):")
-    k1 = kernel_phase(cycles_per_ms)
+    measured = {"hstu_rab_fwd": kernel_phase(cases, cycles_per_ms)}
+    print("backward kernel phase (hstu_rab_bwd, hstu_rab_bwd_dq + hstu_rab_bwd_dkv vs the plain backward, fp32):")
+    measured.update(backward_phase(cases, cycles_per_ms))
+    del cases
 
     print("serving phase (full-width HSTU through SeqTrainer):")
-    launches = serving_phase(cycles_per_ms)
+    launches = {name: 0 for name in COUNTERS}
+    launches["hstu_rab_fwd"] = serving_phase(cycles_per_ms)
+    print("training phase (full-width HSTU through SeqTrainer.train_one_epoch):")
+    for name, n in training_phase(cycles_per_ms).items():
+        launches[name] += n
 
+    sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", 267), **{k: ("hstu_rab_bwd.cu", v["line"]) for k, v in BWD_KERNELS.items()}}
     print(json.dumps({"kernels": [{
-        "name": "hstu_rab_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "torch_rechub_tpu_torch/csrc/hstu_rab_fwd.cu",
-        "replaces": "torch_rechub_tpu/ops/pallas/hstu_rab_attention.py:267",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes silu attention with a rab bias
-    }]}))
+        "source": f"torch_rechub_tpu_torch/csrc/{src}",
+        "replaces": f"torch_rechub_tpu/ops/pallas/hstu_rab_attention.py:{line}",
+        "launches": launches[name],  # serving path + training path
+        "max_abs_err": measured[name]["max_abs_err"],
+        "ms": measured[name]["ms"],
+        "plain_ms": measured[name]["plain_ms"],
+        "bound_ms": measured[name]["bound_ms"],
+        "bound_by": measured[name]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes silu attention, or its backward, with a rab bias
+    } for name, (src, line) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 

@@ -10,8 +10,12 @@ Counterpart of ``torch_rechub_tpu/basic/hstu.py``:
 - Eq.4: ``proj2(LayerNorm(A V) * U)``; the residual is added in ``HSTUBlock``.
 
 ``use_fused_kernel=True`` sends the attention through ``hstu_attention_rab``
-(the CUDA kernel on the card, its plain version on the CPU); ``False``
-materialises the dense bias with ``RelativeBucketedTimeAndPositionBias``.
+(the CUDA kernels on the card, forward and backward; the plain version on
+the CPU); ``False`` materialises the dense bias with
+``RelativeBucketedTimeAndPositionBias``.
+
+Dropout draws its masks from the ``generator`` passed to ``forward`` (the
+trainer's), not from torch's global RNG; it is active in ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -27,6 +31,15 @@ from ..utils.hstu_utils import RelativeBucketedTimeAndPositionBias
 from .initializers import linear
 
 
+def dropout(x: torch.Tensor, p: float, training: bool, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with masks from ``generator`` (flax ``nn.Dropout``: keep with
+    probability ``1-p``, scale kept values by ``1/(1-p)``)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class HSTULayer(nn.Module):
     def __init__(self, d_model: int = 512, n_heads: int = 8, dqk: int = 64, dv: int = 64, dropout: float = 0.1, max_seq_len: int = 200, num_time_buckets: int = 128, time_bucket_fn: str = "sqrt", time_bucket_divisor: float = 1.0, time_bucket_unit: str = "minutes", use_fused_kernel: bool = True, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -40,12 +53,12 @@ class HSTULayer(nn.Module):
         self.proj1 = linear(d_model, 2 * n_heads * dqk + 2 * n_heads * dv, generator, device)
         self.rab = RelativeBucketedTimeAndPositionBias(n_heads, max_seq_len, num_time_buckets, time_bucket_fn, time_bucket_divisor, time_bucket_unit, generator=generator, device=device)
         self.norm_attn = nn.LayerNorm(n_heads * dv, eps=1e-5, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.proj2 = linear(n_heads * dv, d_model, generator, device)
         # the kernel's integer bucket edges, computed once and moved with the module
         self.register_buffer("bucket_thresholds", torch.as_tensor(compute_bucket_thresholds(self.cfg), device=device), persistent=False)
 
-    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None, time_diffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None, time_diffs: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, l, _ = x.shape
         h, dqk, dv = self.n_heads, self.dqk, self.dv
         alpha = 1.0 / math.sqrt(dqk)
@@ -73,7 +86,7 @@ class HSTULayer(nn.Module):
             scores = scores.masked_fill(~valid, -1e4)
             attn = nn.functional.silu(scores) / self.max_seq_len
             out = torch.einsum("bhlm,bmhd->blhd", attn, v).reshape(b, l, h * dv)
-        gated = self.dropout(self.norm_attn(out) * u)
+        gated = dropout(self.norm_attn(out) * u, self.dropout, self.training, generator)
         return self.proj2(gated)
 
 
@@ -87,7 +100,7 @@ class HSTUBlock(nn.Module):
             for _ in range(n_layers)
         )
 
-    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None, time_diffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None, time_diffs: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = x + layer(x, padding_mask=padding_mask, time_diffs=time_diffs)
+            x = x + layer(x, padding_mask=padding_mask, time_diffs=time_diffs, generator=generator)
         return x

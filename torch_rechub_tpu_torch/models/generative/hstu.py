@@ -3,7 +3,8 @@
 Counterpart of ``torch_rechub_tpu/models/generative/hstu.py``: token +
 position + bucketed-time embeddings (PAD positions zeroed), an ``HSTUBlock``
 stack, a tied (or separate) output projection, optional L2-normalised
-scoring with a temperature, and the ``max_seq_len`` guard.
+scoring with a temperature, and the ``max_seq_len`` guard.  Dropout is active
+in ``train()`` mode and draws from the ``generator`` given to ``forward``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...basic.hstu import HSTUBlock
+from ...basic.hstu import HSTUBlock, dropout
 from ...basic.initializers import xavier_uniform_
 from ...utils.hstu_utils import bucketize_time
 
@@ -39,7 +40,7 @@ class HSTUModel(nn.Module):
             self.token_embedding[0].zero_()  # PAD row
         self.position_embedding = table(max_seq_len)
         self.time_embedding = table(num_time_buckets) if use_time_embedding else None
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.hstu_block = HSTUBlock(d_model, n_heads, n_layers, dqk, dv, dropout, max_seq_len, num_time_buckets, time_bucket_fn, time_bucket_divisor, time_bucket_unit, use_fused_kernel, generator=generator, device=device)
         if tie_embeddings:
             self.output_bias = nn.Parameter(torch.zeros(vocab_size, device=device)) if use_output_bias else None
@@ -47,7 +48,7 @@ class HSTUModel(nn.Module):
             self.output_projection = table(vocab_size)
             self.output_projection_bias = nn.Parameter(torch.zeros(vocab_size, device=device)) if use_output_bias else None
 
-    def forward(self, x: torch.Tensor, time_diffs: Optional[torch.Tensor] = None, return_hidden: bool = False):
+    def forward(self, x: torch.Tensor, time_diffs: Optional[torch.Tensor] = None, return_hidden: bool = False, generator: Optional[torch.Generator] = None):
         b, l = x.shape
         if l > self.max_seq_len:
             raise ValueError(f"Input seq_len ({l}) exceeds max_seq_len ({self.max_seq_len}).")
@@ -62,9 +63,9 @@ class HSTUModel(nn.Module):
             td = time_diffs if time_diffs is not None else torch.zeros((b, l), dtype=torch.int32, device=x.device)
             buckets = bucketize_time(td, self.num_time_buckets, self.time_bucket_fn, self.time_bucket_divisor, self.time_bucket_unit, max_bucket=self.num_time_buckets - 1)
             emb = emb + self.time_embedding[buckets]
-        emb = self.dropout(emb * padding_mask[..., None].to(emb.dtype))
+        emb = dropout(emb * padding_mask[..., None].to(emb.dtype), self.dropout, self.training, generator)
 
-        out = self.hstu_block(emb, padding_mask=padding_mask, time_diffs=time_diffs)
+        out = self.hstu_block(emb, padding_mask=padding_mask, time_diffs=time_diffs, generator=generator)
         out = out * padding_mask[..., None].to(out.dtype)
 
         if self.tie_embeddings:

@@ -1,24 +1,28 @@
 """HSTU silu attention with on-the-fly relative position/time bias (rab).
 
 Counterpart of ``torch_rechub_tpu/ops/pallas/hstu_rab_attention.py``.  The
-kernel receives only the small bias tables, ``pos_w (2*maxL-1, H)`` and
+kernels receive only the small bias tables, ``pos_w (2*maxL-1, H)`` and
 ``ts_w (nb+1, H)``, the raw ``(B, L)`` timestamps and the integer bucket
-thresholds, and rebuilds each bias element on the fly, so no ``(B, H, L, L)``
-tensor is ever formed.
+thresholds, and rebuild each bias element on the fly, so no ``(B, H, L, L)``
+tensor is ever formed, forward or backward.
 
-Replaces the TPU kernel ``ops/pallas/hstu_rab_attention.py:_fwd_kernel``
-(K1) with ``csrc/hstu_rab_fwd.cu``, a CUDA C++ kernel for Hopper (sm_90a),
-bound through ctypes.  At the serving shape the work is fp32 FMA-bound
-(about 32 FLOP per byte of q/k/v/out, above the card's fp32 ridge of 20);
-the kernel stages K/V tiles and the head's table columns in shared memory,
-keeps the accumulator in registers and looks buckets up by binary search
-over the thresholds; the source note has the details and what comes next.
+Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
 
-Dispatch: a tensor on the CPU takes the plain PyTorch version
-(:func:`dense_forward`, differentiable by autograd).  A tensor on a CUDA
-device launches the kernel, or raises: there is no fallback.  The kernel
-has no backward yet (the TPU's fused backward K2 comes with the training
-slice), so differentiating through it raises.
+- forward, ``csrc/hstu_rab_fwd.cu``, replaces the TPU's ``_fwd_kernel`` (K1).
+  At the serving shape the work is fp32 FMA-bound (about 32 FLOP per byte of
+  q/k/v/out, above the card's fp32 ridge of 20); the kernel stages K/V tiles
+  and the head's table columns in shared memory, keeps the accumulator in
+  registers and looks buckets up by binary search over the thresholds.
+- backward, ``csrc/hstu_rab_bwd.cu``: ``hstu_rab_bwd`` replaces the fused
+  ``_bwd_fused_kernel`` (K2, the default), ``hstu_rab_bwd_dq`` and
+  ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
+  (K2a, K2b), taken when ``_FUSED_BWD[0]`` is False, as in the JAX package.
+  All three are fp32 FMA-bound; the source note has the design.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch versions
+(:func:`dense_forward`, differentiable by autograd, and
+:func:`dense_backward`).  A tensor on a CUDA device launches the kernels, or
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -32,10 +36,17 @@ import torch.nn.functional as F
 from ...utils.hstu_utils import bucketize_time
 from . import _build
 
-launches = 0  # kernel launches of this process; reset and read by chip_smoke.py
+# kernel launches of this process, one count per kernel; reset and read by chip_smoke.py
+launches = 0  # K1, hstu_rab_fwd
+launches_bwd = 0  # K2, hstu_rab_bwd
+launches_bwd_dq = 0  # K2a, hstu_rab_bwd_dq
+launches_bwd_dkv = 0  # K2b, hstu_rab_bwd_dkv
+
+_FUSED_BWD = [True]  # False takes the split pair K2a + K2b (the JAX package's A/B switch)
 
 MAX_DV = 128
 MAX_DQK = 256
+MAX_BWD_WIDTH = 128  # the backward kernels keep dq / dk / dv rows of up to 128 in registers
 
 
 class BucketCfg(NamedTuple):
@@ -110,6 +121,19 @@ def dense_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: float, 
     return torch.einsum("bhlm,bhmd->bhld", attn, v.to(attn.dtype)).to(q.dtype)
 
 
+def dense_backward(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, has_time: bool):
+    """``(dq, dk, dv, dpos, dts)``: autograd of :func:`dense_forward` against ``g``.
+
+    The plain version of all three backward kernels; each is held against
+    its subset.  ``dts`` is zeros when ``has_time`` is False, as JAX's vjp gives.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, pos_w, ts_w)]
+        out = dense_forward(*leaves, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
+        grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d for t, d in zip(leaves, grads))
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -177,17 +201,120 @@ def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: f
     return out
 
 
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("hstu_rab_bwd")
+    if lib.hstu_rab_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.hstu_rab_bwd, lib.hstu_rab_bwd_dq, lib.hstu_rab_bwd_dkv):
+            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, p]
+            fn.restype = i
+        lib.hstu_rab_bwd_error_string.argtypes = [i]
+        lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
+    """Launch one backward kernel into the given outputs (None: not produced)."""
+    num_buckets = ts_w.shape[0] - 1
+    _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
+    b, h, l, dqk = q.shape
+    dv_dim = v.shape[-1]
+    if g.device != q.device or g.dtype != torch.float32 or g.shape != v.shape or not g.is_contiguous():
+        raise ValueError(f"{entry}: the output gradient must be a contiguous float32 {tuple(v.shape)} tensor on {q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if max(dqk, dv_dim) > MAX_BWD_WIDTH:
+        raise ValueError(f"{entry}: the backward kernels take dqk, dv <= {MAX_BWD_WIDTH}, got dqk={dqk} dv={dv_dim}")
+    lib = _lib_bwd()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
+            ptr(timestamps), ptr(padding_mask), ptr(dq), ptr(dk), ptr(dv), ptr(dpos), ptr(dts),
+            b, h, l, dqk, dv_dim, max_seq_len, num_buckets, float(alpha), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: {lib.hstu_rab_bwd_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv_dim})")
+
+
+def _dispatch_bwd(name: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds):
+    """CPU: the plain backward (None); CUDA: the thresholds the kernel takes; else raise."""
+    if q.device.type == "cpu":
+        return dense_backward(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None), None
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on the CPU (plain version) or a CUDA device (kernel), not {q.device}")
+    return None, compute_bucket_thresholds(cfg).to(q.device) if thresholds is None else thresholds
+
+
+def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
+    """K2: ``(dq, dk, dv, dpos, dts)`` in one pass (the plain version on the CPU).
+
+    dq and the table gradients are sums of fp32 atomics across CTAs, whose
+    order changes from run to run.
+    """
+    global launches_bwd
+    plain, thresholds = _dispatch_bwd("rab_backward_fused", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
+    if plain is not None:
+        return plain
+    dq, dk, dv = torch.zeros_like(q), torch.empty_like(k), torch.empty_like(v)
+    dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
+    _launch_bwd("hstu_rab_bwd", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dq=dq, dk=dk, dv=dv, dpos=dpos, dts=dts)
+    launches_bwd += 1
+    return dq, dk, dv, dpos, dts
+
+
+def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
+    """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU)."""
+    global launches_bwd_dq
+    plain, thresholds = _dispatch_bwd("rab_backward_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
+    if plain is not None:
+        return plain[0], plain[3], plain[4]
+    dq = torch.empty_like(q)
+    dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
+    _launch_bwd("hstu_rab_bwd_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dq=dq, dpos=dpos, dts=dts)
+    launches_bwd_dq += 1
+    return dq, dpos, dts
+
+
+def rab_backward_dkv(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
+    """K2b: ``(dk, dv)`` (the plain version's on the CPU)."""
+    global launches_bwd_dkv
+    plain, thresholds = _dispatch_bwd("rab_backward_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
+    if plain is not None:
+        return plain[1], plain[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("hstu_rab_bwd_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dk=dk, dv=dv)
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
 class _RabAttentionKernel(torch.autograd.Function):
+    """K1 forward; K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False.
+
+    Saves the inputs, the tables, the stamps, the mask and the thresholds,
+    and no ``(L, L)`` tensor: the backward kernels rebuild every tile.
+    """
+
     @staticmethod
-    def forward(ctx, q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len):
+    def forward(ctx, q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg):
+        ctx.save_for_backward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds)
+        ctx.alpha, ctx.max_seq_len, ctx.cfg = alpha, max_seq_len, cfg
         return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "hstu_attention_rab has no CUDA backward yet: the TPU's fused backward kernel "
-            "(ops/pallas/hstu_rab_attention.py:_bwd_fused_kernel, K2) is ported with the training slice"
-        )
+        # the gradient arrives through attn_out.transpose(1, 2).reshape(...): not contiguous
+        g = grad_out.contiguous()
+        q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds = ctx.saved_tensors
+        args = (q, k, v, g, pos_w, ts_w, timestamps, padding_mask, ctx.alpha, ctx.max_seq_len, ctx.cfg, thresholds)
+        if _FUSED_BWD[0]:
+            dq, dk, dv, dpos, dts = rab_backward_fused(*args)
+        else:
+            dq, dpos, dts = rab_backward_dq(*args)
+            dk, dv = rab_backward_dkv(*args)
+        return dq, dk, dv, dpos, dts, None, None, None, None, None, None
 
 
 def hstu_attention_rab(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -218,4 +345,4 @@ def hstu_attention_rab(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: fl
         thresholds = compute_bucket_thresholds(cfg).to(q.device)
     if has_time:
         timestamps = timestamps.to(torch.int32).contiguous()
-    return _RabAttentionKernel.apply(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len)
+    return _RabAttentionKernel.apply(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)

@@ -13,6 +13,11 @@ into the port's counterpart module.  The mapping:
 
 ``proj1``'s output columns keep the reference's q | k | u | v order, which
 ``HSTULayer`` splits the same way.
+
+:func:`load_optax_adam_state` carries optax's ``ScaleByAdamState`` (``mu``,
+``nu``, ``count``) into ``torch.optim.Adam``'s state (``exp_avg``,
+``exp_avg_sq``, ``step``) by the same mapping, so a run that took N steps
+in the JAX package continues in the port.
 """
 
 from __future__ import annotations
@@ -48,3 +53,21 @@ def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torc
     """Copy a flax ``params`` tree into ``module`` (every parameter, strictly)."""
     module.load_state_dict(flax_to_state_dict(params), strict=True)
     return module
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, module: torch.nn.Module, mu: Mapping[str, Any], nu: Mapping[str, Any], count) -> torch.optim.Optimizer:
+    """Set ``optimizer``'s Adam state for every parameter of ``module`` from
+    optax's first and second moments (flax-shaped trees of numpy arrays) and
+    its step count."""
+    mu_sd, nu_sd = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    params = dict(module.named_parameters())
+    if set(mu_sd) != set(params) or set(nu_sd) != set(params):
+        raise ValueError(f"Adam moments do not cover the module's parameters: {sorted(set(params) ^ set(mu_sd))}")
+    step = float(np.asarray(count))
+    for name, p in params.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu_sd[name].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu_sd[name].to(device=p.device, dtype=p.dtype),
+        }
+    return optimizer
