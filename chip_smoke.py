@@ -8,7 +8,9 @@
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
    serving shape and at adversarial ones, with a stated tolerance, and timed
    beside its bound: the forward K1, then the backward K2 and K2a + K2b
-   against the plain backward, on all five gradients.
+   against the plain backward, on all five gradients; then K3 through the
+   op ``hstu_attention`` (materialised bias) on seven cases, against K1 on
+   the serving model's own rab, and the op's gradients; its launch count.
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
    (V40000, d256, 8 heads, 4 layers, L256, batch 8) with random weights from a
    seed, through ``SeqTrainer.evaluate`` / ``predict_logits``, dense and
@@ -28,6 +30,7 @@ Float32 throughout, TF32 off.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -41,10 +44,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
-from torch_rechub_tpu_torch.ops.cuda import _build  # noqa: E402
+from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
 from torch_rechub_tpu_torch.trainers.seq_trainer import SeqTrainer  # noqa: E402
 from torch_rechub_tpu_torch.utils.data import SeqLoader  # noqa: E402
+from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
+
+# the module of the op K3: the package binds the name hstu_attention to the op itself
+attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -279,6 +286,126 @@ def backward_phase(cases, cycles_per_ms):
             print(f"    plain backward device {plain_ms:.4f} ms, host clock {plain_wall:.4f} ms (medians of {REPS})")
     print(f"  tolerances: dq/dk/dv rtol {BWD_RTOL} atol {BWD_ATOL}; dpos/dts rtol {TABLE_RTOL}, atol {TABLE_ATOL_REL} x the table's max |ref|")
     return {kernel: dict(max_abs_err=worst[kernel], **next(iter(timings[kernel].values()))) for kernel in BWD_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# 3b. the materialised-bias op hstu_attention (K3)
+# ---------------------------------------------------------------------------
+
+def bias_case(seed, b, l, max_seq_len, times="sorted", mask="suffix", shared=False, nan=False, h=8, d=32):
+    """q, k, v and the bias that the serving HSTU's own rab module makes from seeded tables and stamps."""
+    c = rab_case(seed, b, l, max_seq_len, times=times, mask=mask, h=h, d=d, nb=SERVE["num_time_buckets"])
+    dev = c["q"].device
+    module = RelativeBucketedTimeAndPositionBias(h, max_seq_len, SERVE["num_time_buckets"], SERVE["time_bucket_fn"], 1.0, SERVE["time_bucket_unit"],
+                                                 generator=torch.Generator().manual_seed(seed), device=dev)
+    with torch.no_grad():
+        bias = module(seq_len=l) if shared else module(c["ts"])
+        c["pos_w"], c["ts_w"] = (t.detach() for t in module.tables())
+    bias = bias.contiguous()  # the module's output is a permuted view
+    if nan:  # NaN where no valid pair reads: the upper triangle and the masked keys
+        bias.masked_fill_(~torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev)), float("nan"))
+        bias.masked_fill_(~c["mask"][:, None, None, :], float("nan"))
+    c.update(bias=bias, max_seq_len=float(max_seq_len))
+    return c
+
+
+def bias_cases():
+    return {
+        "(a) serve B8 L256, the model's own (B, H, L, L) rab, sorted stamps, suffix padding": bias_case(20, 8, 256, 256),
+        "(b) B8 L256 shared (1, H, L, L) position-only bias": bias_case(21, 8, 256, 256, shared=True),
+        "(c) B8 L256 shuffled stamps, scattered mask, one empty row": bias_case(22, 8, 256, 256, times="shuffled", mask="scattered"),
+        "(d) B8 L200 ragged, maxL256": bias_case(23, 8, 200, 256),
+        "(e) B8 L256 padding_mask None": bias_case(24, 8, 256, 256, mask=None),
+        "(f) B8 L256 NaN in the bias's upper triangle and at masked keys": bias_case(20, 8, 256, 256, nan=True),
+        "(g) B8 L1024 maxL1024": bias_case(25, 8, 1024, 1024),
+    }
+
+
+def run_op(c, bias=None):
+    return hstu_attention(c["q"], c["k"], c["v"], c["bias"] if bias is None else bias, c["mask"], c["alpha"], c["max_seq_len"])
+
+
+def run_op_plain(c, bias=None):
+    return attn.dense_forward(c["q"], c["k"], c["v"], c["bias"] if bias is None else bias, c["mask"], c["alpha"], c["max_seq_len"])
+
+
+def attn_bound(c):
+    """K3: 2 (dqk + dv) FLOP per valid pair; q, k, v, the mask and the output
+    moved once, and of the bias only the elements some valid pair reads."""
+    b, h, l, dqk = c["q"].shape
+    dv = c["v"].shape[-1]
+    keys = torch.ones((b, l), dtype=torch.bool, device=c["q"].device) if c["mask"] is None else c["mask"]
+    pairs = valid_pairs(c)
+    bias_elems = pairs if c["bias"].shape[0] == b else h * int(keys.any(0).to(torch.int64).cumsum(0).sum())
+    nbytes = 4 * (2 * c["q"].numel() + 2 * c["v"].numel()) + (0 if c["mask"] is None else keys.numel()) + 4 * bias_elems
+    return bound(2 * pairs * (dqk + dv), nbytes)
+
+
+def check_close(name, got, ref, rtol, atol):
+    diff = (got - ref).abs()
+    err, ratio = float(diff.max()), float((diff / (atol + rtol * ref.abs())).max())
+    if not (torch.isfinite(got).all() and ratio <= 1.0):
+        raise AssertionError(f"{name}: max abs err {err:.3e}, max |d|/(atol+rtol|ref|) {ratio:.3f}")
+    return err, ratio
+
+
+def attention_phase(cases, cycles_per_ms):
+    """K3 through the op on every case against its plain version, against K1 on
+    the model's own rab, and its gradients; the launch count of these op calls."""
+    attn.launches = 0
+    calls = 0
+    worst = 0.0
+    for name, c in cases.items():
+        with torch.no_grad():
+            out = run_op(c)
+            calls += 1
+            ref = run_op_plain(c)
+        torch.cuda.synchronize()
+        err, ratio = check_close(f"hstu_attn_fwd vs its plain version, {name}", out, ref, KERNEL_RTOL, KERNEL_ATOL)
+        worst = max(worst, err)
+        print(f"  {name}: max abs err {err:.3e} (max |ref| {float(ref.abs().max()):.3e}), max |d|/(atol+rtol|ref|) {ratio:.3f}")
+        if c["mask"] is not None and not bool(c["mask"][0].any()) and not bool((out[0] == 0).all()):
+            raise AssertionError("a fully masked row must give zeros")
+        if name.startswith("(a)"):
+            with torch.no_grad():
+                k1 = rab.hstu_attention_rab(c["q"], c["k"], c["v"], c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], int(c["max_seq_len"]), c["cfg"], c["thr"])
+            err, ratio = check_close("hstu_attn_fwd vs hstu_rab_fwd on the model's own rab", out, k1, KERNEL_RTOL, KERNEL_ATOL)
+            print(f"    against K1 (hstu_attention_rab) on the same tables, stamps and mask: max abs err {err:.3e}, ratio {ratio:.3f}")
+    print(f"  tolerance: rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}")
+
+    for name, c in cases.items():
+        if not name.startswith(("(a)", "(b)")):
+            continue
+        g = torch.from_numpy(np.random.default_rng(11).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+        got, ref = ([t.detach().clone().requires_grad_(True) for t in (c["q"], c["k"], c["v"], c["bias"])] for _ in range(2))
+        hstu_attention(*got, c["mask"], c["alpha"], c["max_seq_len"]).backward(g)
+        calls += 1
+        attn.dense_forward(*ref, c["mask"], c["alpha"], c["max_seq_len"]).backward(g)
+        torch.cuda.synchronize()
+        if got[3].grad.shape != c["bias"].shape:
+            raise AssertionError(f"dbias has shape {tuple(got[3].grad.shape)}, the bias {tuple(c['bias'].shape)}")
+        parts = []
+        for gname, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            err, ratio = check_close(f"hstu_attention's {gname} vs autograd of the plain version, {name}", a.grad, r.grad, BWD_RTOL, BWD_ATOL)
+            parts.append(f"{gname} {err:.2e} ({ratio:.3f})")
+        print(f"  backward through the op, {name}: dbias {tuple(got[3].grad.shape)}; max abs err (ratio) " + ", ".join(parts))
+
+    launches = attn.launches
+    print(f"  hstu_attn_fwd launches {launches} over {calls} op calls")
+    if launches != calls:
+        raise AssertionError(f"hstu_attention did not launch K3 once per call: {launches} launches, {calls} calls")
+
+    timings = {}
+    for name, c in cases.items():
+        if not name.startswith(("(a)", "(b)", "(g)")):
+            continue
+        with torch.no_grad():
+            (ms, wall), (plain_ms, plain_wall) = timed(lambda: run_op(c), cycles_per_ms), timed(lambda: run_op_plain(c), cycles_per_ms)
+        bound_ms, bound_by = attn_bound(c)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  {name}: device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {valid_pairs(c):,} valid pairs); "
+              f"host clock per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; medians of {REPS}")
+    return dict(launches=launches, max_abs_err=worst, **timings[next(iter(timings))])
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +652,8 @@ def main():
     print("backward kernel phase (hstu_rab_bwd, hstu_rab_bwd_dq + hstu_rab_bwd_dkv vs the plain backward, fp32):")
     measured.update(backward_phase(cases, cycles_per_ms))
     del cases
+    print("materialised-bias attention phase (hstu_attention: hstu_attn_fwd vs plain PyTorch and vs hstu_rab_fwd, fp32):")
+    k3 = attention_phase(bias_cases(), cycles_per_ms)
 
     print("serving phase (full-width HSTU through SeqTrainer):")
     launches = {name: 0 for name in COUNTERS}
@@ -533,20 +662,25 @@ def main():
     for name, n in training_phase(cycles_per_ms).items():
         launches[name] += n
 
-    sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", 267), **{k: ("hstu_rab_bwd.cu", v["line"]) for k, v in BWD_KERNELS.items()}}
+    sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
+               "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45")}
+    launches["hstu_attn_fwd"] = k3.pop("launches")  # the op's own path: it lies on no model's path
+    measured["hstu_attn_fwd"] = k3
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
-        "replaces": f"torch_rechub_tpu/ops/pallas/hstu_rab_attention.py:{line}",
-        "launches": launches[name],  # serving path + training path
+        "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
+        "launches": launches[name],  # serving path + training path; K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],
         "bound_ms": measured[name]["bound_ms"],
         "bound_by": measured[name]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes silu attention, or its backward, with a rab bias
-    } for name, (src, line) in sources.items()]}))
+        # no single PyTorch call computes silu attention, or its backward, with a
+        # rab bias: scaled_dot_product_attention has a softmax
+        "library_ms": None,
+    } for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 

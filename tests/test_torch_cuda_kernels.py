@@ -9,6 +9,7 @@ installed:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.)
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -17,6 +18,9 @@ import torch
 
 from torch_rechub_tpu_torch.models.generative import HSTUModel
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab
+
+# the package binds the name hstu_attention to the op: the module by its full name
+attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +232,85 @@ def test_model_fused_matches_unfused_on_card(card):
         got, ref = fused(toks, tds), plain(toks, tds)
     assert rab.launches == before + 2
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# K3, the materialised-bias op: the kernel against dense_forward (same
+# tolerance as K1), its gradients, and against K1 on a materialised rab.
+BIAS_CASES = {
+    "per_batch_suffix": dict(),
+    "shared_suffix": dict(shared=True),
+    "per_batch_scattered": dict(mask="scattered"),
+    "shared_scattered": dict(mask="scattered", shared=True),
+    "empty_row": dict(mask="empty_row"),
+    "no_mask": dict(mask=None),
+    "shared_no_mask": dict(mask=None, shared=True),
+    "ragged_200": dict(l=200),
+    "ragged_77_shared": dict(l=77, shared=True),
+    "dqk8_dv16": dict(d=8, dv=16),
+    "dqk12_dv20_ragged": dict(l=131, d=12, dv=20),
+    "dqk64_dv128": dict(l=128, d=64, dv=128),
+    "nan_upper_triangle": dict(nan=True),
+    "long_1024": dict(b=1, l=1024),
+}
+
+
+def bias_inputs(device, b=2, h=3, l=256, d=32, dv=32, seed=0, mask="suffix", shared=False, nan=False):
+    t, _ = rab_inputs(device, b=b, h=h, l=l, maxl=l, d=d, dv=dv, seed=seed, times=None, mask=mask)
+    rng = np.random.default_rng(seed + 100)
+    bias = torch.from_numpy((rng.normal(size=(1 if shared else b, h, l, l)) * 0.1).astype(np.float32)).to(device)
+    if nan:  # NaN where no valid pair reads: the upper triangle and the masked keys
+        bias.masked_fill_(~torch.tril(torch.ones((l, l), dtype=torch.bool, device=device)), float("nan"))
+        bias.masked_fill_(~t["padding_mask"][:, None, None, :], float("nan"))
+    return t["q"], t["k"], t["v"], bias, t["padding_mask"], 1.0 / math.sqrt(d), float(l)
+
+
+@pytest.mark.parametrize("case", list(BIAS_CASES))
+def test_attention_kernel_matches_plain(card, case):
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, **BIAS_CASES[case])
+    before = attn.launches
+    out = attn.hstu_attention(q, k, v, bias, mask, alpha, n)
+    torch.cuda.synchronize()
+    assert attn.launches == before + 1
+    torch.testing.assert_close(out, attn.dense_forward(q, k, v, bias, mask, alpha, n), rtol=RTOL, atol=ATOL)
+    if case == "empty_row":
+        assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_batch", "shared"])
+def test_attention_gradients_on_card(card, shared):
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, mask="scattered", shared=shared)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=v.shape).astype(np.float32)).to(card)
+    got, ref = ([x.clone().requires_grad_(True) for x in (q, k, v, bias)] for _ in range(2))
+    before = attn.launches
+    attn.hstu_attention(*got, mask, alpha, n).backward(g)
+    attn.dense_forward(*ref, mask, alpha, n).backward(g)
+    torch.cuda.synchronize()
+    assert attn.launches == before + 1
+    assert got[3].grad.shape == bias.shape
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=BWD_RTOL, atol=BWD_ATOL, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("times", ["sorted", None])
+def test_attention_kernel_on_a_dense_rab_matches_k1(card, times):
+    t, kw = rab_inputs(card, times=times, mask="scattered")
+    bias = rab.dense_bias(t["pos_w"], t["ts_w"], t["timestamps"], t["q"].shape[2], kw["max_seq_len"], kw["cfg"], times is not None).contiguous()
+    out = attn.hstu_attention(t["q"], t["k"], t["v"], bias, t["padding_mask"], kw["alpha"], float(kw["max_seq_len"]))
+    k1 = rab.hstu_attention_rab(t["q"], t["k"], t["v"], t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    torch.cuda.synchronize()
+    assert bias.shape[0] == (t["q"].shape[0] if times else 1)
+    torch.testing.assert_close(out, k1, rtol=RTOL, atol=ATOL)
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(card):
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, b=3)
+    with pytest.raises(TypeError, match="float32"):
+        attn.hstu_attention(q.to(torch.bfloat16), k, v, bias, mask, alpha, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.hstu_attention(q, k, v, bias.transpose(2, 3), mask, alpha, n)
+    with pytest.raises(ValueError, match="bias must be"):
+        attn.hstu_attention(q, k, v, bias[:2].contiguous(), mask, alpha, n)
+    with pytest.raises(ValueError, match="dv"):
+        attn.hstu_attention(q, k, torch.zeros((*v.shape[:3], 160), device=card), bias, mask, alpha, n)
+    with pytest.raises(ValueError, match="is on cpu"):
+        attn.hstu_attention(q, k, v, bias.cpu(), mask, alpha, n)

@@ -7,7 +7,8 @@ and ``numpy`` only: never ``jax``, ``flax``, ``optax`` or the JAX package.
 Ported so far: the HSTU serving and training paths (``HSTUModel`` through
 ``SeqTrainer.fit`` / ``train_one_epoch`` / ``evaluate`` / ``predict_logits``),
 whose attention runs hand-written CUDA kernels on the card, forward
-(``csrc/hstu_rab_fwd.cu``) and backward (``csrc/hstu_rab_bwd.cu``).
+(``csrc/hstu_rab_fwd.cu``) and backward (``csrc/hstu_rab_bwd.cu``); and
+the materialised-bias op ``ops.cuda.hstu_attention`` (``csrc/hstu_attn_fwd.cu``).
 """
 
 __version__ = "0.1.0"

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"hstu_rab_fwd": CSRC / "hstu_rab_fwd.cu", "hstu_rab_bwd": CSRC / "hstu_rab_bwd.cu"}
+SOURCES = {"hstu_rab_fwd": CSRC / "hstu_rab_fwd.cu", "hstu_rab_bwd": CSRC / "hstu_rab_bwd.cu", "hstu_attn_fwd": CSRC / "hstu_attn_fwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
