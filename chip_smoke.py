@@ -4,11 +4,15 @@
     python3 chip_smoke.py
 
 1. Card: its name and power limit; fails without a CUDA device.
-2. Build: every CUDA source of the port, with nvcc, from this checkout.
+2. Build: every CUDA source of the port, with nvcc, from this checkout;
+   the build log (ptxas's registers per kernel), and K1's and K2's CTAs per
+   SM, registers and shared memory.
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
    serving shape and at adversarial ones, with a stated tolerance, and timed
-   beside its bound: the forward K1, then the backward K2 and K2a + K2b
-   against the plain backward, on all five gradients; then K3 through the
+   beside its bound (for K1 and K2 both the fp32-FMA and the 3xTF32
+   tensor-core bound): the forward K1, then the backward K2 and K2a + K2b
+   against the plain backward, on all five gradients; the bucket sweep (K1
+   and K2 at every time-bucket threshold); then K3 through the
    op ``hstu_attention`` (materialised bias) on seven cases, against K1 on
    the serving model's own rab, and the op's gradients; its launch count.
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
@@ -53,9 +57,13 @@ from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPosit
 # the module of the op K3: the package binds the name hstu_attention to the op itself
 attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores,
+# dense TF32 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_HBM_BYTES = 3.35e12
+TF32_PASSES = 3  # K1 and K2 run every product as 3xTF32: hi*hi + hi*lo + lo*hi
+TENSOR_CORE_KERNELS = ("hstu_rab_fwd", "hstu_rab_bwd")
 # kernel vs plain version: fp32 sums of up to L products in another order than cuBLAS
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # backward kernels vs the plain backward: dq, dk, dv as the forward (K2's dq
@@ -122,7 +130,7 @@ def timed(fn, cycles_per_ms, reps=REPS, warmup=3):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    spin = int(3 * max(walls) * cycles_per_ms)
+    spin = int((3 * max(walls) + 1.0) * cycles_per_ms)  # 1 ms of margin: a host hiccup must not outlast the wait
     times = []
     for _ in range(reps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -188,10 +196,26 @@ def valid_pairs(c):
     return h * int(keys.cumsum(1).sum())
 
 
-def bound(flops, nbytes):
-    """(bound ms, what bounds it): fp32 FLOPs at the fp32 peak vs bytes at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    """(bound ms, what bounds it): FLOPs at the peak of the units that run them vs bytes at the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def both_bounds(kernel, flops, nbytes):
+    """{"fp32": (ms, by), "tensor": (ms, by) or None, "bound_ms", "bound_by"}: the fp32-FMA bound, and
+    for the tensor-core kernels the 3xTF32 bound, which is then the least time and the reported one."""
+    fp32 = bound(flops, nbytes)
+    tensor = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS) if kernel in TENSOR_CORE_KERNELS else None
+    least = tensor or fp32
+    return dict(fp32=fp32, tensor=tensor, bound_ms=least[0], bound_by=least[1])
+
+
+def bounds_text(b):
+    text = f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+    if b["tensor"] is not None:
+        text += f"; fp32-FMA bound {b['fp32'][0]:.4f} ms ({b['fp32'][1]}), 3xTF32 tensor-core bound {b['tensor'][0]:.4f} ms ({b['tensor'][1]})"
+    return text
 
 
 def input_bytes(c):
@@ -201,14 +225,14 @@ def input_bytes(c):
 def rab_bound(c):
     """K1: 2 (dqk + dv) FLOP per valid pair; inputs read and the output written once."""
     dqk, dv = c["q"].shape[-1], c["v"].shape[-1]
-    return bound(2 * valid_pairs(c) * (dqk + dv), input_bytes(c) + c["v"].numel() * 4)
+    return both_bounds("hstu_rab_fwd", 2 * valid_pairs(c) * (dqk + dv), input_bytes(c) + c["v"].numel() * 4)
 
 
 def bwd_bound(c, g, kernel, outs):
     """A backward kernel: its FMAs per valid pair; inputs and g read, its outputs written once."""
     fq, fv = BWD_KERNELS[kernel]["fma"]
     dqk, dv = c["q"].shape[-1], c["v"].shape[-1]
-    return bound(2 * valid_pairs(c) * (fq * dqk + fv * dv), input_bytes(c) + g.numel() * 4 + sum(o.numel() * 4 for o in outs))
+    return both_bounds(kernel, 2 * valid_pairs(c) * (fq * dqk + fv * dv), input_bytes(c) + g.numel() * 4 + sum(o.numel() * 4 for o in outs))
 
 
 def kernel_cases():
@@ -220,6 +244,43 @@ def kernel_cases():
         "B8 L200 ragged, maxL256": rab_case(3, 8, 200, 256),
         "B8 L1024 maxL1024": rab_case(4, 8, 1024, 1024),
     }
+
+
+def sweep_case(cfg, h=8, d=32, seed=30):
+    """CPU tensors on ``rab.bucket_sweep_stamps``: |t_l - t_m| hits every reachable threshold
+    -1, 0 and +1 (row 0), and wrapping stamps reach |dt| = 2**31 (row 1)."""
+    ts = rab.bucket_sweep_stamps(cfg, seed)
+    l = ts.shape[1]
+    rng = np.random.default_rng(seed)
+    arr = {"q": rng.normal(size=(2, h, l, d)) * 0.1, "k": rng.normal(size=(2, h, l, d)) * 0.1, "v": rng.normal(size=(2, h, l, d)) * 0.3,
+           "pos_w": rng.normal(size=(2 * l - 1, h)) * 0.1, "ts_w": rng.normal(size=(cfg.num_buckets + 1, h))}  # large ts_w: a bucket off shows
+    case = {k: torch.from_numpy(a.astype(np.float32)) for k, a in arr.items()}
+    case.update(ts=ts, mask=torch.ones((2, l), dtype=torch.bool), cfg=cfg, thr=rab.compute_bucket_thresholds(cfg), max_seq_len=l, alpha=1.0 / math.sqrt(d))
+    return case
+
+
+def sweep_phase():
+    """K1 and K2 on the bucket sweep of every config, against the plain version on the CPU (where
+    the thresholds were computed: the card's log may round an edge differently).  Max abs errs."""
+    worst = {"hstu_rab_fwd": 0.0, "hstu_rab_bwd": 0.0}
+    for cfg in rab.SWEEP_CFGS:
+        c = sweep_case(cfg)
+        g = torch.from_numpy(np.random.default_rng(31).normal(size=tuple(c["v"].shape)).astype(np.float32))
+        dev = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in c.items()}
+        out = run_kernel(dev).cpu()
+        args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
+        got = [t.cpu() for t in rab.rab_backward_fused(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args), dev["thr"])]
+        ref, ref_grads = run_plain(c), rab.dense_backward(*args, True)
+        err, ratio = check_close(f"hstu_rab_fwd on the bucket sweep {cfg}", out, ref, KERNEL_RTOL, KERNEL_ATOL)
+        worst["hstu_rab_fwd"] = max(worst["hstu_rab_fwd"], err)
+        parts = [f"out {err:.2e} ({ratio:.3f})"]
+        for name, a, r in zip(GRAD_NAMES, got, ref_grads):
+            rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(r.abs().max()) + 1e-12) if name in ("dpos", "dts") else (BWD_RTOL, BWD_ATOL)
+            err, ratio = check_close(f"hstu_rab_bwd's {name} on the bucket sweep {cfg}", a, r, rtol, atol)
+            worst["hstu_rab_bwd"] = max(worst["hstu_rab_bwd"], err)
+            parts.append(f"{name} {err:.2e} ({ratio:.3f})")
+        print(f"  bucket sweep {tuple(cfg)}, L{c['max_seq_len']}, {len(c['thr'])} thresholds: max abs err (ratio) " + ", ".join(parts))
+    return worst
 
 
 def kernel_phase(cases, cycles_per_ms):
@@ -240,9 +301,9 @@ def kernel_phase(cases, cycles_per_ms):
         worst = max(worst, err)
         if name.startswith("serve") or "L1024" in name:
             (ms, wall), (plain_ms, plain_wall) = timed(lambda: run_kernel(c), cycles_per_ms), timed(lambda: run_plain(c), cycles_per_ms)
-            bound_ms, bound_by = rab_bound(c)
-            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-            print(f"    device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            b = rab_bound(c)
+            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            print(f"    device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bounds_text(b)}; "
                   f"host clock per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; medians of {REPS}")
     serve = timings[next(iter(timings))]
     return dict(max_abs_err=worst, **serve)
@@ -276,9 +337,9 @@ def backward_phase(cases, cycles_per_ms):
             print(f"  {case}, {kernel}: max abs err (max |d|/(atol+rtol|ref|)) " + ", ".join(parts))
             if case.startswith("serve") or "L1024" in case:
                 ms, wall = timed(lambda: spec["fn"](*args), cycles_per_ms)
-                bound_ms, bound_by = bwd_bound(c, g, kernel, got.values())
-                timings.setdefault(kernel, {})[case] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
-                print(f"    {kernel} device {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {valid_pairs(c):,} valid pairs), host clock per call {wall:.4f} ms")
+                b = bwd_bound(c, g, kernel, got.values())
+                timings.setdefault(kernel, {})[case] = dict(ms=ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+                print(f"    {kernel} device {ms:.4f} ms, {bounds_text(b)}, {valid_pairs(c):,} valid pairs; host clock per call {wall:.4f} ms")
         if case.startswith("serve") or "L1024" in case:
             plain_ms, plain_wall = timed(lambda: rab.dense_backward(*args[:-1], c["ts"] is not None), cycles_per_ms)
             for kernel in BWD_KERNELS:
@@ -401,7 +462,7 @@ def attention_phase(cases, cycles_per_ms):
             continue
         with torch.no_grad():
             (ms, wall), (plain_ms, plain_wall) = timed(lambda: run_op(c), cycles_per_ms), timed(lambda: run_op_plain(c), cycles_per_ms)
-        bound_ms, bound_by = attn_bound(c)
+        bound_ms, bound_by = attn_bound(c)  # fp32 FMAs: K3 keeps the first design
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"  {name}: device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {valid_pairs(c):,} valid pairs); "
               f"host clock per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; medians of {REPS}")
@@ -493,7 +554,7 @@ def serving_phase(cycles_per_ms):
 
 
 def kernel_class(name):
-    for key, label in (("hstu_rab_fwd_kernel", "K1 hstu_rab_fwd"), ("bwd_kv_kernel<", "K2 / K2b hstu_rab_bwd(_dkv)"), ("bwd_q_kernel<", "K2a hstu_rab_bwd_dq")):
+    for key, label in (("hstu_rab_fwd_kernel", "K1 hstu_rab_fwd"), ("bwd_fused_kernel<", "K2 hstu_rab_bwd"), ("bwd_kv_kernel<", "K2b hstu_rab_bwd_dkv"), ("bwd_q_kernel<", "K2a hstu_rab_bwd_dq")):
         if key in name:
             return label
     lowered = name.lower()
@@ -644,6 +705,9 @@ def main():
     for name, log in _build.build_log.items():
         print(f"  {name}:\n" + "\n".join("    " + line for line in log.strip().splitlines()))
     print(f"  built in {seconds:.2f} s")
+    for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
+        occ = rab.occupancy(*shape)
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items()))
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()
@@ -651,6 +715,9 @@ def main():
     measured = {"hstu_rab_fwd": kernel_phase(cases, cycles_per_ms)}
     print("backward kernel phase (hstu_rab_bwd, hstu_rab_bwd_dq + hstu_rab_bwd_dkv vs the plain backward, fp32):")
     measured.update(backward_phase(cases, cycles_per_ms))
+    print("bucket sweep (hstu_rab_fwd and hstu_rab_bwd at every threshold -1, 0, +1 and |dt| = 2**31, vs the plain version on the CPU):")
+    for name, err in sweep_phase().items():
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
     del cases
     print("materialised-bias attention phase (hstu_attention: hstu_attn_fwd vs plain PyTorch and vs hstu_rab_fwd, fp32):")
     k3 = attention_phase(bias_cases(), cycles_per_ms)

@@ -81,6 +81,12 @@ CASES = {
     "dv20_dqk12_ragged": dict(l=131, d=12, dv=20),
     "dv128": dict(l=128, maxl=128, d=64, dv=128),
     "long_1024": dict(b=1, l=1024, maxl=1024, nb=128),
+    "wide_1024_d128": dict(b=1, h=2, l=1024, maxl=1024, d=128, dv=128, nb=128),
+    # around the tile edges of K1 (32 q rows, 16 and 64 keys) and K2 (32 keys, 16 and 64
+    # queries), with widths that fill neither the 8-wide fragments nor the 16-byte copies evenly
+    **{f"edge_{l}_dqk12_dv20": dict(l=l, d=12, dv=20, times="shuffled", mask="scattered", seed=l) for l in (15, 16, 17, 63, 65, 129, 255)},
+    # widths that are not a multiple of 4: 4-byte copies and scalar dq atomics
+    "odd_widths_dqk7_dv5": dict(l=50, d=7, dv=5, times="shuffled", mask="scattered"),
 }
 
 
@@ -95,6 +101,16 @@ def test_kernel_matches_plain(card, case):
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
     if case == "empty_row":
         assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("l", [40, 130])
+def test_kernel_matches_plain_on_wide_heads(card, l):
+    """dqk 256, dv 128: too wide for two 64-key stages, so K1 stages 32 keys at a time."""
+    t, kw = rab_inputs(card, l=l, d=256, dv=128, times="shuffled", mask="scattered")
+    out = rab.hstu_attention_rab(t["q"], t["k"], t["v"], t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    ref = rab.dense_forward(t["q"], t["k"], t["v"], t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"], True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -193,6 +209,95 @@ def test_backward_kernels_reject_what_they_do_not_take(card):
         wide = torch.zeros((*t["q"].shape[:3], 160), device=card)
         with pytest.raises(ValueError, match="dqk, dv <= 128"):
             fn(*args(q=wide, k=wide))
+
+
+# The exact bucket lookup of K1 and K2 on rab.bucket_sweep_stamps: |t_l - t_m|
+# hits every reachable threshold -1, 0 and +1 (row 0), and wrapping int32
+# stamps reach |dt| = 2**31 (row 1).  The reference is the plain version on
+# the CPU, where the thresholds were computed (the card's log may round an
+# edge differently).
+def sweep_inputs(cfg, h=2, d=16, seed=0):
+    ts = rab.bucket_sweep_stamps(cfg, seed)
+    l = ts.shape[1]
+    rng = np.random.default_rng(seed)
+    arr = {
+        "q": rng.normal(size=(2, h, l, d)) * 0.1,
+        "k": rng.normal(size=(2, h, l, d)) * 0.1,
+        "v": rng.normal(size=(2, h, l, d)) * 0.3,
+        "pos_w": rng.normal(size=(2 * l - 1, h)) * 0.1,
+        "ts_w": rng.normal(size=(cfg.num_buckets + 1, h)),  # large: one bucket off moves the output
+    }
+    t = {k: torch.from_numpy(a.astype(np.float32)) for k, a in arr.items()}
+    t.update(timestamps=ts, padding_mask=torch.ones((2, l), dtype=torch.bool))
+    return t, dict(alpha=1.0 / math.sqrt(d), max_seq_len=l, cfg=cfg)
+
+
+@pytest.mark.parametrize("cfg", rab.SWEEP_CFGS, ids=lambda c: str(tuple(c)))
+def test_bucket_sweep_matches_plain(card, cfg):
+    t, kw = sweep_inputs(cfg)
+    names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
+    dev = {n: t[n].to(card) for n in names}
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=t["v"].shape).astype(np.float32))
+    out = rab.hstu_attention_rab(*(dev[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    grads = rab.rab_backward_fused(*(dev[n] for n in names[:3]), g.to(card), *(dev[n] for n in names[3:]), kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    torch.cuda.synchronize()
+    ref = rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True)
+    torch.testing.assert_close(out.cpu(), ref, rtol=RTOL, atol=ATOL)
+    ref_grads = rab.dense_backward(*(t[n] for n in names[:3]), g, *(t[n] for n in names[3:]), kw["alpha"], kw["max_seq_len"], kw["cfg"], True)
+    assert_grads_close([x.cpu() for x in grads], ref_grads)
+
+
+def first_design_max_l(width, nb):
+    """The largest L whose shared memory the first K2 design (fp32 FMAs over
+    64 x 64 tiles, dq/dk/dv columns of 16, 32, 64 or 128) fitted in 227 KB."""
+    dw = next(w for w in (16, 32, 64, 128) if width <= w)
+    words = 232448 // 4 - (4 * dw * 65 + 2 * 64 * 65 + 3 * (nb + 1) + 3 * 64)
+    return words // 2  # L words of position bias and L of its gradient
+
+
+# K2's layout there (Q/G stages, dts copies): (2, 32) at d32 and d64, (1, 32) at d128;
+# with 2000 buckets (2, 1) at d32 and (1, 1) at d128
+@pytest.mark.parametrize("width,nb", [(32, 16), (64, 16), (128, 16), (32, 2000), (128, 2000)], ids=lambda x: str(x))
+def test_kernels_take_the_longest_l_of_the_first_designs(card, width, nb):
+    """K1 and K2 take every L the first designs took: no new rejection at long sequences."""
+    l = first_design_max_l(width, nb)
+    t, kw = rab_inputs(card, b=1, h=1, l=l, maxl=l, d=width, dv=width, nb=nb, times="shuffled", mask="scattered", seed=width)
+    names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
+    out = rab.hstu_attention_rab(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    g = torch.from_numpy(np.random.default_rng(13).normal(size=t["v"].shape).astype(np.float32)).to(card)
+    got = rab.rab_backward_fused(*bwd_args(t, kw, g))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True), rtol=RTOL, atol=ATOL)
+    del out
+    assert_grads_close(got, rab.dense_backward(*bwd_args(t, kw, g), True))
+
+
+@pytest.mark.parametrize("l", [131, 130])
+def test_kernels_read_a_mask_at_any_byte_offset(card, l):
+    """A contiguous mask view that starts inside a 4-byte word (mask[1:] with L % 4 != 0)."""
+    t, kw = rab_inputs(card, l=l, times="shuffled", mask="scattered")
+    full = torch.ones((t["padding_mask"].shape[0] + 1, l), dtype=torch.bool, device=card)
+    full[1:] = t["padding_mask"]
+    t["padding_mask"] = full[1:]
+    assert t["padding_mask"].is_contiguous() and t["padding_mask"].data_ptr() % 4 != 0
+    names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
+    out = rab.hstu_attention_rab(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    g = torch.from_numpy(np.random.default_rng(14).normal(size=t["v"].shape).astype(np.float32)).to(card)
+    got = rab.rab_backward_fused(*bwd_args(t, kw, g))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True), rtol=RTOL, atol=ATOL)
+    assert_grads_close(got, rab.dense_backward(*bwd_args(t, kw, g), True))
+
+
+def test_fused_backward_twice_agrees(card):
+    """K2's dq, dpos and dts are sums of atomics whose order changes between runs: two runs agree within the tolerances."""
+    t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
+    g = torch.from_numpy(np.random.default_rng(12).normal(size=t["v"].shape).astype(np.float32)).to(card)
+    first, second = (rab.rab_backward_fused(*bwd_args(t, kw, g)) for _ in range(2))
+    torch.cuda.synchronize()
+    assert_grads_close(first, second)
+    torch.testing.assert_close(first[1], second[1], rtol=0, atol=0)  # dk, dv: a fixed order of sums
+    torch.testing.assert_close(first[2], second[2], rtol=0, atol=0)
 
 
 def test_model_gradients_fused_match_unfused_on_card(card):

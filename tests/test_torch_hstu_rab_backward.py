@@ -147,7 +147,7 @@ def test_autograd_function_plumbing(monkeypatch, fused):
     the backward a contiguous gradient, calls K2 or K2a then K2b by
     ``_FUSED_BWD`` and returns the gradients in the inputs' order."""
     (q, k, v, pos_w, ts_w, ts, mask), g = torch_inputs(seed=7, case="shuffled_ts")
-    monkeypatch.setattr(tmod, "_launch", lambda q, k, v, pos_w, ts_w, ts, mask, thr, alpha, maxl: tmod.dense_forward(q, k, v, pos_w, ts_w, ts, mask, alpha, maxl, CFG, ts is not None))
+    monkeypatch.setattr(tmod, "_launch", lambda q, k, v, pos_w, ts_w, ts, mask, thr, alpha, maxl, cfg: tmod.dense_forward(q, k, v, pos_w, ts_w, ts, mask, alpha, maxl, cfg, ts is not None))
     calls = []
     for name in ("rab_backward_fused", "rab_backward_dq", "rab_backward_dkv"):
         orig = getattr(tmod, name)

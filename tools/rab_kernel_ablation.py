@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where the time of K1 (hstu_rab_fwd) and K2 (hstu_rab_bwd) goes, by ablation.
+
+    python3 tools/rab_kernel_ablation.py
+
+Needs a CUDA device and nvcc.  Builds copies of ``csrc/hstu_rab_fwd.cu`` and
+``csrc/hstu_rab_bwd.cu`` with one part of the work taken out (the tensor-core
+passes, the bucket lookup, the table-gradient sums, ...), times each at the
+serving shape (B8 H8 L256, dqk = dv = 32) and at L1024 the way
+``chip_smoke.py`` times the kernels, and prints the difference to the
+unchanged kernel.  A variant computes wrong values by design: only the
+unchanged build is checked against the plain version.  Also prints the
+atomic and tensor-core instructions of the unchanged builds (cuobjdump), and
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from torch_rechub_tpu_torch.ops.cuda import _build  # noqa: E402
+from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
+
+OUT = ROOT / "build" / "ablation"
+MMA3 = "  mma_tf32(d, al, bh);\n  mma_tf32(d, ah, bl);\n  mma_tf32(d, ah, bh);"
+HEADER = {  # variants of hstu_rab_common.cuh
+    "one TF32 pass (hi*hi only)": [(MMA3, "  mma_tf32(d, ah, bh);")],
+    "no products (operands still loaded and split)": [(MMA3, "  d[0] += __uint_as_float(ah[0] ^ bh[0] ^ al[0] ^ bl[0]);")],
+}
+VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
+    "hstu_rab_fwd": {
+        "unchanged": ([], []),
+        **{k: (v, []) for k, v in HEADER.items()},
+        "a constant bucket (no lookup)": ([], [("if (has_time) x += tw[bucket(tq_r[i >> 1], tk[c])];", "if (has_time) x += tw[3];")]),
+        "no score path (P = 0)": ([], [("          if (l < L && m <= l && (p.mask == nullptr || km[c])) {", "          if (false) {")]),
+    },
+    "hstu_rab_bwd": {
+        "unchanged": ([], []),
+        **{k: (v, []) for k, v in HEADER.items()},
+        "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq[qq], tk_r[i >> 1]);", "              const int u = 3;")]),
+        "no dts sums": ([], [("        add_ts_grads<8>(my_gts, dsk, bkk);", "")]),
+        "no dpos sums": ([], [("          if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);", "")]),
+        "no dq atomics": ([], [("            red_add_v4(dst, x0, x1, x2, x3);", "")]),
+        "one CTA-wide dts table (no copies)": ([], [("    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;", "    f.ts_copies = 1;")]),
+        "one Q/G stage (no ring)": ([], [("    f.stages = option < 2 ? 2 : 1;", "    f.stages = 1;")]),
+    },
+}
+
+
+def substitute(text, subs, what):
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"{what}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all():
+    """Every variant's library, built in parallel: {(kernel, variant): (path, nvcc process)}."""
+    nvcc = _build._nvcc()
+    header = (_build.CSRC / "hstu_rab_common.cuh").read_text()
+    procs = {}
+    for kernel, variants in VARIANTS.items():
+        source = _build.SOURCES[kernel].read_text()
+        for j, (name, (hsubs, subs)) in enumerate(variants.items()):
+            d = OUT / f"{kernel}_{j}"
+            d.mkdir(parents=True, exist_ok=True)
+            (d / "hstu_rab_common.cuh").write_text(substitute(header, hsubs, name))
+            (d / "k.cu").write_text(substitute(source, subs, name))
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(d / "k.so"), str(d / "k.cu")]
+            procs[kernel, name] = (d / "k.so", subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{key} did not build:\n{out}")
+        libs[key] = path
+    return libs
+
+
+def sass_counts(path):
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    return dict(collections.Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|REDG?\.[A-Z0-9.]+|HMMA\.[A-Z0-9.]+)", sass)))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("rab_kernel_ablation.py needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = build_all()
+    cycles_per_ms = cs.spin_cycles_per_ms()
+    cases = {"B8 L256": cs.rab_case(0, 8, 256, 256), "B8 L1024": cs.rab_case(4, 8, 1024, 1024)}
+    grads = {k: torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda() for k, c in cases.items()}
+
+    def args(c, g):
+        return (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+
+    calls = {
+        "hstu_rab_fwd": lambda c, g: cs.run_kernel(c),
+        "hstu_rab_bwd": lambda c, g: rab.rab_backward_fused(*args(c, g)),
+    }
+    loaded = {}
+    real_load = _build.load
+    _build.load = lambda name: loaded[name]
+    try:
+        for kernel, variants in VARIANTS.items():
+            print(f"{kernel} (device ms, medians of {cs.REPS}; difference to the unchanged kernel):")
+            base = {}
+            for name in variants:
+                loaded[kernel] = ctypes.CDLL(str(paths[kernel, name]))
+                if name == "unchanged":
+                    c, g = cases["B8 L256"], grads["B8 L256"]
+                    out = calls[kernel](c, g)
+                    out = out if isinstance(out, torch.Tensor) else out[0]
+                    ref = cs.run_plain(c) if kernel == "hstu_rab_fwd" else rab.dense_backward(*args(c, g)[:-1], True)[0]
+                    cs.check_close(f"{kernel} (unchanged build)", out, ref, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
+                    print(f"  SASS of the unchanged build: {sass_counts(paths[kernel, name])}")
+                parts = []
+                for case, c in cases.items():
+                    ms, _ = cs.timed(lambda c=c, g=grads[case]: calls[kernel](c, g), cycles_per_ms)
+                    if name == "unchanged":
+                        base[case] = ms
+                        parts.append(f"{case} {ms:.4f}")
+                    else:
+                        parts.append(f"{case} {ms:.4f} ({ms - base[case]:+.4f})")
+                print(f"  {name}: " + ", ".join(parts))
+    finally:
+        _build.load = real_load
+
+
+if __name__ == "__main__":
+    main()

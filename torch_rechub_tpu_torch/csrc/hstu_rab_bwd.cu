@@ -1,5 +1,5 @@
 // HSTU silu attention with on-the-fly relative position/time bias: the three
-// backward kernels, hand-written for Hopper (sm_90a), fp32.
+// backward kernels, hand-written for Hopper (sm_90a), fp32 in and out.
 //
 // Replaces the TPU kernels of torch_rechub_tpu/ops/pallas/hstu_rab_attention.py:
 //   K2  _bwd_fused_kernel -> hstu_rab_bwd      dq, dk, dv, dpos, dts in one pass
@@ -16,59 +16,76 @@
 //   dq_l  = alpha sum_m dS_lm k_m
 //   dpos[maxL-1-(l-m), h] += dS_lm           dts[bucket(t_l - t_m), h] += dS_lm
 //
-// bucket() is the binary search over the integer thresholds of K1
-// (hstu_rab_fwd.cu; the helper is copied here), with the int32 difference
-// wrapping and its magnitude taken in 64 bits.
+// bucket() is K1's exact O(1) lookup (hstu_rab_common.cuh), in all three.
 //
-// Design.  One CTA of 256 threads works on 64 x 64 tiles of (query, key)
-// pairs; each thread owns a 4 x 4 block of the tile and rebuilds the scores,
-// the bias and dattn from operand tiles staged transposed in shared memory
-// (zero past L and past the feature width, so ragged shapes need no host
-// padding).  P and dS go to shared memory for the products that follow.
-//   K2b: one CTA per (b*h, 64-key tile), looping over the q tiles from the
-//        diagonal to L; dk and dv stay in registers and are written once.
-//   K2a: one CTA per (b*h, 64-row q tile), looping over the k tiles up to the
-//        causal frontier, as K1 does; dq stays in registers, written once.
-//   K2:  K2b's grid and loop, plus dq and the table gradients.  The TPU
-//        kernel carries dq across the k steps of a grid that runs in order;
-//        Hopper CTAs run concurrently, so here dq is an fp32 buffer that the
-//        wrapper zeroes and every (k tile, q tile) pair adds its partial to
-//        with atomicAdd.  The order of those sums changes from run to run.
-// Table gradients (K2a, K2) are cross-CTA reductions: each CTA sums into
-// shared memory (dpos by causal distance l-m, one thread per diagonal of the
-// tile, no atomics; dts per bucket, each thread first folding its own run of
-// equal buckets and a warp whose lanes all hold one bucket summing by
-// shuffles, so sorted stamps cost one shared atomic per warp per tile), then
-// adds its nonzero slots to the zeroed fp32 outputs with one global
-// atomicAdd each.
+// K2, the default backward (bwd_fused_kernel).  What bounds it on an H100:
+// at B8 H8 L256, dqk = dv = 32 the valid pairs need 0.63 GFLOP of products
+// (five of them), 0.0038 ms on the tensor cores in 3xTF32, against 14.7 MB
+// of q/k/v/g/dq/dk/dv (0.0044 ms at 3.35 TB/s): bytes.  Its earlier version
+// (fp32 FMAs over transposed 64 x 64 tiles, four barriers a tile, scalar dq
+// atomics, a serial dpos walk) ran at 17x its fp32-FMA bound.  Design:
+// - CTA = 8 warps over a 32-key tile: 2 key groups of 16 x 4 query splits,
+//   each warp 16 of every 64-query tile, the q tiles walked from the
+//   diagonal to L.  Low key tiles walk the most q tiles; they are issued
+//   first (grid y), and the 32-key tile gives 512 CTAs at the serving shape.
+// - The five products on tensor cores (mma.sync m16n8k8 TF32, 3xTF32):
+//   S^T = K Q^T and dA^T = V G^T with the warp's keys as rows; P^T and dS^T
+//   stay in registers and are the A fragments of dV += P^T G and
+//   dK += dS^T Q (the queries of each 8-group read in the order
+//   0,2,4,6,1,3,5,7, and the B rows of G and Q loaded in that order).  dS
+//   also goes to shared memory, [query][key], where dQ_part = dS K reads it
+//   as an A fragment after the tile's second barrier; K is kept with a row
+//   stride of 8 mod 32 words so that its B fragment (K[key][feature]) loads
+//   without bank conflicts, Q, G and V with 4 mod 8.
+// - Q, G and the query stamps of the next q tile are copied with cp.async
+//   into a two-stage ring during the current tile's math; two barriers a
+//   tile.  Where two stages do not fit (long sequences at wide heads) one
+//   stage is refilled after the second barrier, during the dQ products.
+// - dq: each (key tile, q tile) pair adds its partial from the fragments,
+//   two lanes swapping halves so each holds four consecutive floats, with
+//   one red.global.add.v4.f32 (scalar atomics where dqk % 4 or alignment
+//   forbid).  The order of these sums changes from run to run.
+// - Table gradients in shared memory (shared fp32 atomics are
+//   compare-and-swap loops on sm_90, so contention is what they must
+//   avoid).  dpos by causal distance into one CTA-wide gpos[L]: each lane
+//   first folds its fragment by distance (6 partials), the lanes that share
+//   a distance sum by shuffles along the warp, and the chain's head adds
+//   one shared atomic per distance.  dts by each lane's runs of equal
+//   buckets, key by key, with one shared atomic per run into a copy of the
+//   warp's lane column t (lanes that share a causal distance, and so most
+//   often a bucket, lie in different columns), or one warp sum when the
+//   warp's buckets agree; where the 32 copies do not fit, into one table.
+//   At the end the copies are added in a fixed order, and one global atomic
+//   per nonzero slot adds them to the zeroed outputs.
+// - dK and dV of the four query splits are summed in a fixed order at the end.
 //
-// What bounds it on an H100: at B8 H8 L256, dqk = dv = 32 there are
-// B*H*L(L+1)/2 = 2.10 M causal pairs.  Per pair K2 does 3 dqk + 2 dv FMAs
-// (320 FLOP, 0.671 GFLOP, 0.0100 ms at 67 TFLOP/s fp32), K2a 2 dqk + dv (192,
-// 0.0060 ms), K2b 2 dqk + 2 dv (256, 0.0080 ms), against 7 x 2.10 MB of
-// q/k/v/g/dq/dk/dv for K2 (0.0044 ms at 3.35 TB/s): all three are bound by
-// operations.  This first version is simple and exact (fp32 FMAs, no wgmma,
-// no TMA); its time beside the bound is in PERF.md.
+// K2a and K2b keep their first design (fp32 FMAs; K2a: one CTA per (b*h,
+// 64-row q tile) over the k tiles up to the causal frontier, dq in
+// registers; K2b: one per (b*h, 64-key tile) over the q tiles from the
+// diagonal, dk and dv in registers); only their bucket lookup is K1's.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hstu_rab_common.cuh"
 
 namespace {
+
+using namespace rab;
+
+// ---------------------------------------------------------------------------
+// K2a and K2b: fp32 FMAs over 64 x 64 tiles, 256 threads each a 4 x 4 block
+// ---------------------------------------------------------------------------
 
 constexpr int kBlock = 64;           // q and k tiles
 constexpr int kThreads = 256;        // 16 x 16 threads, each a 4 x 4 block of the tile
 constexpr int kLd = kBlock + 1;      // row stride of the transposed tiles and of P / dS (bank spread)
-constexpr size_t kMaxSmem = 232448;  // per-block dynamic shared memory limit on sm_90
-
-enum Mode { kFused = 0, kDkv = 1 };
 
 struct Args {
   const float *q, *k, *v, *g, *pos_w, *ts_w;
   const int *thr, *ts;
   const uint8_t* mask;
   float *dq, *dk, *dv, *dpos, *dts;
-  int H, L, dqk, dv_dim, max_seq_len, num_buckets;
+  int B, H, L, dqk, dv_dim, max_seq_len;
   float alpha;
+  Buckets bk;
 };
 
 // Dynamic shared memory, in 4-byte words (DW = 16 * N >= dqk, dv):
@@ -120,7 +137,7 @@ __device__ __forceinline__ void stage_tables(const Args& a, const Smem& s, int h
     s.gpos[d] = 0.f;
   }
   if (has_time) {
-    for (int u = threadIdx.x; u <= a.num_buckets; u += kThreads) {
+    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads) {
       s.tw[u] = a.ts_w[(size_t)u * a.H + h];
       s.th[u] = a.thr[u];
       s.gts[u] = 0.f;
@@ -137,27 +154,14 @@ __device__ __forceinline__ void stage_rows(const Args& a, int b, int r0, int* t,
   }
 }
 
-// bucket(t_l - t_m): the largest u with thr[u] <= |t_l - t_m|.  The int32
-// difference wraps, as the reference's int32 subtraction does; its magnitude
-// is taken in 64 bits so that -2^31 gives 2^31.
-__device__ __forceinline__ int bucket_of(int tl, int tm, const int* th, int num_buckets, int top) {
-  const int dt = (int)((unsigned)tl - (unsigned)tm);
-  const long long adt = llabs((long long)dt);
-  int u = 0;
-  for (int step = top; step > 0; step >>= 1) {
-    const int cand = u + step;
-    if (cand <= num_buckets && (long long)th[cand] <= adt) u = cand;
-  }
-  return u;
-}
-
 // One 64 x 64 tile (rows q0.., keys k0..): dS (and P when want_p) into shared
 // memory, and this thread's 4 x 4 block of dS and buckets (-1 where invalid)
 // in registers for the table gradients.
-__device__ __forceinline__ void tile_grads(const Args& a, const Smem& s, int q0, int k0, bool has_time, int top,
-                                           bool want_p, float ds[4][4], int bk[4][4]) {
+__device__ __forceinline__ void tile_grads(const Args& a, const Smem& s, int q0, int k0, bool has_time, bool want_p,
+                                           float ds[4][4], int bk[4][4]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float norm = (float)a.max_seq_len;
+  const Lookup bucket(s.th, a.bk);
   float sc[4][4], da[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -197,7 +201,7 @@ __device__ __forceinline__ void tile_grads(const Args& a, const Smem& s, int q0,
       if (valid) {
         float bias = s.pw[l - m];
         if (has_time) {
-          u = bucket_of(s.tq[r], s.tk[c], s.th, a.num_buckets, top);
+          u = bucket(s.tq[r], s.tk[c]);
           bias += s.tw[u];
         }
         x = sc[i][j] * a.alpha + bias;
@@ -210,6 +214,35 @@ __device__ __forceinline__ void tile_grads(const Args& a, const Smem& s, int q0,
       ds[i][j] = d;
       bk[i][j] = u;
     }
+  }
+}
+
+// dts of one thread's values (bucket -1: none): fold its runs of equal
+// buckets, then the warp's when all its lanes hold one bucket.
+template <int NVAL>
+__device__ __forceinline__ void add_ts_grads(float* gts, const float* ds, const int* bk) {
+  int cur = -1;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < NVAL; ++i) {
+    const int u = bk[i];
+    if (u < 0) continue;
+    if (u != cur) {
+      if (cur >= 0) atomicAdd(&gts[cur], acc);
+      cur = u;
+      acc = 0.f;
+    }
+    acc += ds[i];
+  }
+  const unsigned full = 0xffffffffu;
+  const int top = __reduce_max_sync(full, cur);
+  if (__all_sync(full, cur == top || cur < 0)) {
+    float sum = acc;  // 0 where cur < 0
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
+    if ((threadIdx.x & 31) == 0 && top >= 0) atomicAdd(&gts[top], sum);
+  } else if (cur >= 0) {
+    atomicAdd(&gts[cur], acc);
   }
 }
 
@@ -233,33 +266,7 @@ __device__ __forceinline__ void tile_table_grads(const Smem& s, int q0, int k0, 
       s.gpos[dist] += acc;
     }
   }
-  if (!has_time) return;
-  // dts: fold this thread's runs of equal buckets, then the warp's if uniform
-  int cur = -1;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int u = bk[i][j];
-      if (u < 0) continue;
-      if (u != cur) {
-        if (cur >= 0) atomicAdd(&s.gts[cur], acc);
-        cur = u;
-        acc = 0.f;
-      }
-      acc += ds[i][j];
-    }
-  const unsigned full = 0xffffffffu;
-  const int top = __reduce_max_sync(full, cur);
-  if (__all_sync(full, cur == top || cur < 0)) {
-    float sum = acc;  // 0 where cur < 0
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
-    if ((threadIdx.x & 31) == 0 && top >= 0) atomicAdd(&s.gts[top], sum);
-  } else if (cur >= 0) {
-    atomicAdd(&s.gts[cur], acc);
-  }
+  if (has_time) add_ts_grads<16>(s.gts, &ds[0][0], &bk[0][0]);
 }
 
 // The CTA's table gradients into the global fp32 outputs (zeroed by the wrapper).
@@ -267,27 +274,20 @@ __device__ __forceinline__ void flush_table_grads(const Args& a, const Smem& s, 
   for (int d = threadIdx.x; d < a.L; d += kThreads)
     if (s.gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * a.H + h], s.gpos[d]);
   if (has_time)
-    for (int u = threadIdx.x; u <= a.num_buckets; u += kThreads)
+    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads)
       if (s.gts[u] != 0.f) atomicAdd(&a.dts[(size_t)u * a.H + h], s.gts[u]);
 }
 
-__device__ __forceinline__ int top_step(int num_buckets) {
-  int top = 1;  // largest power of two <= num_buckets: first step of the bucket search
-  while (2 * top <= num_buckets) top *= 2;
-  return top;
-}
-
-// K2 (MODE = kFused) and K2b (MODE = kDkv): one CTA per (b*h, 64-key tile).
-template <int N, int MODE>
+// K2b: one CTA per (b*h, 64-key tile), looping over the q tiles at or below the diagonal.
+template <int N>
 __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
   constexpr int DW = 16 * N;
   extern __shared__ float smem[];
-  const Smem s = carve(smem, DW, a.L, a.num_buckets);
+  const Smem s = carve(smem, DW, a.L, a.bk.nb);
   const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
   const int kt = blockIdx.x, k0 = kt * kBlock;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool has_time = a.ts != nullptr;
-  const int top = top_step(a.num_buckets);
   const float* qb = a.q + (size_t)bh * a.L * a.dqk;
   const float* gb = a.g + (size_t)bh * a.L * a.dv_dim;
 
@@ -313,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
 
     float ds[4][4];
     int bk[4][4];
-    tile_grads(a, s, q0, k0, has_time, top, true, ds, bk);
+    tile_grads(a, s, q0, k0, has_time, true, ds, bk);
     __syncthreads();
 
     // dk[c] += alpha sum_r dS[r][c] q[r], dv[c] += sum_r P[r][c] g[r]: this thread's keys ty*4+i, features tx+16j
@@ -335,36 +335,6 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
         }
       }
     }
-    if (MODE == kFused) {
-      // dq[r] += alpha sum_c dS[r][c] k[c] for this thread's rows ty*4+i: a
-      // partial sum that other CTAs also add to, hence the atomics
-      float dq_part[4][N];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) dq_part[i][j] = 0.f;
-      for (int c = 0; c < kBlock; ++c) {
-        float kv[N];
-#pragma unroll
-        for (int j = 0; j < N; ++j) kv[j] = s.Kt[(tx + 16 * j) * kLd + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float d = s.Ds[(ty * 4 + i) * kLd + c];
-#pragma unroll
-          for (int j = 0; j < N; ++j) dq_part[i][j] = fmaf(d, kv[j], dq_part[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = q0 + ty * 4 + i;
-        if (l < a.L) {
-#pragma unroll
-          for (int j = 0; j < N; ++j)
-            if (tx + 16 * j < a.dqk) atomicAdd(&a.dq[((size_t)bh * a.L + l) * a.dqk + tx + 16 * j], dq_part[i][j] * a.alpha);
-        }
-      }
-      tile_table_grads(s, q0, k0, a.L, has_time, ds, bk);
-    }
   }
 
 #pragma unroll
@@ -379,10 +349,6 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
       }
     }
   }
-  if (MODE == kFused) {
-    __syncthreads();
-    flush_table_grads(a, s, h, has_time);
-  }
 }
 
 // K2a: one CTA per (b*h, 64-row q tile), the heaviest (last) tiles first.
@@ -390,13 +356,12 @@ template <int N>
 __global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
   constexpr int DW = 16 * N;
   extern __shared__ float smem[];
-  const Smem s = carve(smem, DW, a.L, a.num_buckets);
+  const Smem s = carve(smem, DW, a.L, a.bk.nb);
   const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
   const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kBlock;
   const int q_end = min(q0 + kBlock, a.L);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const bool has_time = a.ts != nullptr;
-  const int top = top_step(a.num_buckets);
   const float* kb = a.k + (size_t)bh * a.L * a.dqk;
   const float* vb = a.v + (size_t)bh * a.L * a.dv_dim;
 
@@ -422,7 +387,7 @@ __global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
 
     float ds[4][4];
     int bk[4][4];
-    tile_grads(a, s, q0, k0, has_time, top, false, ds, bk);
+    tile_grads(a, s, q0, k0, has_time, false, ds, bk);
     __syncthreads();
 
     for (int c = 0; c < kBlock; ++c) {
@@ -453,28 +418,478 @@ __global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Args& a, int B, int dw, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dw, a.L, a.num_buckets);
+cudaError_t launch_split(Kernel kernel, const Args& a, int dw, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dw, a.L, a.bk.nb);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((a.L + kBlock - 1) / kBlock, B * a.H);
+  const dim3 grid((a.L + kBlock - 1) / kBlock, a.B * a.H);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2: tensor cores, cp.async, 32-key tiles (the source note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kKeyGroups = 2;                   // 16-key groups per CTA
+constexpr int kQuerySplits = 4;                 // warps sharing a key group, each 16 queries of a q tile
+constexpr int kTileK = 16 * kKeyGroups;         // keys per CTA
+constexpr int kTileQ = 16 * kQuerySplits;       // queries per q tile (stage)
+constexpr int kWarps2 = kKeyGroups * kQuerySplits;
+constexpr int kThreads2 = 32 * kWarps2;
+constexpr int kLdS = kTileK + 4;                // dS [query][key] row stride, 4 mod 8
+constexpr int kTsCopies = 4 * kWarps2;          // dts sums: one copy per warp and lane column t
+
+struct Fused {
+  Args a;
+  int ldq, ldg, ldk, ldv;   // shared row strides: Q, G, V 4 mod 8 words; K 8 mod 32
+  int vec_q, vec_k, vec_v, vec_g, red_v4;
+  int stages;               // the Q/G ring: 2 stages, or 1 where two do not fit
+  int ts_copies;            // dts sums: kTsCopies, or 1 (one CTA-wide table) where they do not fit
+};
+
+// Shared memory, in 4-byte words (each part a multiple of 4 words):
+//   K [kTileK][ldk]  V [kTileK][ldv]  tk [kTileK]  kvalid [kTileK]  dS [kTileQ][kLdS]
+//   pw [L]  tw [nb+1]  thr [nb+1]  gpos [L]  gts [ts_copies][nb+1]
+//   1 or 2 stages of { Q [kTileQ][ldq]  G [kTileQ][ldg]  tq [kTileQ] },
+//   the stages also holding the query splits' partial dK, dV at the end.
+// With one stage and one dts table this is never more than the first design
+// (fp32 FMAs over 64 x 64 tiles) took, so K2 takes every shape it took.
+struct Layout2 {
+  int k, v, tk, kv, ds, pw, tw, th, gpos, gts, L4, nb4, stage, stage_words, sq, sg, stq, total;
+};
+
+__host__ __device__ inline Layout2 layout2(const Fused& f, int L, int nb) {
+  const int L4 = (L + 3) & ~3, nb4 = (nb + 1 + 3) & ~3;
+  Layout2 o;
+  o.k = 0;
+  o.v = o.k + kTileK * f.ldk;
+  o.tk = o.v + kTileK * f.ldv;
+  o.kv = o.tk + kTileK;
+  o.ds = o.kv + kTileK;
+  o.pw = o.ds + kTileQ * kLdS;
+  o.L4 = L4;
+  o.nb4 = nb4;
+  o.tw = o.pw + L4;
+  o.th = o.tw + nb4;
+  o.gpos = o.th + nb4;
+  o.gts = o.gpos + L4;
+  o.stage = o.gts + f.ts_copies * nb4;
+  o.sq = 0;
+  o.sg = o.sq + kTileQ * f.ldq;
+  o.stq = o.sg + kTileQ * f.ldg;
+  o.stage_words = o.stq + kTileQ;
+  int stages = f.stages * o.stage_words;
+  const int partials = (kQuerySplits - 1) * kKeyGroups * 16 * (f.ldq + f.ldg);
+  if (partials > stages) stages = partials;
+  o.total = o.stage + stages;
+  return o;
+}
+
+__device__ __forceinline__ void red_add_v4(float* addr, float x, float y, float z, float w) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr), "f"(x), "f"(y), "f"(z), "f"(w) : "memory");
+}
+
+template <int N>  // n-tiles of 8 features: dqk, dv <= 8 * N
+__global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fused f) {
+  constexpr int NH = (N + 1) / 2;  // dQ n-tiles per warp (two warps share a row group)
+  extern __shared__ __align__(16) float smem[];
+  const Args& a = f.a;
+  const int L = a.L, H = a.H;
+  const Layout2 lay = layout2(f, L, a.bk.nb);
+  float* Ks = smem + lay.k;
+  float* Vs = smem + lay.v;
+  int* tk = reinterpret_cast<int*>(smem + lay.tk);
+  int* kvalid = reinterpret_cast<int*>(smem + lay.kv);
+  float* dSs = smem + lay.ds;
+  float* pw = smem + lay.pw;
+  float* gpos = smem + lay.gpos;
+  float* tw = smem + lay.tw;
+  float* gts = smem + lay.gts;
+  int* th = reinterpret_cast<int*>(smem + lay.th);
+  float* stages = smem + lay.stage;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * kTileK;  // low key tiles, which walk the most q tiles, first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp % kKeyGroups, qs = warp / kKeyGroups;
+  const bool has_time = a.ts != nullptr;
+  const int dqk = a.dqk, dvd = a.dv_dim, ldq = f.ldq, ldg = f.ldg, ldk = f.ldk, ldv = f.ldv;
+  const int dk8 = (dqk + 7) >> 3, dv8 = (dvd + 7) >> 3;
+  const float* qb = a.q + (size_t)bh * L * dqk;
+  const float* gb = a.g + (size_t)bh * L * dvd;
+  const int* tsb = has_time ? a.ts + (size_t)b * L : nullptr;
+  const float inv_norm = 1.f / (float)a.max_seq_len;
+  const Lookup bucket(th, a.bk);
+  const int n_dist = L - k0;  // causal distances this key tile can see: 0 .. L-1-k0
+  // lanes of one t share no distance chain; one table for all where the copies do not fit
+  float* my_gts = gts + (f.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  const bool ring = f.stages == 2;  // else the next q tile is copied once the current one is consumed
+
+  auto stage_ptr = [&](int s) { return stages + s * lay.stage_words; };
+  auto issue = [&](int qt, int s) {
+    float* st = stage_ptr(s);
+    copy_rows(st + lay.sq, ldq, qb, qt * kTileQ, kTileQ, L, dqk, f.vec_q, tid, kThreads2);
+    copy_rows(st + lay.sg, ldg, gb, qt * kTileQ, kTileQ, L, dvd, f.vec_g, tid, kThreads2);
+    if (has_time) copy_stamps(reinterpret_cast<int*>(st + lay.stq), tsb, qt * kTileQ, kTileQ, L, tid);
+  };
+
+  // Zero the padding columns no copy writes, and the table-gradient sums;
+  // then the key tile, its stamps and validity, the first q tile, the tables.
+  for (int r = tid; r < kTileK + f.stages * kTileQ; r += kThreads2) {
+    if (r < kTileK) {
+      for (int d = dqk; d < 8 * dk8; ++d) Ks[r * ldk + d] = 0.f;
+      for (int d = dvd; d < 8 * dv8; ++d) Vs[r * ldv + d] = 0.f;
+    } else {
+      const int s = (r - kTileK) / kTileQ, rr = (r - kTileK) % kTileQ;
+      for (int d = dqk; d < 8 * dk8; ++d) stage_ptr(s)[lay.sq + rr * ldq + d] = 0.f;
+      for (int d = dvd; d < 8 * dv8; ++d) stage_ptr(s)[lay.sg + rr * ldg + d] = 0.f;
+    }
+  }
+  for (int d = tid; d < n_dist; d += kThreads2) pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
+  for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
+  if (has_time)
+    for (int u = tid; u <= a.bk.nb; u += kThreads2) {
+      tw[u] = a.ts_w[(size_t)u * H + h];
+      th[u] = a.thr[u];
+    }
+  if (tid < kTileK) {
+    const int m = k0 + tid;
+    kvalid[tid] = m < L && (a.mask == nullptr || a.mask[(size_t)b * L + m] != 0);
+  }
+  copy_rows(Ks, ldk, a.k + (size_t)bh * L * dqk, k0, kTileK, L, dqk, f.vec_k, tid, kThreads2);
+  copy_rows(Vs, ldv, a.v + (size_t)bh * L * dvd, k0, kTileK, L, dvd, f.vec_v, tid, kThreads2);
+  if (has_time) copy_stamps(tk, tsb, k0, kTileK, L, tid);
+  const int qt0 = k0 / kTileQ, n_qt = (L + kTileQ - 1) / kTileQ;
+  issue(qt0, 0);
+  cp_commit();
+
+  float dk[N][4], dv[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[j][i] = dv[j][i] = 0.f;
+
+  const int kk0 = 16 * kg, qq0 = 16 * qs;  // this warp's keys and queries within the tiles
+  const int m0 = k0 + kk0;
+  const unsigned full = 0xffffffffu;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    cp_wait_all();
+    __syncthreads();  // B1: q tile qt visible; the last tile's stage and dS consumed
+    if (ring) {
+      if (qt + 1 < n_qt) issue(qt + 1, (qt + 1 - qt0) & 1);
+      cp_commit();
+    }
+    const float* st = stage_ptr(ring ? (qt - qt0) & 1 : 0);
+    const float* Qs = st + lay.sq;
+    const float* Gs = st + lay.sg;
+    const int* tq = reinterpret_cast<const int*>(st + lay.stq);
+    const int q0 = qt * kTileQ, l0 = q0 + qq0;
+
+    // sc: S^T then P^T, da: dA^T then dS^T; element (nt, i) is key kk0 + g + 8(i>>1),
+    // query qq0 + 8nt + 2t + (i&1)
+    float sc[2][4], da[2][4];
+    int bk[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sc[nt][i] = da[nt][i] = 0.f;
+        bk[nt][i] = -1;
+      }
+    const bool active = l0 < L && m0 < L && l0 + 15 >= m0;  // warp-uniform: some pair with m <= l
+    if (active) {
+      for (int dd = 0; dd < dk8; ++dd) {
+        uint32_t ah[4], al[4];
+        load_a(Ks, ldk, kk0, 8 * dd, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* qp = Qs + (qq0 + 8 * nt + g) * ldq + 8 * dd + t;
+          uint32_t bh_[2], bl_[2];
+          split(qp[0], bh_[0], bl_[0]);
+          split(qp[4], bh_[1], bl_[1]);
+          mma3(sc[nt], ah, al, bh_, bl_);
+        }
+      }
+      for (int dd = 0; dd < dv8; ++dd) {
+        uint32_t ah[4], al[4];
+        load_a(Vs, ldv, kk0, 8 * dd, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* gp = Gs + (qq0 + 8 * nt + g) * ldg + 8 * dd + t;
+          uint32_t bh_[2], bl_[2];
+          split(gp[0], bh_[0], bl_[0]);
+          split(gp[4], bh_[1], bl_[1]);
+          mma3(da[nt], ah, al, bh_, bl_);
+        }
+      }
+      const int tk_r[2] = {has_time ? tk[kk0 + g] : 0, has_time ? tk[kk0 + g + 8] : 0};
+      const int kv_r[2] = {kvalid[kk0 + g], kvalid[kk0 + g + 8]};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = m0 + g + 8 * (i >> 1);
+          const int qq = qq0 + 8 * nt + 2 * t + (i & 1);
+          const int l = q0 + qq;
+          float pv = 0.f, dsv = 0.f;
+          if (l < L && m <= l && kv_r[i >> 1]) {
+            float x = pw[l - m];
+            if (has_time) {
+              const int u = bucket(tq[qq], tk_r[i >> 1]);
+              x += tw[u];
+              bk[nt][i] = u;
+            }
+            x = fmaf(sc[nt][i], a.alpha, x);
+            const float sig = __fdividef(1.f, 1.f + __expf(-x));  // exp overflow: 0
+            pv = x * sig * inv_norm;
+            dsv = da[nt][i] * (sig * (1.f + x * (1.f - sig))) * inv_norm;
+          }
+          sc[nt][i] = pv;
+          da[nt][i] = dsv;
+        }
+
+      // dV += P^T G, dK += dS^T Q: queries 2t and 2t+1 of each 8-group are A columns t and t+4
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        split(sc[kk][0], ph[0], pl[0]);
+        split(sc[kk][2], ph[1], pl[1]);
+        split(sc[kk][1], ph[2], pl[2]);
+        split(sc[kk][3], ph[3], pl[3]);
+        split(da[kk][0], sh[0], sl[0]);
+        split(da[kk][2], sh[1], sl[1]);
+        split(da[kk][1], sh[2], sl[2]);
+        split(da[kk][3], sh[3], sl[3]);
+        const int row = qq0 + 8 * kk + 2 * t;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          if (j < dv8) {
+            uint32_t bh_[2], bl_[2];
+            split(Gs[row * ldg + 8 * j + g], bh_[0], bl_[0]);
+            split(Gs[(row + 1) * ldg + 8 * j + g], bh_[1], bl_[1]);
+            mma3(dv[j], ph, pl, bh_, bl_);
+          }
+          if (j < dk8) {
+            uint32_t bh_[2], bl_[2];
+            split(Qs[row * ldq + 8 * j + g], bh_[0], bl_[0]);
+            split(Qs[(row + 1) * ldq + 8 * j + g], bh_[1], bl_[1]);
+            mma3(dk[j], sh, sl, bh_, bl_);
+          }
+        }
+      }
+
+      // dpos: this lane's values by local distance (query - key) = 8n + (2t - g) + (i&1), n = nt - (i>>1)
+      float part[3][2];
+#pragma unroll
+      for (int n = 0; n < 3; ++n) part[n][0] = part[n][1] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[nt - (i >> 1) + 1][i & 1] += da[nt][i];
+      // lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same distances: sum along that chain
+      const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = part[n][j];
+          const float v1 = __shfl_down_sync(full, v, 9);
+          v += step1 ? v1 : 0.f;
+          const float v2 = __shfl_down_sync(full, v, 18);
+          v += step2 ? v2 : 0.f;
+          part[n][j] = v;
+        }
+      const bool head = t == 0 || g < 2;  // the chain's head adds its sums to the CTA's gpos
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int dist = l0 - m0 + 8 * (n - 1) + 2 * t - g + j;
+          if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
+        }
+      if (has_time) {
+        // dts into the warp's own sums, so no other warp contends: the lane's values key by
+        // key, so that its runs of equal buckets (neighbouring queries) fold before an atomic
+        float dsk[8];
+        int bkk[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ii = e >> 2, nt = (e >> 1) & 1, j = e & 1;
+          dsk[e] = da[nt][2 * ii + j];
+          bkk[e] = bk[nt][2 * ii + j];
+        }
+        add_ts_grads<8>(my_gts, dsk, bkk);
+      }
+    }
+
+    // dS to shared memory, [query][key], for dQ (zeros from a warp with no valid pair)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dSs[(qq0 + 8 * nt + 2 * t + (i & 1)) * kLdS + kk0 + g + 8 * (i >> 1)] = da[nt][i];
+    __syncthreads();  // B2: the tile's dS is complete; Q and G are consumed
+    if (!ring) {
+      if (qt + 1 < n_qt) issue(qt + 1, 0);
+      cp_commit();
+    }
+
+    // dQ_part = alpha dS K: warp rows 16 (warp % 4) of the q tile, feature n-tiles of half (warp / 4)
+    const int qr = 16 * (warp % 4), lq = q0 + qr;
+    const int nh = (dk8 + 1) >> 1, j0 = (warp / 4) * nh;
+    if (lq < L && lq + 15 >= k0 && j0 < dk8) {
+      float acc[NH][4];
+#pragma unroll
+      for (int jj = 0; jj < NH; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        load_a(dSs, kLdS, qr, 8 * kk, g, t, ah, al);
+#pragma unroll
+        for (int jj = 0; jj < NH; ++jj) {
+          const int j = j0 + jj;
+          if (jj < nh && j < dk8) {
+            const float* kp = Ks + (8 * kk + t) * ldk + 8 * j + g;
+            uint32_t bh_[2], bl_[2];
+            split(kp[0], bh_[0], bl_[0]);
+            split(kp[4 * ldk], bh_[1], bl_[1]);
+            mma3(acc[jj], ah, al, bh_, bl_);
+          }
+        }
+      }
+      // lanes t and t^1 swap halves: an even lane holds row g, columns 2t .. 2t+3,
+      // an odd lane row g+8, columns 2t-2 .. 2t+1
+      const bool odd = t & 1;
+      const int l = lq + g + (odd ? 8 : 0);
+#pragma unroll
+      for (int jj = 0; jj < NH; ++jj) {
+        const int j = j0 + jj;
+        const float s0 = odd ? acc[jj][0] : acc[jj][2], s1 = odd ? acc[jj][1] : acc[jj][3];
+        const float r0 = __shfl_xor_sync(full, s0, 1), r1 = __shfl_xor_sync(full, s1, 1);
+        const float x0 = (odd ? r0 : acc[jj][0]) * a.alpha, x1 = (odd ? r1 : acc[jj][1]) * a.alpha;
+        const float x2 = (odd ? acc[jj][2] : r0) * a.alpha, x3 = (odd ? acc[jj][3] : r1) * a.alpha;
+        const int c = 8 * j + 4 * (t >> 1);
+        if (jj < nh && j < dk8 && l < L && c < dqk) {
+          float* dst = a.dq + ((size_t)bh * L + l) * dqk + c;
+          if (f.red_v4) {
+            red_add_v4(dst, x0, x1, x2, x3);
+          } else {
+            atomicAdd(dst, x0);
+            if (c + 1 < dqk) atomicAdd(dst + 1, x1);
+            if (c + 2 < dqk) atomicAdd(dst + 2, x2);
+            if (c + 3 < dqk) atomicAdd(dst + 3, x3);
+          }
+        }
+      }
+    }
+  }
+
+  // dK, dV: the query splits' partials summed in a fixed order (split 0 + 1 + 2 + 3)
+  cp_wait_all();
+  __syncthreads();  // the stages are free
+  float* part = stages;
+  const int pw_words = 16 * (ldq + ldg);
+  if (qs > 0) {
+    float* dst = part + ((qs - 1) * kKeyGroups + kg) * pw_words;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i >> 1), c = 8 * j + 2 * t + (i & 1);
+        if (j < dk8) dst[r * ldq + c] = dk[j][i];
+        if (j < dv8) dst[16 * ldq + r * ldg + c] = dv[j][i];
+      }
+  }
+  __syncthreads();
+  if (qs == 0) {
+    for (int s2 = 1; s2 < kQuerySplits; ++s2) {
+      const float* src = part + ((s2 - 1) * kKeyGroups + kg) * pw_words;
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = g + 8 * (i >> 1), c = 8 * j + 2 * t + (i & 1);
+          if (j < dk8) dk[j][i] += src[r * ldq + c];
+          if (j < dv8) dv[j][i] += src[16 * ldq + r * ldg + c];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + g + 8 * (i >> 1);
+      if (m < L) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const int c = 8 * j + 2 * t + (i & 1);
+          if (c < dqk) a.dk[((size_t)bh * L + m) * dqk + c] = dk[j][i] * a.alpha;
+          if (c < dvd) a.dv[((size_t)bh * L + m) * dvd + c] = dv[j][i];
+        }
+      }
+    }
+  }
+  // the table sums (the dts copies added in a fixed order) into the global outputs: one atomic per nonzero slot
+  for (int d = tid; d < n_dist; d += kThreads2)
+    if (gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * H + h], gpos[d]);
+  if (has_time)
+    for (int u = tid; u <= a.bk.nb; u += kThreads2) {
+      float sum = 0.f;
+      for (int w = 0; w < f.ts_copies; ++w) sum += gts[w * lay.nb4 + u];
+      if (sum != 0.f) atomicAdd(&a.dts[(size_t)u * H + h], sum);
+    }
+}
+
+inline int stride_a(int width) { return ((width + 7) & ~7) + 4; }  // 4 mod 8: A and row-major B fragments
+inline int stride_b(int width) {                                      // 8 mod 32: K[key][feature] as a B fragment
+  const int w8 = (width + 7) & ~7;
+  return w8 + (((8 - w8) % 32) + 32) % 32;
+}
+
 template <int N>
-cudaError_t dispatch(int which, const Args& a, int B, cudaStream_t st) {
-  if (which == 0) return launch(bwd_kv_kernel<N, kFused>, a, B, 16 * N, st);
-  if (which == 1) return launch(bwd_q_kernel<N>, a, B, 16 * N, st);
-  return launch(bwd_kv_kernel<N, kDkv>, a, B, 16 * N, st);
+cudaError_t launch_fused(const Args& a, cudaStream_t stream, int* info) {
+  Fused f;
+  f.a = a;
+  f.ldq = stride_a(a.dqk);
+  f.ldg = stride_a(a.dv_dim);
+  f.ldv = stride_a(a.dv_dim);
+  f.ldk = stride_b(a.dqk);
+  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  f.vec_q = a.dqk % 4 == 0 && aligned(a.q);
+  f.vec_k = a.dqk % 4 == 0 && aligned(a.k);
+  f.vec_v = a.dv_dim % 4 == 0 && aligned(a.v);
+  f.vec_g = a.dv_dim % 4 == 0 && aligned(a.g);
+  f.red_v4 = a.dqk % 4 == 0 && aligned(a.dq);
+  // The most that fits: for long sequences or wide heads the dts copies go
+  // first, then the ring's second stage
+  size_t smem = 0;
+  for (int option = 0; option < 4; ++option) {
+    f.stages = option < 2 ? 2 : 1;
+    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;
+    smem = sizeof(float) * layout2(f, a.L, a.bk.nb).total;
+    if (smem <= kMaxSmem) break;
+  }
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bwd_fused_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (info != nullptr) return occupancy(bwd_fused_kernel<N>, kThreads2, smem, info);
+  const dim3 grid(a.B * a.H, (a.L + kTileK - 1) / kTileK);
+  bwd_fused_kernel<N><<<grid, kThreads2, smem, stream>>>(f);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t dispatch(int which, const Args& a, cudaStream_t st, int* info) {
+  if (which == 0) return launch_fused<N>(a, st, info);
+  if (which == 1) return launch_split(bwd_q_kernel<(N + 1) / 2>, a, 16 * ((N + 1) / 2), st);
+  return launch_split(bwd_kv_kernel<(N + 1) / 2>, a, 16 * ((N + 1) / 2), st);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
         const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts, int B,
-        int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, void* stream) {
+        int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,
+        float divisor, void* stream, int* info) {
   Args a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -490,20 +905,23 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   a.dv = static_cast<float*>(dv);
   a.dpos = static_cast<float*>(dpos);
   a.dts = static_cast<float*>(dts);
+  a.B = B;
   a.H = H;
   a.L = L;
   a.dqk = dqk;
   a.dv_dim = dv_dim;
   a.max_seq_len = max_seq_len;
-  a.num_buckets = num_buckets;
   a.alpha = alpha;
+  a.bk = Buckets{num_buckets, fn_log, minutes, divisor};
   auto st = static_cast<cudaStream_t>(stream);
   const int width = dqk > dv_dim ? dqk : dv_dim;
-  if (dqk < 1 || dv_dim < 1 || width > 128 || L < 1 || L > max_seq_len) return cudaErrorInvalidValue;
-  if (width <= 16) return dispatch<1>(which, a, B, st);
-  if (width <= 32) return dispatch<2>(which, a, B, st);
-  if (width <= 64) return dispatch<4>(which, a, B, st);
-  return dispatch<8>(which, a, B, st);
+  if (dqk < 1 || dv_dim < 1 || width > 128 || L < 1 || L > max_seq_len || num_buckets < 0) return cudaErrorInvalidValue;
+  // N: 8-wide n-tiles of the fused kernel; the split pair takes 16-wide columns, (N + 1) / 2 of them
+  if (width <= 8) return dispatch<1>(which, a, st, info);
+  if (width <= 16) return dispatch<2>(which, a, st, info);
+  if (width <= 32) return dispatch<4>(which, a, st, info);
+  if (width <= 64) return dispatch<8>(which, a, st, info);
+  return dispatch<16>(which, a, st, info);
 }
 
 }  // namespace
@@ -511,32 +929,32 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
 // All three take the same arguments.  q, k, g-shaped (B, H, L, dqk / dv)
 // inputs and outputs are fp32 and contiguous; pos_w (2*max_seq_len-1, H),
 // ts_w (num_buckets+1, H); thr (num_buckets+1,) int32; ts (B, L) int32 or
-// null (position bias only); mask (B, L) bool or null (all keys valid).
-// Outputs a kernel does not produce are ignored (pass null).  dq of
-// hstu_rab_bwd, and dpos / dts, must be zeroed by the caller: they are
+// null (position bias only); mask (B, L) bool or null (all keys valid); the
+// bucket config fn_log (0 sqrt, 1 log), minutes (1: |dt| / 60 first),
+// divisor.  Outputs a kernel does not produce are ignored (pass null).  dq
+// of hstu_rab_bwd, and dpos / dts, must be zeroed by the caller: they are
 // accumulated with atomics.  Each returns the cudaError_t of its launch.
-extern "C" int hstu_rab_bwd(const void* q, const void* k, const void* v, const void* g, const void* pos_w,
-                            const void* ts_w, const void* thr, const void* ts, const void* mask, void* dq, void* dk,
-                            void* dv, void* dpos, void* dts, int B, int H, int L, int dqk, int dv_dim,
-                            int max_seq_len, int num_buckets, float alpha, void* stream) {
-  return run(0, q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len,
-             num_buckets, alpha, stream);
-}
+#define RAB_BWD_ARGS                                                                                              \
+  const void *q, const void *k, const void *v, const void *g, const void *pos_w, const void *ts_w, const void *thr, \
+      const void *ts, const void *mask, void *dq, void *dk, void *dv, void *dpos, void *dts, int B, int H, int L,     \
+      int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes, float divisor,     \
+      void *stream
+#define RAB_BWD_PASS                                                                                                 \
+  q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len, num_buckets, alpha, \
+      fn_log, minutes, divisor, stream
 
-extern "C" int hstu_rab_bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* pos_w,
-                               const void* ts_w, const void* thr, const void* ts, const void* mask, void* dq, void* dk,
-                               void* dv, void* dpos, void* dts, int B, int H, int L, int dqk, int dv_dim,
-                               int max_seq_len, int num_buckets, float alpha, void* stream) {
-  return run(1, q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len,
-             num_buckets, alpha, stream);
-}
+extern "C" int hstu_rab_bwd(RAB_BWD_ARGS) { return run(0, RAB_BWD_PASS, nullptr); }
 
-extern "C" int hstu_rab_bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* pos_w,
-                                const void* ts_w, const void* thr, const void* ts, const void* mask, void* dq, void* dk,
-                                void* dv, void* dpos, void* dts, int B, int H, int L, int dqk, int dv_dim,
-                                int max_seq_len, int num_buckets, float alpha, void* stream) {
-  return run(2, q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len,
-             num_buckets, alpha, stream);
+extern "C" int hstu_rab_bwd_dq(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullptr); }
+
+extern "C" int hstu_rab_bwd_dkv(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr); }
+
+// K2 as this shape would launch it, without launching it: info[0] resident
+// CTAs per SM, info[1] registers per thread, info[2] dynamic shared memory
+// bytes per CTA.  Returns the cudaError_t.
+extern "C" int hstu_rab_bwd_occupancy(int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, int* info) {
+  return run(0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr, nullptr, nullptr, 1, 1, L, dqk, dv_dim, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
 }
 
 extern "C" const char* hstu_rab_bwd_error_string(int code) {

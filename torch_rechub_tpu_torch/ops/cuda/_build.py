@@ -6,7 +6,7 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 Libraries go to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of source and flags, so an edited source
+``.gitignore``), named by a hash of source, the shared headers and flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built at import time:
 the first launch builds, or a caller runs :func:`build_all` up front.
 """
@@ -41,7 +41,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # included by the sources
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

@@ -8,16 +8,16 @@ tensor is ever formed, forward or backward.
 
 Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
 
-- forward, ``csrc/hstu_rab_fwd.cu``, replaces the TPU's ``_fwd_kernel`` (K1).
-  At the serving shape the work is fp32 FMA-bound (about 32 FLOP per byte of
-  q/k/v/out, above the card's fp32 ridge of 20); the kernel stages K/V tiles
-  and the head's table columns in shared memory, keeps the accumulator in
-  registers and looks buckets up by binary search over the thresholds.
+- forward, ``csrc/hstu_rab_fwd.cu``, replaces the TPU's ``_fwd_kernel`` (K1):
+  products on the tensor cores in 3xTF32 (fp32 accuracy), the next K/V tile
+  copied with ``cp.async`` during the current one's math, P kept in
+  registers, and the bucket found in O(1) (:func:`bucket_lookup` is its
+  plain version).
 - backward, ``csrc/hstu_rab_bwd.cu``: ``hstu_rab_bwd`` replaces the fused
-  ``_bwd_fused_kernel`` (K2, the default), ``hstu_rab_bwd_dq`` and
-  ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
-  (K2a, K2b), taken when ``_FUSED_BWD[0]`` is False, as in the JAX package.
-  All three are fp32 FMA-bound; the source note has the design.
+  ``_bwd_fused_kernel`` (K2, the default; built as K1 is), ``hstu_rab_bwd_dq``
+  and ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` /
+  ``_bwd_dkv_kernel`` (K2a, K2b, fp32 FMAs), taken when ``_FUSED_BWD[0]`` is
+  False, as in the JAX package.  The source notes have the designs.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch versions
 (:func:`dense_forward`, differentiable by autograd, and
@@ -62,12 +62,50 @@ def _bucketize(dt: torch.Tensor, cfg: BucketCfg) -> torch.Tensor:
     return bucketize_time(dt, cfg.num_buckets, cfg.fn, cfg.divisor, cfg.unit)
 
 
+def bucket_codes(cfg: BucketCfg):
+    """``(fn_log, minutes, divisor)``: the bucket config as the kernels take it."""
+    return int(cfg.fn != "sqrt"), int(cfg.unit == "minutes"), float(cfg.divisor)
+
+
+def bucket_lookup(dt: torch.Tensor, thresholds: torch.Tensor, cfg: BucketCfg) -> torch.Tensor:
+    """The kernels' bucket lookup in plain PyTorch: int64 buckets of int32 differences ``dt``.
+
+    A guess from the f32 steps of :func:`bucketize_time`, then moved up while
+    ``thr[u+1] <= |dt|`` and down while ``thr[u] > |dt|``: the largest ``u``
+    with ``thr[u] <= |dt|``, exactly, whatever the guess's rounding.  ``|dt|``
+    (up to 2**31 for a wrapped difference) is clamped to 2**31 - 2, which has
+    the same f32 value and lies below the int32-max sentinel of the buckets
+    no ``|dt|`` reaches.
+    """
+    imax = torch.iinfo(torch.int32).max
+    a = dt.to(torch.int64).abs().clamp_max(imax - 1)
+    x = a.to(torch.float32)
+    if cfg.unit == "minutes":
+        x = x / 60.0
+    x = torch.clamp_min(x, 1e-6)
+    x = torch.sqrt(x) if cfg.fn == "sqrt" else torch.log(x)
+    u = torch.clamp(x / cfg.divisor, 0, cfg.num_buckets).to(torch.int64)
+    thr = thresholds.to(device=dt.device, dtype=torch.int64)
+    nb = cfg.num_buckets
+    while True:
+        up = (u < nb) & (thr[torch.clamp_max(u + 1, nb)] <= a)
+        if not bool(up.any()):
+            break
+        u = u + up.to(torch.int64)
+    while True:
+        down = thr[u] > a
+        if not bool(down.any()):
+            break
+        u = u - down.to(torch.int64)
+    return u
+
+
 def compute_bucket_thresholds(cfg: BucketCfg) -> torch.Tensor:
     """``thr[u]`` = smallest int ``|dt|`` with ``bucketize(dt) >= u``: int32 ``(nb+1,)`` on the CPU.
 
     ``bucketize`` is monotone in ``|dt|``, so ``bucket(dt) >= u`` holds
-    exactly when ``|dt| >= thr[u]``; the kernel then finds a bucket as the
-    largest ``u`` with ``thr[u] <= |dt|``, with no sqrt or log on the device.
+    exactly when ``|dt| >= thr[u]``; the kernels find a bucket as the
+    largest ``u`` with ``thr[u] <= |dt|`` (:func:`bucket_lookup`).
     A 32-step bisection with ``bucketize`` itself as the predicate
     reproduces the f32 rounding at every edge.  Unreachable buckets get the
     int32-max sentinel.  ``log`` need not be monotone to the last ulp, so
@@ -92,6 +130,30 @@ def compute_bucket_thresholds(cfg: BucketCfg) -> torch.Tensor:
         thr = torch.where(reachable, first, torch.full_like(first, imax))
     thr[0] = 0
     return thr.to(torch.int32)
+
+
+# every config of the lookup that the bucket sweep covers: sqrt / log, minutes / seconds, divisor 1 / 2
+SWEEP_CFGS = tuple(BucketCfg(128, fn, div, unit) for fn in ("sqrt", "log") for unit in ("minutes", "seconds") for div in (1.0, 2.0))
+
+
+def bucket_sweep_stamps(cfg: BucketCfg, seed: int = 0) -> torch.Tensor:
+    """``(2, L)`` int32 stamps that drive the bucket lookup over every edge of ``cfg``.
+
+    Row 0: ``t_0 = 0`` and, for each other position, one of the differences
+    ``thr[u] - 1``, ``thr[u]``, ``thr[u] + 1`` of every reachable threshold,
+    with a random sign, so ``|t_l - t_0|`` hits each of them.  Row 1: stamps
+    at both ends of int32, whose wrapping differences reach ``|dt| = 2**31``.
+    ``L`` is one more than the number of such differences.
+    """
+    thr = compute_bucket_thresholds(cfg).to(torch.int64)
+    edges = thr[thr < torch.iinfo(torch.int32).max]
+    diffs = torch.unique(torch.cat([edges - 1, edges, edges + 1]).clamp(0, 2**31 - 1))
+    gen = torch.Generator().manual_seed(seed)
+    sign = torch.where(torch.rand(diffs.numel(), generator=gen) < 0.5, -1, 1)
+    row0 = torch.cat([torch.zeros(1, dtype=torch.int64), sign * diffs])
+    ends = torch.tensor([-(2**31), -(2**31) + 1, 0, 1, 2**31 - 1, 2**31 - 2])
+    row1 = ends[torch.randint(0, ends.numel(), (row0.numel(),), generator=gen)]
+    return torch.stack([row0, row1]).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +204,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hstu_rab_fwd")
     if lib.hstu_rab_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_rab_fwd.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, p]
+        lib.hstu_rab_fwd.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
         lib.hstu_rab_fwd.restype = i
+        lib.hstu_rab_fwd_occupancy.argtypes = [i] * 5 + [p]
+        lib.hstu_rab_fwd_occupancy.restype = i
         lib.hstu_rab_error_string.argtypes = [i]
         lib.hstu_rab_error_string.restype = ctypes.c_char_p
     return lib
@@ -180,7 +244,7 @@ def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresho
         raise ValueError(f"hstu_attention_rab: B*H = {b * h} exceeds the grid limit 65535")
 
 
-def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int) -> torch.Tensor:
+def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg) -> torch.Tensor:
     global launches
     num_buckets = ts_w.shape[0] - 1
     _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
@@ -193,7 +257,7 @@ def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: f
         rc = lib.hstu_rab_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
             None if timestamps is None else timestamps.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
-            out.data_ptr(), b, h, l, dqk, dv, max_seq_len, num_buckets, float(alpha), stream,
+            out.data_ptr(), b, h, l, dqk, dv, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream,
         )
     if rc != 0:
         raise RuntimeError(f"hstu_rab_fwd launch failed: {lib.hstu_rab_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
@@ -206,14 +270,16 @@ def _lib_bwd() -> ctypes.CDLL:
     if lib.hstu_rab_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.hstu_rab_bwd, lib.hstu_rab_bwd_dq, lib.hstu_rab_bwd_dkv):
-            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, p]
+            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.hstu_rab_bwd_occupancy.argtypes = [i] * 5 + [p]
+        lib.hstu_rab_bwd_occupancy.restype = i
         lib.hstu_rab_bwd_error_string.argtypes = [i]
         lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
+def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
     """Launch one backward kernel into the given outputs (None: not produced)."""
     num_buckets = ts_w.shape[0] - 1
     _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
@@ -233,10 +299,26 @@ def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, t
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
             ptr(timestamps), ptr(padding_mask), ptr(dq), ptr(dk), ptr(dv), ptr(dpos), ptr(dts),
-            b, h, l, dqk, dv_dim, max_seq_len, num_buckets, float(alpha), stream,
+            b, h, l, dqk, dv_dim, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: {lib.hstu_rab_bwd_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv_dim})")
+
+
+def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> dict:
+    """K1 and K2 as this shape would launch them: ``{name: (CTAs per SM, registers per thread, shared bytes per CTA)}``.
+
+    From ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
+    ``cudaFuncGetAttributes`` through the C interface; nothing is launched.
+    """
+    out = {}
+    for name, lib in (("hstu_rab_fwd", _lib()), ("hstu_rab_bwd", _lib_bwd())):
+        info = (ctypes.c_int * 3)()
+        rc = getattr(lib, f"{name}_occupancy")(l, dqk, dv, max_seq_len, num_buckets, info)
+        if rc != 0:
+            raise RuntimeError(f"{name} occupancy query failed: error {rc}")
+        out[name] = tuple(info)
+    return out
 
 
 def _dispatch_bwd(name: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds):
@@ -260,7 +342,7 @@ def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha:
         return plain
     dq, dk, dv = torch.zeros_like(q), torch.empty_like(k), torch.empty_like(v)
     dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
-    _launch_bwd("hstu_rab_bwd", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dq=dq, dk=dk, dv=dv, dpos=dpos, dts=dts)
+    _launch_bwd("hstu_rab_bwd", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dq=dq, dk=dk, dv=dv, dpos=dpos, dts=dts)
     launches_bwd += 1
     return dq, dk, dv, dpos, dts
 
@@ -273,7 +355,7 @@ def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: fl
         return plain[0], plain[3], plain[4]
     dq = torch.empty_like(q)
     dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
-    _launch_bwd("hstu_rab_bwd_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dq=dq, dpos=dpos, dts=dts)
+    _launch_bwd("hstu_rab_bwd_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dq=dq, dpos=dpos, dts=dts)
     launches_bwd_dq += 1
     return dq, dpos, dts
 
@@ -285,7 +367,7 @@ def rab_backward_dkv(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: f
     if plain is not None:
         return plain[1], plain[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("hstu_rab_bwd_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, dk=dk, dv=dv)
+    _launch_bwd("hstu_rab_bwd_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dk=dk, dv=dv)
     launches_bwd_dkv += 1
     return dk, dv
 
@@ -301,7 +383,7 @@ class _RabAttentionKernel(torch.autograd.Function):
     def forward(ctx, q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg):
         ctx.save_for_backward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds)
         ctx.alpha, ctx.max_seq_len, ctx.cfg = alpha, max_seq_len, cfg
-        return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len)
+        return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
 
     @staticmethod
     def backward(ctx, grad_out):
