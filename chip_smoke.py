@@ -5,14 +5,14 @@
 
 1. Card: its name and power limit; fails without a CUDA device.
 2. Build: every CUDA source of the port, with nvcc, from this checkout;
-   the build log (ptxas's registers per kernel), and K1's and K2's CTAs per
-   SM, registers and shared memory.
+   the build log (ptxas's registers per kernel), and the CTAs per SM,
+   registers and shared memory of K1, K2, K2a and K2b.
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
    serving shape and at adversarial ones, with a stated tolerance, and timed
-   beside its bound (for K1 and K2 both the fp32-FMA and the 3xTF32
-   tensor-core bound): the forward K1, then the backward K2 and K2a + K2b
-   against the plain backward, on all five gradients; the bucket sweep (K1
-   and K2 at every time-bucket threshold); then K3 through the
+   beside its bound (for the rab kernels K1, K2, K2a, K2b both the fp32-FMA
+   and the 3xTF32 tensor-core bound): the forward K1, then the backward K2
+   and K2a + K2b against the plain backward, on all five gradients; the
+   bucket sweep (K1, K2 and K2a + K2b at every time-bucket threshold); then K3 through the
    op ``hstu_attention`` (materialised bias) on seven cases, against K1 on
    the serving model's own rab, and the op's gradients; its launch count.
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
@@ -24,8 +24,9 @@
    chunked 8192 (the bench's path) and dense, on seeded bench-style data;
    tokens/s, ms per step, and where a step's time goes; the loss finite and
    every parameter moved; K1 and K2 launched once per layer per step, and
-   one step with ``_FUSED_BWD[0] = False`` through K2a and K2b; one batch's
-   parameter gradients against the same weights without the kernels.
+   one step with ``_FUSED_BWD[0] = False`` through K2a and K2b; the layers'
+   backward timed through K2 and through K2a + K2b; one batch's parameter
+   gradients against the same weights without the kernels.
 6. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
@@ -34,6 +35,7 @@ Float32 throughout, TF32 off.
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import math
@@ -62,8 +64,8 @@ attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_HBM_BYTES = 3.35e12
-TF32_PASSES = 3  # K1 and K2 run every product as 3xTF32: hi*hi + hi*lo + lo*hi
-TENSOR_CORE_KERNELS = ("hstu_rab_fwd", "hstu_rab_bwd")
+TF32_PASSES = 3  # the rab kernels run every product as 3xTF32: hi*hi + hi*lo + lo*hi
+TENSOR_CORE_KERNELS = ("hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv")
 # kernel vs plain version: fp32 sums of up to L products in another order than cuBLAS
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # backward kernels vs the plain backward: dq, dk, dv as the forward (K2's dq
@@ -119,32 +121,47 @@ def timed(fn, cycles_per_ms, reps=REPS, warmup=3):
     Host clock: one call ended by a synchronise, what a caller waits for.
     Device time: CUDA events around one call that was enqueued while the
     device ran a spin wait longer than the enqueueing, so the events see the
-    call's device work back to back and not the host's launch cost.
+    call's device work back to back and not the host's launch cost.  A call
+    whose enqueueing outlasted the wait (a host stall: another process, the
+    scheduler) is measured again behind a spin twice as long as it took;
+    more such repeats than ``reps`` in all raise.  The garbage collector is
+    off while the calls are timed.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    spin = int((3 * max(walls) + 1.0) * cycles_per_ms)  # 1 ms of margin: a host hiccup must not outlast the wait
-    times = []
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(spin)
-        ev[1].record()
-        t0 = time.perf_counter()
-        fn()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        ev[2].record()
-        ev[2].synchronize()
-        if enqueue_ms >= ev[0].elapsed_time(ev[1]):
-            raise AssertionError("the host enqueued for longer than the device waited: the device time would count host time")
-        times.append(ev[1].elapsed_time(ev[2]))
+    gc.collect()
+    gc.disable()
+    try:
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        spin_ms = 3 * max(walls) + 1.0  # 1 ms of margin: a host hiccup must not outlast the wait
+        times, repeats, stall_ms = [], 0, 0.0
+        while len(times) < reps:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(int(spin_ms * cycles_per_ms))
+            ev[1].record()
+            t0 = time.perf_counter()
+            fn()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            ev[2].record()
+            ev[2].synchronize()
+            if enqueue_ms < ev[0].elapsed_time(ev[1]):
+                times.append(ev[1].elapsed_time(ev[2]))
+                continue
+            repeats, stall_ms = repeats + 1, max(stall_ms, enqueue_ms)
+            if repeats > reps:
+                raise AssertionError(f"the host enqueued for longer than the device waited in {repeats} calls (the last {enqueue_ms:.1f} ms): the device time would count host time")
+            spin_ms = max(spin_ms, 2 * enqueue_ms + 1.0)
+    finally:
+        gc.enable()
+    if repeats:
+        print(f"    ({repeats} of {reps + repeats} timed calls were measured again: the host stalled while enqueueing, up to {stall_ms:.1f} ms)")
     return float(np.median(times)), float(np.median(walls))
 
 
@@ -260,25 +277,27 @@ def sweep_case(cfg, h=8, d=32, seed=30):
 
 
 def sweep_phase():
-    """K1 and K2 on the bucket sweep of every config, against the plain version on the CPU (where
-    the thresholds were computed: the card's log may round an edge differently).  Max abs errs."""
-    worst = {"hstu_rab_fwd": 0.0, "hstu_rab_bwd": 0.0}
+    """K1, K2 and K2a + K2b on the bucket sweep of every config, against the plain version on the CPU
+    (where the thresholds were computed: the card's log may round an edge differently).  Max abs errs."""
+    worst = {"hstu_rab_fwd": 0.0, **{kernel: 0.0 for kernel in BWD_KERNELS}}
     for cfg in rab.SWEEP_CFGS:
         c = sweep_case(cfg)
         g = torch.from_numpy(np.random.default_rng(31).normal(size=tuple(c["v"].shape)).astype(np.float32))
         dev = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in c.items()}
         out = run_kernel(dev).cpu()
         args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
-        got = [t.cpu() for t in rab.rab_backward_fused(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args), dev["thr"])]
-        ref, ref_grads = run_plain(c), rab.dense_backward(*args, True)
+        dev_args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args] + [dev["thr"]]
+        ref, ref_grads = run_plain(c), dict(zip(GRAD_NAMES, rab.dense_backward(*args, True)))
         err, ratio = check_close(f"hstu_rab_fwd on the bucket sweep {cfg}", out, ref, KERNEL_RTOL, KERNEL_ATOL)
         worst["hstu_rab_fwd"] = max(worst["hstu_rab_fwd"], err)
         parts = [f"out {err:.2e} ({ratio:.3f})"]
-        for name, a, r in zip(GRAD_NAMES, got, ref_grads):
-            rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(r.abs().max()) + 1e-12) if name in ("dpos", "dts") else (BWD_RTOL, BWD_ATOL)
-            err, ratio = check_close(f"hstu_rab_bwd's {name} on the bucket sweep {cfg}", a, r, rtol, atol)
-            worst["hstu_rab_bwd"] = max(worst["hstu_rab_bwd"], err)
-            parts.append(f"{name} {err:.2e} ({ratio:.3f})")
+        for kernel, spec in BWD_KERNELS.items():
+            for name, a in zip(spec["outs"], spec["fn"](*dev_args)):
+                r = ref_grads[name]
+                rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(r.abs().max()) + 1e-12) if name in ("dpos", "dts") else (BWD_RTOL, BWD_ATOL)
+                err, ratio = check_close(f"{kernel}'s {name} on the bucket sweep {cfg}", a.cpu(), r, rtol, atol)
+                worst[kernel] = max(worst[kernel], err)
+                parts.append(f"{kernel} {name} {err:.2e} ({ratio:.3f})")
         print(f"  bucket sweep {tuple(cfg)}, L{c['max_seq_len']}, {len(c['thr'])} thresholds: max abs err (ratio) " + ", ".join(parts))
     return worst
 
@@ -654,20 +673,29 @@ def training_phase(cycles_per_ms):
             tr.optimizer.zero_grad(set_to_none=True)
             tr.loss_fn(toks, tds, tgts).backward()
 
+        def fwd_layers_bwd_split(tr=tr):  # the same through the split pair K2a + K2b
+            rab._FUSED_BWD[0] = False
+            try:
+                fwd_layers_bwd(tr)
+            finally:
+                rab._FUSED_BWD[0] = True
+
         stages = {
-            f"forward, {n_layers} HSTU layers (hidden states, autograd on)": lambda tr=tr: tr.model(toks, tds, return_hidden=True, generator=tr.generator),
-            "forward + backward of the hidden states (no loss)": fwd_layers_bwd,
-            "forward + loss": lambda tr=tr: tr.loss_fn(toks, tds, tgts),
-            "forward + loss + backward": fwd_bwd,
-            "train_step (+ Adam)": lambda tr=tr: tr.train_step(toks, tds, tgts),
+            "forward": (f"forward, {n_layers} HSTU layers (hidden states, autograd on)", lambda tr=tr: tr.model(toks, tds, return_hidden=True, generator=tr.generator)),
+            "layers": ("forward + backward of the hidden states (no loss)", fwd_layers_bwd),
+            "layers split": ("forward + backward of the hidden states (no loss), _FUSED_BWD[0] = False: K2a + K2b", fwd_layers_bwd_split),
+            "loss": ("forward + loss", lambda tr=tr: tr.loss_fn(toks, tds, tgts)),
+            "loss bwd": ("forward + loss + backward", fwd_bwd),
+            "step": ("train_step (+ Adam)", lambda tr=tr: tr.train_step(toks, tds, tgts)),
         }
-        t = []
-        for stage, fn in stages.items():
+        t = {}
+        for key, (stage, fn) in stages.items():
             device, wall = timed(fn, cycles_per_ms)
-            t.append(device)
+            t[key] = device
             print(f"  {name} stage {stage}: device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
-        print(f"  {name} by difference (device ms): forward {t[0]:.4f}, loss {t[2] - t[0]:.4f}, backward of the layers and embeddings {t[1] - t[0]:.4f}, "
-              f"backward of the loss {t[3] - t[2] - (t[1] - t[0]):.4f}, Adam and zero_grad {t[4] - t[3]:.4f}")
+        print(f"  {name} by difference (device ms): forward {t['forward']:.4f}, loss {t['loss'] - t['forward']:.4f}, "
+              f"backward of the layers and embeddings {t['layers'] - t['forward']:.4f} (through K2a + K2b: {t['layers split'] - t['forward']:.4f}), "
+              f"backward of the loss {t['loss bwd'] - t['loss'] - (t['layers'] - t['forward']):.4f}, Adam and zero_grad {t['step'] - t['loss bwd']:.4f}")
 
     for name, tr in trainers.items():
         kernel_breakdown(name, lambda tr=tr: tr.train_step(toks, tds, tgts))
@@ -715,7 +743,7 @@ def main():
     measured = {"hstu_rab_fwd": kernel_phase(cases, cycles_per_ms)}
     print("backward kernel phase (hstu_rab_bwd, hstu_rab_bwd_dq + hstu_rab_bwd_dkv vs the plain backward, fp32):")
     measured.update(backward_phase(cases, cycles_per_ms))
-    print("bucket sweep (hstu_rab_fwd and hstu_rab_bwd at every threshold -1, 0, +1 and |dt| = 2**31, vs the plain version on the CPU):")
+    print("bucket sweep (hstu_rab_fwd, hstu_rab_bwd and hstu_rab_bwd_dq + hstu_rab_bwd_dkv at every threshold -1, 0, +1 and |dt| = 2**31, vs the plain version on the CPU):")
     for name, err in sweep_phase().items():
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
     del cases

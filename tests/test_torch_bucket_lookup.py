@@ -179,3 +179,12 @@ def test_function_hands_the_config_to_the_forward_launch(monkeypatch):
     out = tmod._RabAttentionKernel.apply(q, k, v, pos_w, ts_w, ts, mask, tmod.compute_bucket_thresholds(c), 0.5, maxl, c)
     assert seen == [c]
     torch.testing.assert_close(out, tmod.dense_forward(q, k, v, pos_w, ts_w, ts, mask, 0.5, maxl, c, True), rtol=0, atol=0)
+
+
+def test_occupancy_asks_for_every_rab_kernel(fake_card):
+    """``occupancy`` queries K1, then K2, K2a and K2b by their index in the C interface."""
+    occ = tmod.occupancy(256, 32, 24, 256, 128)
+    assert list(occ) == ["hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"]
+    assert [name for name, _ in fake_card.calls] == ["hstu_rab_fwd_occupancy"] + ["hstu_rab_bwd_occupancy"] * 3
+    assert fake_card.calls[0][1][:5] == (256, 32, 24, 256, 128)
+    assert [args[:6] for _, args in fake_card.calls[1:]] == [(which, 256, 32, 24, 256, 128) for which in range(3)]

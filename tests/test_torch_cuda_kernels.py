@@ -82,8 +82,8 @@ CASES = {
     "dv128": dict(l=128, maxl=128, d=64, dv=128),
     "long_1024": dict(b=1, l=1024, maxl=1024, nb=128),
     "wide_1024_d128": dict(b=1, h=2, l=1024, maxl=1024, d=128, dv=128, nb=128),
-    # around the tile edges of K1 (32 q rows, 16 and 64 keys) and K2 (32 keys, 16 and 64
-    # queries), with widths that fill neither the 8-wide fragments nor the 16-byte copies evenly
+    # around the tile edges of K1 and K2a (32 q rows, 16 and 64 keys) and K2 and K2b (32 keys,
+    # 16 and 64 queries), with widths that fill neither the 8-wide fragments nor the 16-byte copies evenly
     **{f"edge_{l}_dqk12_dv20": dict(l=l, d=12, dv=20, times="shuffled", mask="scattered", seed=l) for l in (15, 16, 17, 63, 65, 129, 255)},
     # widths that are not a multiple of 4: 4-byte copies and scalar dq atomics
     "odd_widths_dqk7_dv5": dict(l=50, d=7, dv=5, times="shuffled", mask="scattered"),
@@ -149,19 +149,26 @@ def bwd_args(t, kw, g):
     return (t["q"], t["k"], t["v"], g, t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"])
 
 
-@pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
+def run_backward(args, split):
+    """``(dq, dk, dv, dpos, dts)`` from K2, or from K2a then K2b."""
+    if not split:
+        return rab.rab_backward_fused(*args)
+    dq, dpos, dts = rab.rab_backward_dq(*args)
+    dk, dv = rab.rab_backward_dkv(*args)
+    return dq, dk, dv, dpos, dts
+
+
+SPLIT = pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
+
+
+@SPLIT
 @pytest.mark.parametrize("case", list(CASES))
 def test_backward_kernels_match_plain(card, case, split):
     t, kw = rab_inputs(card, **CASES[case])
     g = torch.from_numpy(np.random.default_rng(7).normal(size=t["v"].shape).astype(np.float32)).to(card)
     args = bwd_args(t, kw, g)
     counts = (rab.launches_bwd, rab.launches_bwd_dq, rab.launches_bwd_dkv)
-    if split:
-        dq, dpos, dts = rab.rab_backward_dq(*args)
-        dk, dv = rab.rab_backward_dkv(*args)
-        got = (dq, dk, dv, dpos, dts)
-    else:
-        got = rab.rab_backward_fused(*args)
+    got = run_backward(args, split)
     torch.cuda.synchronize()
     assert (rab.launches_bwd, rab.launches_bwd_dq, rab.launches_bwd_dkv) == (counts[0] + (not split), counts[1] + split, counts[2] + split)
     ref = rab.dense_backward(*args, t["timestamps"] is not None)
@@ -170,7 +177,7 @@ def test_backward_kernels_match_plain(card, case, split):
         assert torch.all(got[0][0] == 0) and all(torch.isfinite(x).all() for x in got)
 
 
-@pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
+@SPLIT
 def test_autograd_runs_the_backward_kernels(card, split):
     t, kw = rab_inputs(card, times="shuffled", mask="scattered")
     rab._FUSED_BWD[0] = not split
@@ -211,7 +218,7 @@ def test_backward_kernels_reject_what_they_do_not_take(card):
             fn(*args(q=wide, k=wide))
 
 
-# The exact bucket lookup of K1 and K2 on rab.bucket_sweep_stamps: |t_l - t_m|
+# The exact bucket lookup of K1, K2, K2a and K2b on rab.bucket_sweep_stamps: |t_l - t_m|
 # hits every reachable threshold -1, 0 and +1 (row 0), and wrapping int32
 # stamps reach |dt| = 2**31 (row 1).  The reference is the plain version on
 # the CPU, where the thresholds were computed (the card's log may round an
@@ -232,14 +239,15 @@ def sweep_inputs(cfg, h=2, d=16, seed=0):
     return t, dict(alpha=1.0 / math.sqrt(d), max_seq_len=l, cfg=cfg)
 
 
+@SPLIT
 @pytest.mark.parametrize("cfg", rab.SWEEP_CFGS, ids=lambda c: str(tuple(c)))
-def test_bucket_sweep_matches_plain(card, cfg):
+def test_bucket_sweep_matches_plain(card, cfg, split):
     t, kw = sweep_inputs(cfg)
     names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
     dev = {n: t[n].to(card) for n in names}
     g = torch.from_numpy(np.random.default_rng(3).normal(size=t["v"].shape).astype(np.float32))
     out = rab.hstu_attention_rab(*(dev[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
-    grads = rab.rab_backward_fused(*(dev[n] for n in names[:3]), g.to(card), *(dev[n] for n in names[3:]), kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    grads = run_backward((*(dev[n] for n in names[:3]), g.to(card), *(dev[n] for n in names[3:]), kw["alpha"], kw["max_seq_len"], kw["cfg"]), split)
     torch.cuda.synchronize()
     ref = rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True)
     torch.testing.assert_close(out.cpu(), ref, rtol=RTOL, atol=ATOL)
@@ -255,25 +263,28 @@ def first_design_max_l(width, nb):
     return words // 2  # L words of position bias and L of its gradient
 
 
-# K2's layout there (Q/G stages, dts copies): (2, 32) at d32 and d64, (1, 32) at d128;
-# with 2000 buckets (2, 1) at d32 and (1, 1) at d128
+# The layouts there (ring stages, dts copies), K2 and K2a alike: (2, 32) at d32 and d64,
+# (1, 32) at d128; with 2000 buckets (2, 1) at d32 and (1, 1) at d128.  K2b (no dts
+# copies) keeps two Q/G stages at all of them.
+@SPLIT
 @pytest.mark.parametrize("width,nb", [(32, 16), (64, 16), (128, 16), (32, 2000), (128, 2000)], ids=lambda x: str(x))
-def test_kernels_take_the_longest_l_of_the_first_designs(card, width, nb):
-    """K1 and K2 take every L the first designs took: no new rejection at long sequences."""
+def test_kernels_take_the_longest_l_of_the_first_designs(card, width, nb, split):
+    """K1 and the backward kernels take every L the first designs took: no new rejection at long sequences."""
     l = first_design_max_l(width, nb)
     t, kw = rab_inputs(card, b=1, h=1, l=l, maxl=l, d=width, dv=width, nb=nb, times="shuffled", mask="scattered", seed=width)
     names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
     out = rab.hstu_attention_rab(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
     g = torch.from_numpy(np.random.default_rng(13).normal(size=t["v"].shape).astype(np.float32)).to(card)
-    got = rab.rab_backward_fused(*bwd_args(t, kw, g))
+    got = run_backward(bwd_args(t, kw, g), split)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True), rtol=RTOL, atol=ATOL)
     del out
     assert_grads_close(got, rab.dense_backward(*bwd_args(t, kw, g), True))
 
 
+@SPLIT
 @pytest.mark.parametrize("l", [131, 130])
-def test_kernels_read_a_mask_at_any_byte_offset(card, l):
+def test_kernels_read_a_mask_at_any_byte_offset(card, l, split):
     """A contiguous mask view that starts inside a 4-byte word (mask[1:] with L % 4 != 0)."""
     t, kw = rab_inputs(card, l=l, times="shuffled", mask="scattered")
     full = torch.ones((t["padding_mask"].shape[0] + 1, l), dtype=torch.bool, device=card)
@@ -283,7 +294,7 @@ def test_kernels_read_a_mask_at_any_byte_offset(card, l):
     names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
     out = rab.hstu_attention_rab(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
     g = torch.from_numpy(np.random.default_rng(14).normal(size=t["v"].shape).astype(np.float32)).to(card)
-    got = rab.rab_backward_fused(*bwd_args(t, kw, g))
+    got = run_backward(bwd_args(t, kw, g), split)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, rab.dense_forward(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], True), rtol=RTOL, atol=ATOL)
     assert_grads_close(got, rab.dense_backward(*bwd_args(t, kw, g), True))
@@ -298,6 +309,18 @@ def test_fused_backward_twice_agrees(card):
     assert_grads_close(first, second)
     torch.testing.assert_close(first[1], second[1], rtol=0, atol=0)  # dk, dv: a fixed order of sums
     torch.testing.assert_close(first[2], second[2], rtol=0, atol=0)
+
+
+def test_split_backward_twice_agrees(card):
+    """K2a's dq and K2b's dk, dv are sums in a fixed order: equal bit for bit between two runs;
+    dpos and dts are sums of atomics and agree within the tolerances."""
+    t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
+    g = torch.from_numpy(np.random.default_rng(12).normal(size=t["v"].shape).astype(np.float32)).to(card)
+    first, second = (run_backward(bwd_args(t, kw, g), split=True) for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda m: f"{name}: {m}")
+    assert_grads_close(first, second)
 
 
 def test_model_gradients_fused_match_unfused_on_card(card):

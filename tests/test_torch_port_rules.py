@@ -25,7 +25,7 @@ def imported_modules(path):
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "rab_kernel_ablation.py"]
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of K1 (hstu_rab_fwd) and K2 (hstu_rab_bwd) goes, by ablation.
+"""Where the time of the rab kernels goes, by ablation: K1 (hstu_rab_fwd),
+K2 (hstu_rab_bwd), K2a (hstu_rab_bwd_dq) and K2b (hstu_rab_bwd_dkv).
 
     python3 tools/rab_kernel_ablation.py
 
@@ -8,16 +9,19 @@ Needs a CUDA device and nvcc.  Builds copies of ``csrc/hstu_rab_fwd.cu`` and
 passes, the bucket lookup, the table-gradient sums, ...), times each at the
 serving shape (B8 H8 L256, dqk = dv = 32) and at L1024 the way
 ``chip_smoke.py`` times the kernels, and prints the difference to the
-unchanged kernel.  A variant computes wrong values by design: only the
-unchanged build is checked against the plain version.  Also prints the
-atomic and tensor-core instructions of the unchanged builds (cuobjdump), and
-the card's name and power limit.
+unchanged kernel.  A variant whose text is not in the source fails the run,
+so no variant times an unchanged copy; copies with the same text are built
+once.  A variant computes wrong values by design: only the unchanged build
+is checked against the plain version.  Also prints the atomic, tensor-core
+and cp.async (LDGSTS) instructions of each unchanged kernel at dqk = dv = 32
+(cuobjdump), and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import hashlib
 import re
 import subprocess
 import sys
@@ -39,6 +43,9 @@ HEADER = {  # variants of hstu_rab_common.cuh
     "one TF32 pass (hi*hi only)": [(MMA3, "  mma_tf32(d, ah, bh);")],
     "no products (operands still loaded and split)": [(MMA3, "  d[0] += __uint_as_float(ah[0] ^ bh[0] ^ al[0] ^ bl[0]);")],
 }
+LIBRARY = {"hstu_rab_fwd": "hstu_rab_fwd", "hstu_rab_bwd": "hstu_rab_bwd", "hstu_rab_bwd_dq": "hstu_rab_bwd", "hstu_rab_bwd_dkv": "hstu_rab_bwd"}
+FUNCTION = {"hstu_rab_fwd": "hstu_rab_fwd_kernel", "hstu_rab_bwd": "bwd_fused_kernel", "hstu_rab_bwd_dq": "bwd_q_kernel", "hstu_rab_bwd_dkv": "bwd_kv_kernel"}
+ONE_STAGE = [("    f.stages = option < 2 ? 2 : 1;", "    f.stages = 1;")]  # K2, K2a and K2b choose their ring alike
 VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
     "hstu_rab_fwd": {
         "unchanged": ([], []),
@@ -51,10 +58,25 @@ VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
         **{k: (v, []) for k, v in HEADER.items()},
         "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq[qq], tk_r[i >> 1]);", "              const int u = 3;")]),
         "no dts sums": ([], [("        add_ts_grads<8>(my_gts, dsk, bkk);", "")]),
-        "no dpos sums": ([], [("          if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);", "")]),
-        "no dq atomics": ([], [("            red_add_v4(dst, x0, x1, x2, x3);", "")]),
+        "no dpos sums": ([], [("        add_pos_grads<1>(gpos, part, l0 - m0, n_dist, g, t);", "")]),
+        "no dq atomics": ([], [("              red_add_v4(dst, x0, x1, x2, x3);", "")]),
         "one CTA-wide dts table (no copies)": ([], [("    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;", "    f.ts_copies = 1;")]),
-        "one Q/G stage (no ring)": ([], [("    f.stages = option < 2 ? 2 : 1;", "    f.stages = 1;")]),
+        "one Q/G stage (no ring)": ([], ONE_STAGE),
+    },
+    "hstu_rab_bwd_dq": {
+        "unchanged": ([], []),
+        **{k: (v, []) for k, v in HEADER.items()},
+        "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq_r[i >> 1], tk[c]);", "              const int u = 3;")]),
+        "no dts sums": ([], [("        add_ts_grads<8>(my_gts, dsr, bkr);", "")]),
+        "no dpos sums": ([], [("      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);", "")]),
+        "one CTA-wide dts table (no copies)": ([], [("    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;", "    f.ts_copies = 1;")]),
+        "one K/V stage (no ring)": ([], ONE_STAGE),
+    },
+    "hstu_rab_bwd_dkv": {  # no table gradients: nothing of dts or dpos to take out
+        "unchanged": ([], []),
+        **{k: (v, []) for k, v in HEADER.items()},
+        "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq[qq], tk_r[i >> 1]);", "              const int u = 3;")]),
+        "one Q/G stage (no ring)": ([], ONE_STAGE),
     },
 }
 
@@ -67,32 +89,38 @@ def substitute(text, subs, what):
     return text
 
 
-def build_all():
-    """Every variant's library, built in parallel: {(kernel, variant): (path, nvcc process)}."""
-    nvcc = _build._nvcc()
+def variant_sources():
+    """{(kernel, variant): (header text, source text)}; raises where a substitution finds nothing."""
     header = (_build.CSRC / "hstu_rab_common.cuh").read_text()
-    procs = {}
-    for kernel, variants in VARIANTS.items():
-        source = _build.SOURCES[kernel].read_text()
-        for j, (name, (hsubs, subs)) in enumerate(variants.items()):
-            d = OUT / f"{kernel}_{j}"
+    return {(kernel, name): (substitute(header, hsubs, f"{kernel} {name}"), substitute(_build.SOURCES[LIBRARY[kernel]].read_text(), subs, f"{kernel} {name}"))
+            for kernel, variants in VARIANTS.items() for name, (hsubs, subs) in variants.items()}
+
+
+def build_all():
+    """Every variant's library, built in parallel, one build per distinct text: {(kernel, variant): path}."""
+    nvcc = _build._nvcc()
+    procs, libs = {}, {}
+    for key, (header, source) in variant_sources().items():
+        d = OUT / hashlib.sha256((header + source).encode()).hexdigest()[:16]
+        libs[key] = d / "k.so"
+        if d not in procs:
             d.mkdir(parents=True, exist_ok=True)
-            (d / "hstu_rab_common.cuh").write_text(substitute(header, hsubs, name))
-            (d / "k.cu").write_text(substitute(source, subs, name))
+            (d / "hstu_rab_common.cuh").write_text(header)
+            (d / "k.cu").write_text(source)
             cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(d / "k.so"), str(d / "k.cu")]
-            procs[kernel, name] = (d / "k.so", subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for key, (path, proc) in procs.items():
+            procs[d] = (key, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for key, proc in procs.values():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{key} did not build:\n{out}")
-        libs[key] = path
     return libs
 
 
-def sass_counts(path):
+def sass_counts(path, function):
+    """Atomic, tensor-core and cp.async instructions of ``function``'s instantiation for dqk, dv <= 32 (N = 4)."""
     sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(path)], capture_output=True, text=True, check=True).stdout
-    return dict(collections.Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|REDG?\.[A-Z0-9.]+|HMMA\.[A-Z0-9.]+)", sass)))
+    body = next((part for part in sass.split("Function : ")[1:] if re.match(rf"\S*{function}ILi4E", part)), "")
+    return dict(collections.Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|REDG?\.[A-Z0-9.]+|HMMA\.[A-Z0-9.]+|LDGSTS(?:\.[A-Z0-9.]+)*)", body)))
 
 
 def main():
@@ -109,9 +137,11 @@ def main():
     def args(c, g):
         return (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
 
-    calls = {
-        "hstu_rab_fwd": lambda c, g: cs.run_kernel(c),
-        "hstu_rab_bwd": lambda c, g: rab.rab_backward_fused(*args(c, g)),
+    calls = {  # kernel: (call, index of its first output in dense_backward's gradients)
+        "hstu_rab_fwd": (lambda c, g: cs.run_kernel(c), None),
+        "hstu_rab_bwd": (lambda c, g: rab.rab_backward_fused(*args(c, g)), 0),
+        "hstu_rab_bwd_dq": (lambda c, g: rab.rab_backward_dq(*args(c, g)), 0),
+        "hstu_rab_bwd_dkv": (lambda c, g: rab.rab_backward_dkv(*args(c, g)), 1),
     }
     loaded = {}
     real_load = _build.load
@@ -120,18 +150,19 @@ def main():
         for kernel, variants in VARIANTS.items():
             print(f"{kernel} (device ms, medians of {cs.REPS}; difference to the unchanged kernel):")
             base = {}
+            call, first = calls[kernel]
             for name in variants:
-                loaded[kernel] = ctypes.CDLL(str(paths[kernel, name]))
+                loaded[LIBRARY[kernel]] = ctypes.CDLL(str(paths[kernel, name]))
                 if name == "unchanged":
                     c, g = cases["B8 L256"], grads["B8 L256"]
-                    out = calls[kernel](c, g)
-                    out = out if isinstance(out, torch.Tensor) else out[0]
-                    ref = cs.run_plain(c) if kernel == "hstu_rab_fwd" else rab.dense_backward(*args(c, g)[:-1], True)[0]
+                    out = call(c, g)
+                    out = out if first is None else out[0]
+                    ref = cs.run_plain(c) if first is None else rab.dense_backward(*args(c, g)[:-1], True)[first]
                     cs.check_close(f"{kernel} (unchanged build)", out, ref, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
-                    print(f"  SASS of the unchanged build: {sass_counts(paths[kernel, name])}")
+                    print(f"  SASS of {FUNCTION[kernel]}<4>, the unchanged build: {sass_counts(paths[kernel, name], FUNCTION[kernel])}")
                 parts = []
                 for case, c in cases.items():
-                    ms, _ = cs.timed(lambda c=c, g=grads[case]: calls[kernel](c, g), cycles_per_ms)
+                    ms, _ = cs.timed(lambda c=c, g=grads[case]: call(c, g), cycles_per_ms)
                     if name == "unchanged":
                         base[case] = ms
                         parts.append(f"{case} {ms:.4f}")

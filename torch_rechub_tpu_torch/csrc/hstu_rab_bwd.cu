@@ -18,33 +18,50 @@
 //
 // bucket() is K1's exact O(1) lookup (hstu_rab_common.cuh), in all three.
 //
-// K2, the default backward (bwd_fused_kernel).  What bounds it on an H100:
-// at B8 H8 L256, dqk = dv = 32 the valid pairs need 0.63 GFLOP of products
-// (five of them), 0.0038 ms on the tensor cores in 3xTF32, against 14.7 MB
-// of q/k/v/g/dq/dk/dv (0.0044 ms at 3.35 TB/s): bytes.  Its earlier version
-// (fp32 FMAs over transposed 64 x 64 tiles, four barriers a tile, scalar dq
-// atomics, a serial dpos walk) ran at 17x its fp32-FMA bound.  Design:
+// What bounds them on an H100, at B8 H8 L256, dqk = dv = 32 (1.96 M valid
+// pairs): K2 needs 0.63 GFLOP of products (five of them), 0.0038 ms on the
+// tensor cores in 3xTF32, against 14.7 MB of q/k/v/g/dq/dk/dv (0.0044 ms at
+// 3.35 TB/s); K2a 0.38 GFLOP (three products: S, dA, dQ), 0.0023 ms, against
+// 10.5 MB of q/k/v/g/dq, 0.0031 ms; K2b 0.50 GFLOP (four: S, dA, dV, dK),
+// 0.0030 ms, against 12.6 MB of q/k/v/g/dk/dv, 0.0038 ms.  All three are
+// bounded by bytes.  The split pair recomputes S and dA in both kernels, so
+// its sum stays above K2.  What the kernels really spend is the per-pair
+// work the tensor cores do not do (bias, bucket, silu', the table sums) and
+// latency; hence the tensor cores for the products, registers for P and dS,
+// and a card full of warps.  K2a and K2b are held to 80 registers at
+// dqk, dv <= 32 (launch bounds of 3 CTAs, 24 warps, per SM; K2a 79 with no
+// spills, K2b 80 with 12 B of spill stores), which took K2a from 0.068 to
+// 0.057 ms and K2b from 0.049 to 0.046 at the serving shape on an H100 at
+// 700 W (PERF.md); K2 keeps 2 CTAs per SM at 125 registers.
+//
+// K2, the default backward (bwd_fused_kernel), and K2b (bwd_kv_kernel): one
+// body, key_tile_body<N, kFull>, K2b being K2 with kFull = false.  K2b is
+// K2's key-tile loop without dq and the table gradients, so one body keeps
+// the two from drifting apart; kFull compiles out the dS store and its
+// barrier, the dQ products and atomics, the table sums and their shared
+// memory, and K2's instantiation is the code it was.
 // - CTA = 8 warps over a 32-key tile: 2 key groups of 16 x 4 query splits,
 //   each warp 16 of every 64-query tile, the q tiles walked from the
 //   diagonal to L.  Low key tiles walk the most q tiles; they are issued
 //   first (grid y), and the 32-key tile gives 512 CTAs at the serving shape.
-// - The five products on tensor cores (mma.sync m16n8k8 TF32, 3xTF32):
+// - The products on tensor cores (mma.sync m16n8k8 TF32, 3xTF32):
 //   S^T = K Q^T and dA^T = V G^T with the warp's keys as rows; P^T and dS^T
 //   stay in registers and are the A fragments of dV += P^T G and
 //   dK += dS^T Q (the queries of each 8-group read in the order
-//   0,2,4,6,1,3,5,7, and the B rows of G and Q loaded in that order).  dS
-//   also goes to shared memory, [query][key], where dQ_part = dS K reads it
-//   as an A fragment after the tile's second barrier; K is kept with a row
-//   stride of 8 mod 32 words so that its B fragment (K[key][feature]) loads
-//   without bank conflicts, Q, G and V with 4 mod 8.
+//   0,2,4,6,1,3,5,7, and the B rows of G and Q loaded in that order).  K2
+//   also stores dS to shared memory, [query][key], where dQ_part = dS K
+//   reads it as an A fragment after the tile's second barrier; there K is
+//   kept with a row stride of 8 mod 32 words so that its B fragment
+//   (K[key][feature]) loads without bank conflicts.  K2b reads K only as an
+//   A fragment, at 4 mod 8 like Q, G and V.
 // - Q, G and the query stamps of the next q tile are copied with cp.async
-//   into a two-stage ring during the current tile's math; two barriers a
-//   tile.  Where two stages do not fit (long sequences at wide heads) one
-//   stage is refilled after the second barrier, during the dQ products.
-// - dq: each (key tile, q tile) pair adds its partial from the fragments,
-//   two lanes swapping halves so each holds four consecutive floats, with
-//   one red.global.add.v4.f32 (scalar atomics where dqk % 4 or alignment
-//   forbid).  The order of these sums changes from run to run.
+//   into a two-stage ring during the current tile's math; K2 has two
+//   barriers a tile, K2b one.  Where two stages do not fit (long sequences
+//   at wide heads) one stage is refilled after the tile's second barrier.
+// - K2's dq: each (key tile, q tile) pair adds its partial from the
+//   fragments, two lanes swapping halves so each holds four consecutive
+//   floats, with one red.global.add.v4.f32 (scalar atomics where dqk % 4 or
+//   alignment forbid).  The order of these sums changes from run to run.
 // - Table gradients in shared memory (shared fp32 atomics are
 //   compare-and-swap loops on sm_90, so contention is what they must
 //   avoid).  dpos by causal distance into one CTA-wide gpos[L]: each lane
@@ -57,26 +74,50 @@
 //   warp's buckets agree; where the 32 copies do not fit, into one table.
 //   At the end the copies are added in a fixed order, and one global atomic
 //   per nonzero slot adds them to the zeroed outputs.
-// - dK and dV of the four query splits are summed in a fixed order at the end.
+// - dK and dV of the four query splits are summed in a fixed order at the
+//   end: they are the same bit for bit from run to run.
 //
-// K2a and K2b keep their first design (fp32 FMAs; K2a: one CTA per (b*h,
-// 64-row q tile) over the k tiles up to the causal frontier, dq in
-// registers; K2b: one per (b*h, 64-key tile) over the q tiles from the
-// diagonal, dk and dv in registers); only their bucket lookup is K1's.
+// K2a (bwd_q_kernel) keeps the TPU kernel's ownership: one CTA owns its q
+// rows and walks the key tiles up to the causal frontier, so dq is written
+// once, with no atomics and no zeroed output.  It is K1's loop
+// (hstu_rab_fwd.cu) run backward:
+// - CTA = 8 warps over a 32-row q tile: 2 row groups of 16 x 4 key splits,
+//   each warp 16 of every 64 staged keys; 512 CTAs at the serving shape,
+//   issued heaviest q tile first (grid y reversed).
+// - K, V, the key stamps and the mask words of the next 64-key tile are
+//   copied with cp.async into a two-stage ring (one barrier a tile; one
+//   stage and two barriers where two do not fit), Q and G once.
+// - S = Q K^T and dA = G V^T on the tensor cores in 3xTF32; both
+//   accumulators have one fragment layout, so dS = valid dA silu'(S) / N
+//   is formed in registers and is the A fragment of dQ += dS K with the
+//   keys of each 8-group read in the order 0,2,4,6,1,3,5,7 (K's rows loaded
+//   in that order, as K1 does for P V): dS never touches shared memory.
+//   Every tile is kept at a row stride of 4 mod 8 words, which loads
+//   K[key][feature] both as S's B fragment and, with the key index 2t, as
+//   dQ's, without bank conflicts.
+// - dq: the four key splits' partials summed in a fixed order, (0 + 2) +
+//   (1 + 3), as K1 sums its outputs: the same bit for bit from run to run.
+// - dpos and dts: K2's machinery above, per q tile (one CTA-wide gpos; dts
+//   copies per warp and lane column t, or one table where they do not fit).
+//
+// Every shape the first designs took: dqk, dv <= 128, any L (rows and keys
+// past L are masked here, V/K rows past L zero-filled, no host padding),
+// widths that fill neither the 8-wide fragments nor the 16-byte copies
+// (zero-padded in shared memory; 4-byte copies), masks at any byte offset.
+// Where shared memory runs short the dts copies go first, then the second
+// ring stage; with one stage and one dts table no kernel needs more than
+// the first designs (fp32 FMAs over 64 x 64 tiles, Q/K/G/V staged
+// transposed by scalar loads) took, so every L they took fits.  Kept from
+// the first designs: the ownership (K2a a q tile, K2b a key tile),
+// pos_w staged by causal distance, fully masked rows giving zeros.
+// Registers, shared memory and CTAs per SM: ptxas's report in the build log
+// and hstu_rab_bwd_occupancy (chip_smoke.py prints both).
 
 #include "hstu_rab_common.cuh"
 
 namespace {
 
 using namespace rab;
-
-// ---------------------------------------------------------------------------
-// K2a and K2b: fp32 FMAs over 64 x 64 tiles, 256 threads each a 4 x 4 block
-// ---------------------------------------------------------------------------
-
-constexpr int kBlock = 64;           // q and k tiles
-constexpr int kThreads = 256;        // 16 x 16 threads, each a 4 x 4 block of the tile
-constexpr int kLd = kBlock + 1;      // row stride of the transposed tiles and of P / dS (bank spread)
 
 struct Args {
   const float *q, *k, *v, *g, *pos_w, *ts_w;
@@ -88,134 +129,9 @@ struct Args {
   Buckets bk;
 };
 
-// Dynamic shared memory, in 4-byte words (DW = 16 * N >= dqk, dv):
-//   Qt Kt Gt Vt [DW][kLd]   Ps Ds [kBlock][kLd]
-//   pw[L] (position bias by causal distance)  gpos[L] (its gradient)
-//   tw[nb+1]  gts[nb+1]  th[nb+1] (int)  tq tk km [kBlock] (int)
-inline size_t smem_bytes(int dw, int L, int num_buckets) {
-  return sizeof(float) * (4 * (size_t)dw * kLd + 2 * (size_t)kBlock * kLd + 2 * (size_t)L +
-                          3 * (size_t)(num_buckets + 1) + 3 * kBlock);
-}
-
-struct Smem {
-  float *Qt, *Kt, *Gt, *Vt, *Ps, *Ds, *pw, *gpos, *tw, *gts;
-  int *th, *tq, *tk, *km;
-};
-
-__device__ __forceinline__ Smem carve(float* smem, int dw, int L, int num_buckets) {
-  Smem s;
-  s.Qt = smem;
-  s.Kt = s.Qt + dw * kLd;
-  s.Gt = s.Kt + dw * kLd;
-  s.Vt = s.Gt + dw * kLd;
-  s.Ps = s.Vt + dw * kLd;
-  s.Ds = s.Ps + kBlock * kLd;
-  s.pw = s.Ds + kBlock * kLd;
-  s.gpos = s.pw + L;
-  s.tw = s.gpos + L;
-  s.gts = s.tw + num_buckets + 1;
-  s.th = reinterpret_cast<int*>(s.gts + num_buckets + 1);
-  s.tq = s.th + num_buckets + 1;
-  s.tk = s.tq + kBlock;
-  s.km = s.tk + kBlock;
-  return s;
-}
-
-// dst[d * kLd + r] = src[row0 + r, d] for r < kBlock, d < DW; zero past L or width
-template <int DW>
-__device__ __forceinline__ void stage_t(float* dst, const float* src, int row0, int L, int width) {
-  for (int i = threadIdx.x; i < kBlock * DW; i += kThreads) {
-    const int r = i / DW, d = i - r * DW;
-    dst[d * kLd + r] = row0 + r < L && d < width ? src[(size_t)(row0 + r) * width + d] : 0.f;
-  }
-}
-
-// The head's tables and the zeroed gradient accumulators.
-__device__ __forceinline__ void stage_tables(const Args& a, const Smem& s, int h, bool has_time) {
-  for (int d = threadIdx.x; d < a.L; d += kThreads) {
-    s.pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * a.H + h];
-    s.gpos[d] = 0.f;
-  }
-  if (has_time) {
-    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads) {
-      s.tw[u] = a.ts_w[(size_t)u * a.H + h];
-      s.th[u] = a.thr[u];
-      s.gts[u] = 0.f;
-    }
-  }
-}
-
-// Rows (or keys) r0 .. r0+63 of batch b: stamps into t, and for keys the validity into valid.
-__device__ __forceinline__ void stage_rows(const Args& a, int b, int r0, int* t, int* valid, bool has_time) {
-  if (threadIdx.x < kBlock) {
-    const int m = r0 + threadIdx.x;
-    if (valid != nullptr) valid[threadIdx.x] = m < a.L && (a.mask == nullptr || a.mask[(size_t)b * a.L + m] != 0);
-    if (has_time) t[threadIdx.x] = m < a.L ? a.ts[(size_t)b * a.L + m] : 0;
-  }
-}
-
-// One 64 x 64 tile (rows q0.., keys k0..): dS (and P when want_p) into shared
-// memory, and this thread's 4 x 4 block of dS and buckets (-1 where invalid)
-// in registers for the table gradients.
-__device__ __forceinline__ void tile_grads(const Args& a, const Smem& s, int q0, int k0, bool has_time, bool want_p,
-                                           float ds[4][4], int bk[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float norm = (float)a.max_seq_len;
-  const Lookup bucket(s.th, a.bk);
-  float sc[4][4], da[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = da[i][j] = 0.f;
-  for (int d = 0; d < a.dqk; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = s.Qt[d * kLd + ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = s.Kt[d * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(x[i], y[j], sc[i][j]);
-  }
-  for (int d = 0; d < a.dv_dim; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = s.Gt[d * kLd + ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = s.Vt[d * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) da[i][j] = fmaf(x[i], y[j], da[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, l = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, m = k0 + c;
-      const bool valid = l < a.L && m <= l && s.km[c];
-      float x = -1e4f;
-      int u = -1;
-      if (valid) {
-        float bias = s.pw[l - m];
-        if (has_time) {
-          u = bucket(s.tq[r], s.tk[c]);
-          bias += s.tw[u];
-        }
-        x = sc[i][j] * a.alpha + bias;
-      }
-      const float e = expf(-x);  // inf at -1e4: the sigmoid is exactly 0 and silu is -0
-      const float sig = 1.f / (1.f + e);
-      const float d = valid ? da[i][j] * (sig * (1.f + x * (1.f - sig))) / norm : 0.f;
-      if (want_p) s.Ps[r * kLd + c] = x / (1.f + e) / norm;
-      s.Ds[r * kLd + c] = d;
-      ds[i][j] = d;
-      bk[i][j] = u;
-    }
-  }
-}
+constexpr int kWarps2 = 8;
+constexpr int kThreads2 = 32 * kWarps2;
+constexpr int kTsCopies = 4 * kWarps2;  // dts sums: one copy per warp and lane column t
 
 // dts of one thread's values (bucket -1: none): fold its runs of equal
 // buckets, then the warp's when all its lanes hold one bucket.
@@ -246,206 +162,74 @@ __device__ __forceinline__ void add_ts_grads(float* gts, const float* ds, const 
   }
 }
 
-// Table gradients of one tile into the CTA's shared accumulators.  Call after
-// the tile's dS is complete in shared memory (a __syncthreads after
-// tile_grads) and before the next tile overwrites it.
-__device__ __forceinline__ void tile_table_grads(const Smem& s, int q0, int k0, int L, bool has_time,
-                                                 const float ds[4][4], const int bk[4][4]) {
-  // dpos: thread t < 127 owns the diagonal r - c = t - 63 of the tile, i.e.
-  // the causal distance q0 - k0 + t - 63; each distance has one owner, so a
-  // plain add suffices (tiles are separated by __syncthreads).
-  const int t = threadIdx.x;
-  if (t < 2 * kBlock - 1) {
-    const int o = t - (kBlock - 1);
-    const int dist = q0 - k0 + o;
-    if (dist >= 0 && dist < L) {
-      float acc = 0.f;
-      const int n = kBlock - (o >= 0 ? o : -o);
-      const int r0 = o >= 0 ? o : 0, c0 = o >= 0 ? 0 : -o;
-      for (int i = 0; i < n; ++i) acc += s.Ds[(r0 + i) * kLd + c0 + i];
-      s.gpos[dist] += acc;
+// dpos of one warp's 16 x 16 fragment pair.  part[n][j] holds the lane's
+// values at local causal distance 8 (n - 1) + kSign (2t - g + j) (kSign: +1
+// where the fragment is keys x queries, K2; -1 where it is rows x keys,
+// K2a); lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same
+// distances, so they sum along that chain by shuffles and the chain's head
+// adds one shared atomic per distance at base + its local distance, for
+// distances in [0, n_dist).
+template <int kSign>
+__device__ __forceinline__ void add_pos_grads(float* gpos, float part[3][2], int base, int n_dist, int g, int t) {
+  const unsigned full = 0xffffffffu;
+  const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = part[n][j];
+      const float v1 = __shfl_down_sync(full, v, 9);
+      v += step1 ? v1 : 0.f;
+      const float v2 = __shfl_down_sync(full, v, 18);
+      v += step2 ? v2 : 0.f;
+      part[n][j] = v;
     }
-  }
-  if (has_time) add_ts_grads<16>(s.gts, &ds[0][0], &bk[0][0]);
+  const bool head = t == 0 || g < 2;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int dist = base + 8 * (n - 1) + kSign * (2 * t - g + j);
+      if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
+    }
 }
 
-// The CTA's table gradients into the global fp32 outputs (zeroed by the wrapper).
-__device__ __forceinline__ void flush_table_grads(const Args& a, const Smem& s, int h, bool has_time) {
-  for (int d = threadIdx.x; d < a.L; d += kThreads)
-    if (s.gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * a.H + h], s.gpos[d]);
-  if (has_time)
-    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads)
-      if (s.gts[u] != 0.f) atomicAdd(&a.dts[(size_t)u * a.H + h], s.gts[u]);
+// The CTA's table sums into the global outputs (zeroed by the wrapper): the
+// dts copies added in a fixed order, one atomic per nonzero slot.
+__device__ __forceinline__ void flush_table_grads(const Args& a, const float* gpos, const float* gts, int n_dist,
+                                                  int copies, int nb4, int h) {
+  for (int d = threadIdx.x; d < n_dist; d += kThreads2)
+    if (gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * a.H + h], gpos[d]);
+  if (a.ts != nullptr)
+    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads2) {
+      float sum = 0.f;
+      for (int w = 0; w < copies; ++w) sum += gts[w * nb4 + u];
+      if (sum != 0.f) atomicAdd(&a.dts[(size_t)u * a.H + h], sum);
+    }
 }
 
-// K2b: one CTA per (b*h, 64-key tile), looping over the q tiles at or below the diagonal.
-template <int N>
-__global__ void __launch_bounds__(kThreads) bwd_kv_kernel(Args a) {
-  constexpr int DW = 16 * N;
-  extern __shared__ float smem[];
-  const Smem s = carve(smem, DW, a.L, a.bk.nb);
-  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
-  const int kt = blockIdx.x, k0 = kt * kBlock;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool has_time = a.ts != nullptr;
-  const float* qb = a.q + (size_t)bh * a.L * a.dqk;
-  const float* gb = a.g + (size_t)bh * a.L * a.dv_dim;
-
-  stage_t<DW>(s.Kt, a.k + (size_t)bh * a.L * a.dqk, k0, a.L, a.dqk);
-  stage_t<DW>(s.Vt, a.v + (size_t)bh * a.L * a.dv_dim, k0, a.L, a.dv_dim);
-  stage_rows(a, b, k0, s.tk, s.km, has_time);
-  stage_tables(a, s, h, has_time);
-
-  float dk_acc[4][N], dv_acc[4][N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int n_q = (a.L + kBlock - 1) / kBlock;
-  for (int qt = kt; qt < n_q; ++qt) {  // the q tiles at or below the diagonal
-    const int q0 = qt * kBlock;
-    __syncthreads();  // staging above is visible; the last tile's Qt/Gt/Ps/Ds are consumed
-    stage_t<DW>(s.Qt, qb, q0, a.L, a.dqk);
-    stage_t<DW>(s.Gt, gb, q0, a.L, a.dv_dim);
-    stage_rows(a, b, q0, s.tq, nullptr, has_time);
-    __syncthreads();
-
-    float ds[4][4];
-    int bk[4][4];
-    tile_grads(a, s, q0, k0, has_time, true, ds, bk);
-    __syncthreads();
-
-    // dk[c] += alpha sum_r dS[r][c] q[r], dv[c] += sum_r P[r][c] g[r]: this thread's keys ty*4+i, features tx+16j
-    for (int r = 0; r < kBlock; ++r) {
-      float qv[N], gv[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        qv[j] = s.Qt[(tx + 16 * j) * kLd + r];
-        gv[j] = s.Gt[(tx + 16 * j) * kLd + r];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = s.Ds[r * kLd + ty * 4 + i];
-        const float p = s.Ps[r * kLd + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          dk_acc[i][j] = fmaf(d, qv[j], dk_acc[i][j]);
-          dv_acc[i][j] = fmaf(p, gv[j], dv_acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = k0 + ty * 4 + i;
-    if (m < a.L) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int d = tx + 16 * j;
-        if (d < a.dqk) a.dk[((size_t)bh * a.L + m) * a.dqk + d] = dk_acc[i][j] * a.alpha;
-        if (d < a.dv_dim) a.dv[((size_t)bh * a.L + m) * a.dv_dim + d] = dv_acc[i][j];
-      }
-    }
-  }
+inline int stride_a(int width) { return ((width + 7) & ~7) + 4; }  // 4 mod 8: A and row-major B fragments
+inline int stride_b(int width) {                                      // 8 mod 32: K[key][feature] as a B fragment
+  const int w8 = (width + 7) & ~7;
+  return w8 + (((8 - w8) % 32) + 32) % 32;
 }
 
-// K2a: one CTA per (b*h, 64-row q tile), the heaviest (last) tiles first.
-template <int N>
-__global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
-  constexpr int DW = 16 * N;
-  extern __shared__ float smem[];
-  const Smem s = carve(smem, DW, a.L, a.bk.nb);
-  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
-  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kBlock;
-  const int q_end = min(q0 + kBlock, a.L);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool has_time = a.ts != nullptr;
-  const float* kb = a.k + (size_t)bh * a.L * a.dqk;
-  const float* vb = a.v + (size_t)bh * a.L * a.dv_dim;
-
-  stage_t<DW>(s.Qt, a.q + (size_t)bh * a.L * a.dqk, q0, a.L, a.dqk);
-  stage_t<DW>(s.Gt, a.g + (size_t)bh * a.L * a.dv_dim, q0, a.L, a.dv_dim);
-  stage_rows(a, b, q0, s.tq, nullptr, has_time);
-  stage_tables(a, s, h, has_time);
-
-  float dq_acc[4][N];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) dq_acc[i][j] = 0.f;
-
-  const int n_kt = (q_end - 1) / kBlock + 1;  // k tiles up to the causal frontier
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();
-    stage_t<DW>(s.Kt, kb, k0, a.L, a.dqk);
-    stage_t<DW>(s.Vt, vb, k0, a.L, a.dv_dim);
-    stage_rows(a, b, k0, s.tk, s.km, has_time);
-    __syncthreads();
-
-    float ds[4][4];
-    int bk[4][4];
-    tile_grads(a, s, q0, k0, has_time, false, ds, bk);
-    __syncthreads();
-
-    for (int c = 0; c < kBlock; ++c) {
-      float kv[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) kv[j] = s.Kt[(tx + 16 * j) * kLd + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = s.Ds[(ty * 4 + i) * kLd + c];
-#pragma unroll
-        for (int j = 0; j < N; ++j) dq_acc[i][j] = fmaf(d, kv[j], dq_acc[i][j]);
-      }
-    }
-    tile_table_grads(s, q0, k0, a.L, has_time, ds, bk);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = q0 + ty * 4 + i;
-    if (l < a.L) {
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (tx + 16 * j < a.dqk) a.dq[((size_t)bh * a.L + l) * a.dqk + tx + 16 * j] = dq_acc[i][j] * a.alpha;
-    }
-  }
-  __syncthreads();
-  flush_table_grads(a, s, h, has_time);
-}
-
-template <typename Kernel>
-cudaError_t launch_split(Kernel kernel, const Args& a, int dw, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dw, a.L, a.bk.nb);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((a.L + kBlock - 1) / kBlock, a.B * a.H);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ---------------------------------------------------------------------------
-// K2: tensor cores, cp.async, 32-key tiles (the source note at the top)
+// K2 and K2b: 32-key tiles (the source note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kKeyGroups = 2;                   // 16-key groups per CTA
 constexpr int kQuerySplits = 4;                 // warps sharing a key group, each 16 queries of a q tile
 constexpr int kTileK = 16 * kKeyGroups;         // keys per CTA
 constexpr int kTileQ = 16 * kQuerySplits;       // queries per q tile (stage)
-constexpr int kWarps2 = kKeyGroups * kQuerySplits;
-constexpr int kThreads2 = 32 * kWarps2;
 constexpr int kLdS = kTileK + 4;                // dS [query][key] row stride, 4 mod 8
-constexpr int kTsCopies = 4 * kWarps2;          // dts sums: one copy per warp and lane column t
+static_assert(kKeyGroups * kQuerySplits == kWarps2, "8 warps a CTA");
 
 struct Fused {
   Args a;
-  int ldq, ldg, ldk, ldv;   // shared row strides: Q, G, V 4 mod 8 words; K 8 mod 32
+  int ldq, ldg, ldk, ldv;   // shared row strides: Q, G, V 4 mod 8 words; K 8 mod 32 (K2) or 4 mod 8 (K2b)
   int vec_q, vec_k, vec_v, vec_g, red_v4;
   int stages;               // the Q/G ring: 2 stages, or 1 where two do not fit
   int ts_copies;            // dts sums: kTsCopies, or 1 (one CTA-wide table) where they do not fit
@@ -456,12 +240,14 @@ struct Fused {
 //   pw [L]  tw [nb+1]  thr [nb+1]  gpos [L]  gts [ts_copies][nb+1]
 //   1 or 2 stages of { Q [kTileQ][ldq]  G [kTileQ][ldg]  tq [kTileQ] },
 //   the stages also holding the query splits' partial dK, dV at the end.
-// With one stage and one dts table this is never more than the first design
-// (fp32 FMAs over 64 x 64 tiles) took, so K2 takes every shape it took.
+// K2b (kFull false) has no dS, gpos or gts.  With one stage and one dts
+// table this is never more than the first design (fp32 FMAs over 64 x 64
+// tiles) took, so K2 and K2b take every shape it took.
 struct Layout2 {
   int k, v, tk, kv, ds, pw, tw, th, gpos, gts, L4, nb4, stage, stage_words, sq, sg, stq, total;
 };
 
+template <bool kFull>
 __host__ __device__ inline Layout2 layout2(const Fused& f, int L, int nb) {
   const int L4 = (L + 3) & ~3, nb4 = (nb + 1 + 3) & ~3;
   Layout2 o;
@@ -470,14 +256,14 @@ __host__ __device__ inline Layout2 layout2(const Fused& f, int L, int nb) {
   o.tk = o.v + kTileK * f.ldv;
   o.kv = o.tk + kTileK;
   o.ds = o.kv + kTileK;
-  o.pw = o.ds + kTileQ * kLdS;
+  o.pw = o.ds + (kFull ? kTileQ * kLdS : 0);
   o.L4 = L4;
   o.nb4 = nb4;
   o.tw = o.pw + L4;
   o.th = o.tw + nb4;
   o.gpos = o.th + nb4;
-  o.gts = o.gpos + L4;
-  o.stage = o.gts + f.ts_copies * nb4;
+  o.gts = o.gpos + (kFull ? L4 : 0);
+  o.stage = o.gts + (kFull ? f.ts_copies * nb4 : 0);
   o.sq = 0;
   o.sg = o.sq + kTileQ * f.ldq;
   o.stq = o.sg + kTileQ * f.ldg;
@@ -493,13 +279,14 @@ __device__ __forceinline__ void red_add_v4(float* addr, float x, float y, float 
   asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr), "f"(x), "f"(y), "f"(z), "f"(w) : "memory");
 }
 
-template <int N>  // n-tiles of 8 features: dqk, dv <= 8 * N
-__global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fused f) {
+// kFull: K2 (dq, dk, dv, dpos, dts); else K2b (dk, dv)
+template <int N, bool kFull>  // n-tiles of 8 features: dqk, dv <= 8 * N
+__device__ __forceinline__ void key_tile_body(const Fused& f) {
   constexpr int NH = (N + 1) / 2;  // dQ n-tiles per warp (two warps share a row group)
   extern __shared__ __align__(16) float smem[];
   const Args& a = f.a;
   const int L = a.L, H = a.H;
-  const Layout2 lay = layout2(f, L, a.bk.nb);
+  const Layout2 lay = layout2<kFull>(f, L, a.bk.nb);
   float* Ks = smem + lay.k;
   float* Vs = smem + lay.v;
   int* tk = reinterpret_cast<int*>(smem + lay.tk);
@@ -551,7 +338,8 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fu
     }
   }
   for (int d = tid; d < n_dist; d += kThreads2) pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
-  for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
+  if constexpr (kFull)
+    for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
   if (has_time)
     for (int u = tid; u <= a.bk.nb; u += kThreads2) {
       tw[u] = a.ts_w[(size_t)u * H + h];
@@ -683,105 +471,91 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fu
         }
       }
 
-      // dpos: this lane's values by local distance (query - key) = 8n + (2t - g) + (i&1), n = nt - (i>>1)
-      float part[3][2];
+      if constexpr (kFull) {
+        // dpos: this lane's values by local distance (query - key) = 8n + (2t - g) + (i&1), n = nt - (i>>1)
+        float part[3][2];
 #pragma unroll
-      for (int n = 0; n < 3; ++n) part[n][0] = part[n][1] = 0.f;
+        for (int n = 0; n < 3; ++n) part[n][0] = part[n][1] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) part[nt - (i >> 1) + 1][i & 1] += da[nt][i];
-      // lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same distances: sum along that chain
-      const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
+          for (int i = 0; i < 4; ++i) part[nt - (i >> 1) + 1][i & 1] += da[nt][i];
+        add_pos_grads<1>(gpos, part, l0 - m0, n_dist, g, t);
+        if (has_time) {
+          // dts into the warp's own sums, so no other warp contends: the lane's values key by
+          // key, so that its runs of equal buckets (neighbouring queries) fold before an atomic
+          float dsk[8];
+          int bkk[8];
 #pragma unroll
-      for (int n = 0; n < 3; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v = part[n][j];
-          const float v1 = __shfl_down_sync(full, v, 9);
-          v += step1 ? v1 : 0.f;
-          const float v2 = __shfl_down_sync(full, v, 18);
-          v += step2 ? v2 : 0.f;
-          part[n][j] = v;
+          for (int e = 0; e < 8; ++e) {
+            const int ii = e >> 2, nt = (e >> 1) & 1, j = e & 1;
+            dsk[e] = da[nt][2 * ii + j];
+            bkk[e] = bk[nt][2 * ii + j];
+          }
+          add_ts_grads<8>(my_gts, dsk, bkk);
         }
-      const bool head = t == 0 || g < 2;  // the chain's head adds its sums to the CTA's gpos
-#pragma unroll
-      for (int n = 0; n < 3; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int dist = l0 - m0 + 8 * (n - 1) + 2 * t - g + j;
-          if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
-        }
-      if (has_time) {
-        // dts into the warp's own sums, so no other warp contends: the lane's values key by
-        // key, so that its runs of equal buckets (neighbouring queries) fold before an atomic
-        float dsk[8];
-        int bkk[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int ii = e >> 2, nt = (e >> 1) & 1, j = e & 1;
-          dsk[e] = da[nt][2 * ii + j];
-          bkk[e] = bk[nt][2 * ii + j];
-        }
-        add_ts_grads<8>(my_gts, dsk, bkk);
       }
     }
 
-    // dS to shared memory, [query][key], for dQ (zeros from a warp with no valid pair)
+    if constexpr (kFull) {
+      // dS to shared memory, [query][key], for dQ (zeros from a warp with no valid pair)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dSs[(qq0 + 8 * nt + 2 * t + (i & 1)) * kLdS + kk0 + g + 8 * (i >> 1)] = da[nt][i];
-    __syncthreads();  // B2: the tile's dS is complete; Q and G are consumed
+        for (int i = 0; i < 4; ++i) dSs[(qq0 + 8 * nt + 2 * t + (i & 1)) * kLdS + kk0 + g + 8 * (i >> 1)] = da[nt][i];
+    }
+    if (kFull || !ring) __syncthreads();  // B2: the tile's dS is complete; Q and G are consumed
     if (!ring) {
       if (qt + 1 < n_qt) issue(qt + 1, 0);
       cp_commit();
     }
 
-    // dQ_part = alpha dS K: warp rows 16 (warp % 4) of the q tile, feature n-tiles of half (warp / 4)
-    const int qr = 16 * (warp % 4), lq = q0 + qr;
-    const int nh = (dk8 + 1) >> 1, j0 = (warp / 4) * nh;
-    if (lq < L && lq + 15 >= k0 && j0 < dk8) {
-      float acc[NH][4];
+    if constexpr (kFull) {
+      // dQ_part = alpha dS K: warp rows 16 (warp % 4) of the q tile, feature n-tiles of half (warp / 4)
+      const int qr = 16 * (warp % 4), lq = q0 + qr;
+      const int nh = (dk8 + 1) >> 1, j0 = (warp / 4) * nh;
+      if (lq < L && lq + 15 >= k0 && j0 < dk8) {
+        float acc[NH][4];
 #pragma unroll
-      for (int jj = 0; jj < NH; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
+        for (int jj = 0; jj < NH; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kTileK / 8; ++kk) {
-        uint32_t ah[4], al[4];
-        load_a(dSs, kLdS, qr, 8 * kk, g, t, ah, al);
+        for (int kk = 0; kk < kTileK / 8; ++kk) {
+          uint32_t ah[4], al[4];
+          load_a(dSs, kLdS, qr, 8 * kk, g, t, ah, al);
+#pragma unroll
+          for (int jj = 0; jj < NH; ++jj) {
+            const int j = j0 + jj;
+            if (jj < nh && j < dk8) {
+              const float* kp = Ks + (8 * kk + t) * ldk + 8 * j + g;
+              uint32_t bh_[2], bl_[2];
+              split(kp[0], bh_[0], bl_[0]);
+              split(kp[4 * ldk], bh_[1], bl_[1]);
+              mma3(acc[jj], ah, al, bh_, bl_);
+            }
+          }
+        }
+        // lanes t and t^1 swap halves: an even lane holds row g, columns 2t .. 2t+3,
+        // an odd lane row g+8, columns 2t-2 .. 2t+1
+        const bool odd = t & 1;
+        const int l = lq + g + (odd ? 8 : 0);
 #pragma unroll
         for (int jj = 0; jj < NH; ++jj) {
           const int j = j0 + jj;
-          if (jj < nh && j < dk8) {
-            const float* kp = Ks + (8 * kk + t) * ldk + 8 * j + g;
-            uint32_t bh_[2], bl_[2];
-            split(kp[0], bh_[0], bl_[0]);
-            split(kp[4 * ldk], bh_[1], bl_[1]);
-            mma3(acc[jj], ah, al, bh_, bl_);
-          }
-        }
-      }
-      // lanes t and t^1 swap halves: an even lane holds row g, columns 2t .. 2t+3,
-      // an odd lane row g+8, columns 2t-2 .. 2t+1
-      const bool odd = t & 1;
-      const int l = lq + g + (odd ? 8 : 0);
-#pragma unroll
-      for (int jj = 0; jj < NH; ++jj) {
-        const int j = j0 + jj;
-        const float s0 = odd ? acc[jj][0] : acc[jj][2], s1 = odd ? acc[jj][1] : acc[jj][3];
-        const float r0 = __shfl_xor_sync(full, s0, 1), r1 = __shfl_xor_sync(full, s1, 1);
-        const float x0 = (odd ? r0 : acc[jj][0]) * a.alpha, x1 = (odd ? r1 : acc[jj][1]) * a.alpha;
-        const float x2 = (odd ? acc[jj][2] : r0) * a.alpha, x3 = (odd ? acc[jj][3] : r1) * a.alpha;
-        const int c = 8 * j + 4 * (t >> 1);
-        if (jj < nh && j < dk8 && l < L && c < dqk) {
-          float* dst = a.dq + ((size_t)bh * L + l) * dqk + c;
-          if (f.red_v4) {
-            red_add_v4(dst, x0, x1, x2, x3);
-          } else {
-            atomicAdd(dst, x0);
-            if (c + 1 < dqk) atomicAdd(dst + 1, x1);
-            if (c + 2 < dqk) atomicAdd(dst + 2, x2);
-            if (c + 3 < dqk) atomicAdd(dst + 3, x3);
+          const float s0 = odd ? acc[jj][0] : acc[jj][2], s1 = odd ? acc[jj][1] : acc[jj][3];
+          const float r0 = __shfl_xor_sync(full, s0, 1), r1 = __shfl_xor_sync(full, s1, 1);
+          const float x0 = (odd ? r0 : acc[jj][0]) * a.alpha, x1 = (odd ? r1 : acc[jj][1]) * a.alpha;
+          const float x2 = (odd ? acc[jj][2] : r0) * a.alpha, x3 = (odd ? acc[jj][3] : r1) * a.alpha;
+          const int c = 8 * j + 4 * (t >> 1);
+          if (jj < nh && j < dk8 && l < L && c < dqk) {
+            float* dst = a.dq + ((size_t)bh * L + l) * dqk + c;
+            if (f.red_v4) {
+              red_add_v4(dst, x0, x1, x2, x3);
+            } else {
+              atomicAdd(dst, x0);
+              if (c + 1 < dqk) atomicAdd(dst + 1, x1);
+              if (c + 2 < dqk) atomicAdd(dst + 2, x2);
+              if (c + 3 < dqk) atomicAdd(dst + 3, x3);
+            }
           }
         }
       }
@@ -830,60 +604,392 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fu
       }
     }
   }
-  // the table sums (the dts copies added in a fixed order) into the global outputs: one atomic per nonzero slot
-  for (int d = tid; d < n_dist; d += kThreads2)
-    if (gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * H + h], gpos[d]);
-  if (has_time)
-    for (int u = tid; u <= a.bk.nb; u += kThreads2) {
-      float sum = 0.f;
-      for (int w = 0; w < f.ts_copies; ++w) sum += gts[w * lay.nb4 + u];
-      if (sum != 0.f) atomicAdd(&a.dts[(size_t)u * H + h], sum);
-    }
-}
-
-inline int stride_a(int width) { return ((width + 7) & ~7) + 4; }  // 4 mod 8: A and row-major B fragments
-inline int stride_b(int width) {                                      // 8 mod 32: K[key][feature] as a B fragment
-  const int w8 = (width + 7) & ~7;
-  return w8 + (((8 - w8) % 32) + 32) % 32;
+  if constexpr (kFull) flush_table_grads(a, gpos, gts, n_dist, f.ts_copies, lay.nb4, h);
 }
 
 template <int N>
-cudaError_t launch_fused(const Args& a, cudaStream_t stream, int* info) {
+__global__ void __launch_bounds__(kThreads2, N <= 4 ? 2 : 1) bwd_fused_kernel(Fused f) {
+  key_tile_body<N, true>(f);
+}
+
+template <int N>  // 3 CTAs (24 warps) per SM where N <= 4, as K2a
+__global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_kv_kernel(Fused f) {
+  key_tile_body<N, false>(f);
+}
+
+template <int N, bool kFull>
+cudaError_t launch_key_tiles(const Args& a, cudaStream_t stream, int* info) {
   Fused f;
   f.a = a;
   f.ldq = stride_a(a.dqk);
   f.ldg = stride_a(a.dv_dim);
   f.ldv = stride_a(a.dv_dim);
-  f.ldk = stride_b(a.dqk);
-  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  f.vec_q = a.dqk % 4 == 0 && aligned(a.q);
-  f.vec_k = a.dqk % 4 == 0 && aligned(a.k);
-  f.vec_v = a.dv_dim % 4 == 0 && aligned(a.v);
-  f.vec_g = a.dv_dim % 4 == 0 && aligned(a.g);
-  f.red_v4 = a.dqk % 4 == 0 && aligned(a.dq);
+  f.ldk = kFull ? stride_b(a.dqk) : stride_a(a.dqk);  // K2b reads K only as an A fragment
+  f.vec_q = a.dqk % 4 == 0 && aligned16(a.q);
+  f.vec_k = a.dqk % 4 == 0 && aligned16(a.k);
+  f.vec_v = a.dv_dim % 4 == 0 && aligned16(a.v);
+  f.vec_g = a.dv_dim % 4 == 0 && aligned16(a.g);
+  f.red_v4 = a.dqk % 4 == 0 && aligned16(a.dq);
   // The most that fits: for long sequences or wide heads the dts copies go
   // first, then the ring's second stage
   size_t smem = 0;
   for (int option = 0; option < 4; ++option) {
     f.stages = option < 2 ? 2 : 1;
     f.ts_copies = option % 2 == 0 ? kTsCopies : 1;
-    smem = sizeof(float) * layout2(f, a.L, a.bk.nb).total;
+    smem = sizeof(float) * layout2<kFull>(f, a.L, a.bk.nb).total;
     if (smem <= kMaxSmem) break;
   }
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(bwd_fused_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = kFull ? bwd_fused_kernel<N> : bwd_kv_kernel<N>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (info != nullptr) return occupancy(bwd_fused_kernel<N>, kThreads2, smem, info);
+  if (info != nullptr) return occupancy(kernel, kThreads2, smem, info);
   const dim3 grid(a.B * a.H, (a.L + kTileK - 1) / kTileK);
-  bwd_fused_kernel<N><<<grid, kThreads2, smem, stream>>>(f);
+  kernel<<<grid, kThreads2, smem, stream>>>(f);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2a: 32-row q tiles (the source note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kRowGroups = 2;                    // 16-row groups per CTA
+constexpr int kKeySplits = 4;                    // warps sharing a row group, each its own keys
+constexpr int kTileQa = 16 * kRowGroups;         // q rows per CTA
+constexpr int kTileKa = 64;                      // keys per stage
+constexpr int kWarpKeys = kTileKa / kKeySplits;  // keys per warp per stage: two 8-key n-tiles
+static_assert(kRowGroups * kKeySplits == kWarps2 && kWarpKeys == 16, "8 warps, 16 keys each a stage");
+static_assert(kKeySplits == 4, "the partial dq are summed as (0 + 2) + (1 + 3)");
+
+struct DqArgs {
+  Args a;
+  int ldq, ldg, ldk, ldv;   // shared row strides, 4 mod 8 words
+  int vec_q, vec_k, vec_v, vec_g;
+  int stages;               // the K/V ring: 2 stages, or 1 where two do not fit
+  int ts_copies;            // dts sums: kTsCopies, or 1 (one CTA-wide table) where they do not fit
+};
+
+// Shared memory, in 4-byte words (each part a multiple of 4 words):
+//   Q [kTileQa][ldq]  G [kTileQa][ldg]  tq [kTileQa]  pw [L]  tw [nb+1]  thr [nb+1]
+//   gpos [L]  gts [ts_copies][nb+1]
+//   1 or 2 stages of { K [kTileKa][ldk]  V [kTileKa][ldv]  tk [kTileKa]  mask words [kTileKa/4 + 4] },
+//   the stages also holding two slots of partial dq per row group at the end.
+// With one stage and one dts table this is never more than the first design took.
+struct LayoutA {
+  int q, g, tq, pw, tw, th, gpos, gts, L4, nb4, stage, stage_words, k, v, tk, km, total;
+};
+
+__host__ __device__ inline LayoutA layout_dq(const DqArgs& f, int L, int nb) {
+  const int L4 = (L + 3) & ~3, nb4 = (nb + 1 + 3) & ~3;
+  LayoutA o;
+  o.q = 0;
+  o.g = o.q + kTileQa * f.ldq;
+  o.tq = o.g + kTileQa * f.ldg;
+  o.pw = o.tq + kTileQa;
+  o.L4 = L4;
+  o.nb4 = nb4;
+  o.tw = o.pw + L4;
+  o.th = o.tw + nb4;
+  o.gpos = o.th + nb4;
+  o.gts = o.gpos + L4;
+  o.stage = o.gts + f.ts_copies * nb4;
+  o.k = 0;
+  o.v = o.k + kTileKa * f.ldk;
+  o.tk = o.v + kTileKa * f.ldv;
+  o.km = o.tk + kTileKa;
+  o.stage_words = o.km + kTileKa / 4 + 4;
+  int stages = f.stages * o.stage_words;
+  const int partials = 2 * kRowGroups * 16 * f.ldq;  // two slots per row group
+  if (partials > stages) stages = partials;
+  o.total = o.stage + stages;
+  return o;
+}
+
+template <int N>  // n-tiles of 8 features: dqk, dv <= 8 * N; 3 CTAs (24 warps) per SM where N <= 4
+__global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs f) {
+  extern __shared__ __align__(16) float smem[];
+  const Args& a = f.a;
+  const int L = a.L, H = a.H;
+  const LayoutA lay = layout_dq(f, L, a.bk.nb);
+  float* Qs = smem + lay.q;
+  float* Gs = smem + lay.g;
+  int* tq = reinterpret_cast<int*>(smem + lay.tq);
+  float* pw = smem + lay.pw;
+  float* tw = smem + lay.tw;
+  int* th = reinterpret_cast<int*>(smem + lay.th);
+  float* gpos = smem + lay.gpos;
+  float* gts = smem + lay.gts;
+  float* stages = smem + lay.stage;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileQa;  // heaviest q tiles first
+  const int q_end = min(q0 + kTileQa, L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % kRowGroups, ks = warp / kRowGroups;
+  const bool has_time = a.ts != nullptr;
+  const int dqk = a.dqk, dvd = a.dv_dim, ldq = f.ldq, ldg = f.ldg, ldk = f.ldk, ldv = f.ldv;
+  const int dk8 = (dqk + 7) >> 3, dv8 = (dvd + 7) >> 3;
+  const float* kb = a.k + (size_t)bh * L * dqk;
+  const float* vb = a.v + (size_t)bh * L * dvd;
+  const int* tsb = has_time ? a.ts + (size_t)b * L : nullptr;
+  const float inv_norm = 1.f / (float)a.max_seq_len;
+  const Lookup bucket(th, a.bk);
+  // lanes of one t share no distance chain; one table for all where the copies do not fit
+  float* my_gts = gts + (f.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  const bool ring = f.stages == 2;  // else the next k tile is copied once the current one is consumed
+
+  auto stage_ptr = [&](int s) { return stages + s * lay.stage_words; };
+  auto issue = [&](int kt, int s) {
+    float* st = stage_ptr(s);
+    const int k0 = kt * kTileKa;
+    copy_rows(st + lay.k, ldk, kb, k0, kTileKa, L, dqk, f.vec_k, tid, kThreads2);
+    copy_rows(st + lay.v, ldv, vb, k0, kTileKa, L, dvd, f.vec_v, tid, kThreads2);
+    if (has_time) copy_stamps(reinterpret_cast<int*>(st + lay.tk), tsb, k0, kTileKa, L, tid);
+    if (a.mask != nullptr)
+      copy_mask(reinterpret_cast<int*>(st + lay.km), a.mask, (size_t)a.B * L, (size_t)b * L + k0, kTileKa, tid);
+  };
+
+  // Zero the padding columns that no copy writes (dqk .. 8*dk8, dv .. 8*dv8)
+  // of Q, G and the stages, and the table-gradient sums; then the q tile,
+  // its stamps, the first k tile and the tables.
+  for (int r = tid; r < 2 * kTileQa + f.stages * kTileKa; r += kThreads2) {
+    if (r < kTileQa) {
+      for (int d = dqk; d < 8 * dk8; ++d) Qs[r * ldq + d] = 0.f;
+    } else if (r < 2 * kTileQa) {
+      for (int d = dvd; d < 8 * dv8; ++d) Gs[(r - kTileQa) * ldg + d] = 0.f;
+    } else {
+      float* st = stage_ptr((r - 2 * kTileQa) / kTileKa);
+      const int rr = (r - 2 * kTileQa) % kTileKa;
+      for (int d = dqk; d < 8 * dk8; ++d) st[lay.k + rr * ldk + d] = 0.f;
+      for (int d = dvd; d < 8 * dv8; ++d) st[lay.v + rr * ldv + d] = 0.f;
+    }
+  }
+  copy_rows(Qs, ldq, a.q + (size_t)bh * L * dqk, q0, kTileQa, L, dqk, f.vec_q, tid, kThreads2);
+  copy_rows(Gs, ldg, a.g + (size_t)bh * L * dvd, q0, kTileQa, L, dvd, f.vec_g, tid, kThreads2);
+  if (has_time) copy_stamps(tq, tsb, q0, kTileQa, L, tid);
+  issue(0, 0);
+  cp_commit();
+  for (int d = tid; d < q_end; d += kThreads2) pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
+  for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
+  if (has_time)
+    for (int u = tid; u <= a.bk.nb; u += kThreads2) {
+      tw[u] = a.ts_w[(size_t)u * H + h];
+      th[u] = a.thr[u];
+    }
+
+  float acc[N][4];  // dq / alpha: rows g, g+8 of the warp's 16, columns 8j + 2t, 8j + 2t + 1
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const int r0 = q0 + 16 * rg;             // this warp's first row
+  const int r_last = min(r0 + 15, L - 1);  // its last real row
+  const int n_kt = (q_end - 1) / kTileKa + 1;  // k tiles up to the causal frontier
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_wait_all();
+    __syncthreads();  // B1: k tile kt visible; every warp is done with tile kt-1's stage
+    if (ring) {
+      if (kt + 1 < n_kt) issue(kt + 1, (kt + 1) & 1);
+      cp_commit();
+    }
+    const float* st = stage_ptr(ring ? kt & 1 : 0);
+    const float* Ks = st + lay.k;
+    const float* Vs = st + lay.v;
+    const int* tk = reinterpret_cast<const int*>(st + lay.tk);
+    const uint8_t* km = reinterpret_cast<const uint8_t*>(st + lay.km) +
+                        (a.mask != nullptr ? mask_offset(a.mask, (size_t)b * L + kt * kTileKa) : 0);
+    const int c0 = ks * kWarpKeys, m0 = kt * kTileKa + c0;  // this warp's first key
+    if (r0 < L && m0 <= r_last) {                            // warp-uniform: some pair with m <= l
+      // s: S, da: dA then dS; element (nt, i) is row r0 + g + 8(i>>1), key m0 + 8nt + 2t + (i&1)
+      float s[2][4], da[2][4];
+      int bk[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[nt][i] = da[nt][i] = 0.f;
+          bk[nt][i] = -1;
+        }
+      for (int dd = 0; dd < dk8; ++dd) {
+        uint32_t ah[4], al[4];
+        load_a(Qs, ldq, 16 * rg, 8 * dd, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* kp = Ks + (c0 + 8 * nt + g) * ldk + 8 * dd + t;
+          uint32_t bh_[2], bl_[2];
+          split(kp[0], bh_[0], bl_[0]);
+          split(kp[4], bh_[1], bl_[1]);
+          mma3(s[nt], ah, al, bh_, bl_);
+        }
+      }
+      for (int dd = 0; dd < dv8; ++dd) {
+        uint32_t ah[4], al[4];
+        load_a(Gs, ldg, 16 * rg, 8 * dd, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* vp = Vs + (c0 + 8 * nt + g) * ldv + 8 * dd + t;
+          uint32_t bh_[2], bl_[2];
+          split(vp[0], bh_[0], bl_[0]);
+          split(vp[4], bh_[1], bl_[1]);
+          mma3(da[nt], ah, al, bh_, bl_);
+        }
+      }
+      const int tq_r[2] = {has_time ? tq[16 * rg + g] : 0, has_time ? tq[16 * rg + g + 8] : 0};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int l = r0 + g + 8 * (i >> 1);
+          const int c = c0 + 8 * nt + 2 * t + (i & 1);
+          const int m = kt * kTileKa + c;
+          float dsv = 0.f;
+          if (l < L && m <= l && (a.mask == nullptr || km[c])) {
+            float x = pw[l - m];
+            if (has_time) {
+              const int u = bucket(tq_r[i >> 1], tk[c]);
+              x += tw[u];
+              bk[nt][i] = u;
+            }
+            x = fmaf(s[nt][i], a.alpha, x);
+            const float sig = __fdividef(1.f, 1.f + __expf(-x));  // exp overflow: 0
+            dsv = da[nt][i] * (sig * (1.f + x * (1.f - sig))) * inv_norm;
+          }
+          da[nt][i] = dsv;
+        }
+
+      // dQ += dS K: keys 2t and 2t+1 of each 8-key group are A columns t and t+4
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ah[4], al[4];
+        split(da[kk][0], ah[0], al[0]);
+        split(da[kk][2], ah[1], al[1]);
+        split(da[kk][1], ah[2], al[2]);
+        split(da[kk][3], ah[3], al[3]);
+        const float* kp = Ks + (c0 + 8 * kk + 2 * t) * ldk + g;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          if (j < dk8) {
+            uint32_t bh_[2], bl_[2];
+            split(kp[8 * j], bh_[0], bl_[0]);
+            split(kp[ldk + 8 * j], bh_[1], bl_[1]);
+            mma3(acc[j], ah, al, bh_, bl_);
+          }
+        }
+      }
+
+      // dpos: this lane's values by local distance (row - key) = 8n + (g - 2t) - (i&1), n = (i>>1) - nt
+      float part[3][2];
+#pragma unroll
+      for (int n = 0; n < 3; ++n) part[n][0] = part[n][1] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[(i >> 1) - nt + 1][i & 1] += da[nt][i];
+      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);
+      if (has_time) {
+        // dts into the warp's own sums: the lane's values key by key along each of
+        // its two rows, so that its runs of equal buckets fold before an atomic
+        float dsr[8];
+        int bkr[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ii = e >> 2, nt = (e >> 1) & 1, j = e & 1;
+          dsr[e] = da[nt][2 * ii + j];
+          bkr[e] = bk[nt][2 * ii + j];
+        }
+        add_ts_grads<8>(my_gts, dsr, bkr);
+      }
+    }
+    if (!ring) {
+      __syncthreads();  // B2: the stage is consumed
+      if (kt + 1 < n_kt) issue(kt + 1, 0);
+      cp_commit();
+    }
+  }
+
+  // Sum the key splits' partial dq in a fixed order, (0 + 2) + (1 + 3),
+  // through two slots per row group: splits 2 and 3 hand theirs to 0 and 1,
+  // then split 1 its sum to split 0
+  cp_wait_all();
+  __syncthreads();  // the stages are free
+  auto slot = [&](int i) { return stages + (i * kRowGroups + rg) * 16 * ldq; };
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < dk8) {
+        dst[g * ldq + 8 * j + 2 * t] = acc[j][0];
+        dst[g * ldq + 8 * j + 2 * t + 1] = acc[j][1];
+        dst[(g + 8) * ldq + 8 * j + 2 * t] = acc[j][2];
+        dst[(g + 8) * ldq + 8 * j + 2 * t + 1] = acc[j][3];
+      }
+  };
+  auto take = [&](const float* src) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < dk8) {
+        acc[j][0] += src[g * ldq + 8 * j + 2 * t];
+        acc[j][1] += src[g * ldq + 8 * j + 2 * t + 1];
+        acc[j][2] += src[(g + 8) * ldq + 8 * j + 2 * t];
+        acc[j][3] += src[(g + 8) * ldq + 8 * j + 2 * t + 1];
+      }
+  };
+  if (ks >= 2) put(slot(ks - 2));
+  __syncthreads();
+  if (ks < 2) take(slot(ks));
+  __syncthreads();
+  if (ks == 1) put(slot(0));
+  __syncthreads();  // also: every warp's table sums are in gpos / gts
+  if (ks == 0 && r0 < L) {
+    take(slot(0));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int l = r0 + g + 8 * i;
+      if (l < L) {
+        float* dst = a.dq + ((size_t)bh * L + l) * dqk;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const int c = 8 * j + 2 * t;
+          if (c < dqk) dst[c] = acc[j][2 * i] * a.alpha;
+          if (c + 1 < dqk) dst[c + 1] = acc[j][2 * i + 1] * a.alpha;
+        }
+      }
+    }
+  }
+  flush_table_grads(a, gpos, gts, q_end, f.ts_copies, lay.nb4, h);
+}
+
+template <int N>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream, int* info) {
+  DqArgs f;
+  f.a = a;
+  f.ldq = f.ldk = stride_a(a.dqk);
+  f.ldg = f.ldv = stride_a(a.dv_dim);
+  f.vec_q = a.dqk % 4 == 0 && aligned16(a.q);
+  f.vec_k = a.dqk % 4 == 0 && aligned16(a.k);
+  f.vec_v = a.dv_dim % 4 == 0 && aligned16(a.v);
+  f.vec_g = a.dv_dim % 4 == 0 && aligned16(a.g);
+  // As K2: the dts copies go first, then the ring's second stage
+  size_t smem = 0;
+  for (int option = 0; option < 4; ++option) {
+    f.stages = option < 2 ? 2 : 1;
+    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;
+    smem = sizeof(float) * layout_dq(f, a.L, a.bk.nb).total;
+    if (smem <= kMaxSmem) break;
+  }
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bwd_q_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (info != nullptr) return occupancy(bwd_q_kernel<N>, kThreads2, smem, info);
+  const dim3 grid(a.B * a.H, (a.L + kTileQa - 1) / kTileQa);
+  bwd_q_kernel<N><<<grid, kThreads2, smem, stream>>>(f);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t dispatch(int which, const Args& a, cudaStream_t st, int* info) {
-  if (which == 0) return launch_fused<N>(a, st, info);
-  if (which == 1) return launch_split(bwd_q_kernel<(N + 1) / 2>, a, 16 * ((N + 1) / 2), st);
-  return launch_split(bwd_kv_kernel<(N + 1) / 2>, a, 16 * ((N + 1) / 2), st);
+  if (which == 0) return launch_key_tiles<N, true>(a, st, info);
+  if (which == 1) return launch_dq<N>(a, st, info);
+  return launch_key_tiles<N, false>(a, st, info);
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
@@ -915,8 +1021,9 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   a.bk = Buckets{num_buckets, fn_log, minutes, divisor};
   auto st = static_cast<cudaStream_t>(stream);
   const int width = dqk > dv_dim ? dqk : dv_dim;
-  if (dqk < 1 || dv_dim < 1 || width > 128 || L < 1 || L > max_seq_len || num_buckets < 0) return cudaErrorInvalidValue;
-  // N: 8-wide n-tiles of the fused kernel; the split pair takes 16-wide columns, (N + 1) / 2 of them
+  if (which < 0 || which > 2 || dqk < 1 || dv_dim < 1 || width > 128 || L < 1 || L > max_seq_len || num_buckets < 0)
+    return cudaErrorInvalidValue;
+  // N: 8-wide n-tiles of dq / dk / dv per warp
   if (width <= 8) return dispatch<1>(which, a, st, info);
   if (width <= 16) return dispatch<2>(which, a, st, info);
   if (width <= 32) return dispatch<4>(which, a, st, info);
@@ -949,11 +1056,12 @@ extern "C" int hstu_rab_bwd_dq(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullp
 
 extern "C" int hstu_rab_bwd_dkv(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr); }
 
-// K2 as this shape would launch it, without launching it: info[0] resident
-// CTAs per SM, info[1] registers per thread, info[2] dynamic shared memory
-// bytes per CTA.  Returns the cudaError_t.
-extern "C" int hstu_rab_bwd_occupancy(int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, int* info) {
-  return run(0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+// A backward kernel (which: 0 K2, 1 K2a, 2 K2b) as this shape would launch
+// it, without launching it: info[0] resident CTAs per SM, info[1] registers
+// per thread, info[2] dynamic shared memory bytes per CTA.  Returns the
+// cudaError_t.
+extern "C" int hstu_rab_bwd_occupancy(int which, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, int* info) {
+  return run(which, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
              nullptr, nullptr, nullptr, 1, 1, L, dqk, dv_dim, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
 }
 

@@ -14,10 +14,11 @@ Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
   registers, and the bucket found in O(1) (:func:`bucket_lookup` is its
   plain version).
 - backward, ``csrc/hstu_rab_bwd.cu``: ``hstu_rab_bwd`` replaces the fused
-  ``_bwd_fused_kernel`` (K2, the default; built as K1 is), ``hstu_rab_bwd_dq``
-  and ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` /
-  ``_bwd_dkv_kernel`` (K2a, K2b, fp32 FMAs), taken when ``_FUSED_BWD[0]`` is
-  False, as in the JAX package.  The source notes have the designs.
+  ``_bwd_fused_kernel`` (K2, the default), ``hstu_rab_bwd_dq`` and
+  ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
+  (K2a per q tile, K2b per key tile), taken when ``_FUSED_BWD[0]`` is False,
+  as in the JAX package.  All three are built as K1 is: 3xTF32 products,
+  P and dS in registers, ``cp.async`` rings.  The source notes have the designs.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch versions
 (:func:`dense_forward`, differentiable by autograd, and
@@ -265,14 +266,17 @@ def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: f
     return out
 
 
+BWD_ENTRIES = ("hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv")  # K2, K2a, K2b: the C occupancy query's index
+
+
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("hstu_rab_bwd")
     if lib.hstu_rab_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.hstu_rab_bwd, lib.hstu_rab_bwd_dq, lib.hstu_rab_bwd_dkv):
+        for fn in (getattr(lib, name) for name in BWD_ENTRIES):
             fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
             fn.restype = i
-        lib.hstu_rab_bwd_occupancy.argtypes = [i] * 5 + [p]
+        lib.hstu_rab_bwd_occupancy.argtypes = [i] * 6 + [p]
         lib.hstu_rab_bwd_occupancy.restype = i
         lib.hstu_rab_bwd_error_string.argtypes = [i]
         lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
@@ -306,15 +310,17 @@ def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, t
 
 
 def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> dict:
-    """K1 and K2 as this shape would launch them: ``{name: (CTAs per SM, registers per thread, shared bytes per CTA)}``.
+    """K1, K2, K2a and K2b as this shape would launch them: ``{name: (CTAs per SM, registers per thread, shared bytes per CTA)}``.
 
     From ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
     ``cudaFuncGetAttributes`` through the C interface; nothing is launched.
     """
+    queries = [("hstu_rab_fwd", _lib().hstu_rab_fwd_occupancy, ())]
+    queries += [(name, _lib_bwd().hstu_rab_bwd_occupancy, (which,)) for which, name in enumerate(BWD_ENTRIES)]
     out = {}
-    for name, lib in (("hstu_rab_fwd", _lib()), ("hstu_rab_bwd", _lib_bwd())):
+    for name, query, which in queries:
         info = (ctypes.c_int * 3)()
-        rc = getattr(lib, f"{name}_occupancy")(l, dqk, dv, max_seq_len, num_buckets, info)
+        rc = query(*which, l, dqk, dv, max_seq_len, num_buckets, info)
         if rc != 0:
             raise RuntimeError(f"{name} occupancy query failed: error {rc}")
         out[name] = tuple(info)
@@ -348,7 +354,11 @@ def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha:
 
 
 def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
-    """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU)."""
+    """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU).
+
+    dq is written once per row, its partials summed in a fixed order: the
+    same bit for bit from run to run; dpos and dts are sums of fp32 atomics.
+    """
     global launches_bwd_dq
     plain, thresholds = _dispatch_bwd("rab_backward_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
     if plain is not None:
@@ -361,7 +371,7 @@ def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: fl
 
 
 def rab_backward_dkv(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
-    """K2b: ``(dk, dv)`` (the plain version's on the CPU)."""
+    """K2b: ``(dk, dv)`` (the plain version's on the CPU), the same bit for bit from run to run."""
     global launches_bwd_dkv
     plain, thresholds = _dispatch_bwd("rab_backward_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
     if plain is not None:
