@@ -6,15 +6,16 @@
 1. Card: its name and power limit; fails without a CUDA device.
 2. Build: every CUDA source of the port, with nvcc, from this checkout;
    the build log (ptxas's registers per kernel), and the CTAs per SM,
-   registers and shared memory of K1, K2, K2a and K2b.
+   registers and shared memory of K1, K2, K2a, K2b and K3.
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
    serving shape and at adversarial ones, with a stated tolerance, and timed
-   beside its bound (for the rab kernels K1, K2, K2a, K2b both the fp32-FMA
-   and the 3xTF32 tensor-core bound): the forward K1, then the backward K2
-   and K2a + K2b against the plain backward, on all five gradients; the
-   bucket sweep (K1, K2 and K2a + K2b at every time-bucket threshold); then K3 through the
-   op ``hstu_attention`` (materialised bias) on seven cases, against K1 on
-   the serving model's own rab, and the op's gradients; its launch count.
+   beside its bound (every kernel runs its products as 3xTF32 on the tensor
+   cores; both the fp32-FMA and the 3xTF32 bound are printed): the forward
+   K1, then the backward K2 and K2a + K2b against the plain backward, on all
+   five gradients; the bucket sweep (K1, K2 and K2a + K2b at every
+   time-bucket threshold); then K3 through the op ``hstu_attention``
+   (materialised bias) on eight cases, against K1 on the serving model's own
+   rab, and the op's gradients; its launch count.
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
    (V40000, d256, 8 heads, 4 layers, L256, batch 8) with random weights from a
    seed, through ``SeqTrainer.evaluate`` / ``predict_logits``, dense and
@@ -64,8 +65,8 @@ attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_HBM_BYTES = 3.35e12
-TF32_PASSES = 3  # the rab kernels run every product as 3xTF32: hi*hi + hi*lo + lo*hi
-TENSOR_CORE_KERNELS = ("hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv")
+TF32_PASSES = 3  # every kernel runs every product as 3xTF32: hi*hi + hi*lo + lo*hi
+TENSOR_CORE_KERNELS = ("hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv", "hstu_attn_fwd")
 # kernel vs plain version: fp32 sums of up to L products in another order than cuBLAS
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # backward kernels vs the plain backward: dq, dk, dv as the forward (K2's dq
@@ -372,8 +373,9 @@ def backward_phase(cases, cycles_per_ms):
 # 3b. the materialised-bias op hstu_attention (K3)
 # ---------------------------------------------------------------------------
 
-def bias_case(seed, b, l, max_seq_len, times="sorted", mask="suffix", shared=False, nan=False, h=8, d=32):
-    """q, k, v and the bias that the serving HSTU's own rab module makes from seeded tables and stamps."""
+def bias_case(seed, b, l, max_seq_len, times="sorted", mask="suffix", shared=False, nan=False, mask_offset=False, h=8, d=32):
+    """q, k, v and the bias that the serving HSTU's own rab module makes from seeded tables and stamps;
+    with ``mask_offset`` the mask is a contiguous view that starts one byte into its buffer."""
     c = rab_case(seed, b, l, max_seq_len, times=times, mask=mask, h=h, d=d, nb=SERVE["num_time_buckets"])
     dev = c["q"].device
     module = RelativeBucketedTimeAndPositionBias(h, max_seq_len, SERVE["num_time_buckets"], SERVE["time_bucket_fn"], 1.0, SERVE["time_bucket_unit"],
@@ -385,6 +387,11 @@ def bias_case(seed, b, l, max_seq_len, times="sorted", mask="suffix", shared=Fal
     if nan:  # NaN where no valid pair reads: the upper triangle and the masked keys
         bias.masked_fill_(~torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev)), float("nan"))
         bias.masked_fill_(~c["mask"][:, None, None, :], float("nan"))
+    if mask_offset:
+        flat = torch.ones(b * l + 1, dtype=torch.bool, device=dev)
+        flat[1:] = c["mask"].flatten()
+        c["mask"] = flat[1:].view(b, l)
+        assert c["mask"].is_contiguous() and c["mask"].data_ptr() % 4 == 1
     c.update(bias=bias, max_seq_len=float(max_seq_len))
     return c
 
@@ -398,6 +405,7 @@ def bias_cases():
         "(e) B8 L256 padding_mask None": bias_case(24, 8, 256, 256, mask=None),
         "(f) B8 L256 NaN in the bias's upper triangle and at masked keys": bias_case(20, 8, 256, 256, nan=True),
         "(g) B8 L1024 maxL1024": bias_case(25, 8, 1024, 1024),
+        "(h) B8 L256 the mask a view at byte offset 1": bias_case(26, 8, 256, 256, times="shuffled", mask="scattered", mask_offset=True),
     }
 
 
@@ -411,14 +419,15 @@ def run_op_plain(c, bias=None):
 
 def attn_bound(c):
     """K3: 2 (dqk + dv) FLOP per valid pair; q, k, v, the mask and the output
-    moved once, and of the bias only the elements some valid pair reads."""
+    moved once, and of the bias only the elements some valid pair reads.
+    Both bounds: fp32 FMAs, and 3xTF32 on the tensor cores (the reported one)."""
     b, h, l, dqk = c["q"].shape
     dv = c["v"].shape[-1]
     keys = torch.ones((b, l), dtype=torch.bool, device=c["q"].device) if c["mask"] is None else c["mask"]
     pairs = valid_pairs(c)
     bias_elems = pairs if c["bias"].shape[0] == b else h * int(keys.any(0).to(torch.int64).cumsum(0).sum())
     nbytes = 4 * (2 * c["q"].numel() + 2 * c["v"].numel()) + (0 if c["mask"] is None else keys.numel()) + 4 * bias_elems
-    return bound(2 * pairs * (dqk + dv), nbytes)
+    return both_bounds("hstu_attn_fwd", 2 * pairs * (dqk + dv), nbytes)
 
 
 def check_close(name, got, ref, rtol, atol):
@@ -481,9 +490,9 @@ def attention_phase(cases, cycles_per_ms):
             continue
         with torch.no_grad():
             (ms, wall), (plain_ms, plain_wall) = timed(lambda: run_op(c), cycles_per_ms), timed(lambda: run_op_plain(c), cycles_per_ms)
-        bound_ms, bound_by = attn_bound(c)  # fp32 FMAs: K3 keeps the first design
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        print(f"  {name}: device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {valid_pairs(c):,} valid pairs); "
+        b = attn_bound(c)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        print(f"  {name}: device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bounds_text(b)}, {valid_pairs(c):,} valid pairs; "
               f"host clock per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; medians of {REPS}")
     return dict(launches=launches, max_abs_err=worst, **timings[next(iter(timings))])
 
@@ -734,8 +743,10 @@ def main():
         print(f"  {name}:\n" + "\n".join("    " + line for line in log.strip().splitlines()))
     print(f"  built in {seconds:.2f} s")
     for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
-        occ = rab.occupancy(*shape)
+        occ = {**rab.occupancy(*shape), "hstu_attn_fwd": attn.occupancy(*shape[:3])}
         print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items()))
+    c, r, b = attn.occupancy(1024, 256, 128)
+    print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA")
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()

@@ -364,6 +364,9 @@ def test_model_fused_matches_unfused_on_card(card):
 
 # K3, the materialised-bias op: the kernel against dense_forward (same
 # tolerance as K1), its gradients, and against K1 on a materialised rab.
+# Around its 32-row q tiles and 64-key (or, at dqk 256 with dv 128, 32-key)
+# stages, its 16-byte and 4-byte bias copies (L % 4, the bias's alignment)
+# and the mask words it finds by address.
 BIAS_CASES = {
     "per_batch_suffix": dict(),
     "shared_suffix": dict(shared=True),
@@ -379,16 +382,34 @@ BIAS_CASES = {
     "dqk64_dv128": dict(l=128, d=64, dv=128),
     "nan_upper_triangle": dict(nan=True),
     "long_1024": dict(b=1, l=1024),
+    "ragged_203": dict(l=203, mask="scattered"),
+    **{f"mask_at_byte_offset_{l}": dict(l=l, mask="scattered", mask_offset=True) for l in (131, 130)},
+    "bias_at_4_byte_offset": dict(shared=True, mask="scattered", bias_offset=True),
+    "bias_at_4_byte_offset_per_batch_ragged_77": dict(l=77, bias_offset=True),
+    "dqk256_dv128_1024": dict(b=1, l=1024, d=256, dv=128, mask="scattered"),
+    "dqk7_dv5_ragged_50": dict(l=50, d=7, dv=5, mask="scattered"),
 }
 
 
-def bias_inputs(device, b=2, h=3, l=256, d=32, dv=32, seed=0, mask="suffix", shared=False, nan=False):
+def bias_inputs(device, b=2, h=3, l=256, d=32, dv=32, seed=0, mask="suffix", shared=False, nan=False, mask_offset=False, bias_offset=False):
+    """``mask_offset``: the mask a contiguous view that starts inside a 4-byte word (``mask[1:]`` of a
+    (B+1, L) buffer, L % 4 != 0); ``bias_offset``: the bias a contiguous view 4 bytes into a larger buffer."""
     t, _ = rab_inputs(device, b=b, h=h, l=l, maxl=l, d=d, dv=dv, seed=seed, times=None, mask=mask)
     rng = np.random.default_rng(seed + 100)
     bias = torch.from_numpy((rng.normal(size=(1 if shared else b, h, l, l)) * 0.1).astype(np.float32)).to(device)
     if nan:  # NaN where no valid pair reads: the upper triangle and the masked keys
         bias.masked_fill_(~torch.tril(torch.ones((l, l), dtype=torch.bool, device=device)), float("nan"))
         bias.masked_fill_(~t["padding_mask"][:, None, None, :], float("nan"))
+    if mask_offset:
+        full = torch.ones((b + 1, l), dtype=torch.bool, device=device)
+        full[1:] = t["padding_mask"]
+        t["padding_mask"] = full[1:]
+        assert t["padding_mask"].is_contiguous() and t["padding_mask"].data_ptr() % 4 != 0
+    if bias_offset:
+        buf = torch.full((bias.numel() + 1,), float("nan"), device=device)
+        buf[1:] = bias.flatten()
+        bias = buf[1:].view(bias.shape)
+        assert bias.is_contiguous() and bias.data_ptr() % 16 == 4
     return t["q"], t["k"], t["v"], bias, t["padding_mask"], 1.0 / math.sqrt(d), float(l)
 
 
@@ -428,6 +449,23 @@ def test_attention_kernel_on_a_dense_rab_matches_k1(card, times):
     torch.cuda.synchronize()
     assert bias.shape[0] == (t["q"].shape[0] if times else 1)
     torch.testing.assert_close(out, k1, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_batch", "shared"])
+def test_attention_kernel_twice_agrees(card, shared):
+    """K3 sums its key splits in a fixed order and uses no atomics: two runs agree bit for bit."""
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, b=4, mask="scattered", shared=shared)
+    first, second = (attn.hstu_attention(q, k, v, bias, mask, alpha, n) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+
+
+def test_attention_kernel_occupancy(card):
+    """64-key stages at dqk = dv = 32 and 3 CTAs per SM; 32-key stages at dqk 256 with dv 128, which still fit."""
+    ctas, regs, smem = attn.occupancy(256, 32, 32)
+    assert ctas >= 3 and 0 < regs <= 85 and smem == attn.occupancy(4096, 32, 32)[2]  # shared memory does not grow with L
+    ctas, regs, smem = attn.occupancy(1024, 256, 128)
+    assert ctas >= 1 and smem <= 232448
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(card):

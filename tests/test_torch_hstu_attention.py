@@ -275,3 +275,46 @@ def test_kernel_input_checks_pass_both_bias_layouts():
         q, k, v, bias, mask = to_torch(make_inputs(seed=11, shared=shared))
         tmod._check_kernel_inputs(q, k, v, bias, mask)
         tmod._check_kernel_inputs(q, k, v, bias, None)
+
+
+class FakeLib:
+    """Stands in for K3's ctypes library: records each entry's arguments, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The launch path on CPU tensors: no card, the library and stream faked."""
+    lib = FakeLib()
+    monkeypatch.setattr(tmod, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("Stream", (), {"cuda_stream": 1234})())
+    return lib
+
+
+@pytest.mark.parametrize("shared,mask", [(False, "scattered"), (True, None)], ids=["per_batch", "shared_no_mask"])
+def test_launch_hands_the_kernel_its_shapes_and_bias_layout(fake_card, shared, mask):
+    q, k, v, bias, m = to_torch(make_inputs(seed=12, b=2, h=3, l=40, dqk=12, dv=20, shared=shared, mask=mask))
+    before = tmod.launches
+    out = tmod._launch(q, k, v, bias, m, ALPHA, NORM)
+    assert tmod.launches == before + 1 and out.shape == (2, 3, 40, 20)
+    (name, args), = fake_card.calls
+    assert name == "hstu_attn_fwd"
+    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if m is None else m.data_ptr(), out.data_ptr())
+    # B, H, L, dqk, dv, shared_bias, alpha, norm, stream
+    assert args[6:] == (2, 3, 40, 12, 20, int(shared), ALPHA, NORM, 1234)
+
+
+def test_occupancy_asks_the_kernel_for_its_shape(fake_card):
+    assert tmod.occupancy(1024, 256, 128) == (0, 0, 0)  # the fake fills nothing in
+    (name, args), = fake_card.calls
+    assert name == "hstu_attn_fwd_occupancy" and args[:3] == (1024, 256, 128) and len(args[3]) == 3

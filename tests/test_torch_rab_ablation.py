@@ -29,10 +29,16 @@ def test_variant_changes_the_source(sources, kernel, name):
 
 
 def test_every_rab_kernel_has_its_variants():
-    assert set(ablation.VARIANTS) == {"hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"}
+    assert set(ablation.VARIANTS) == {"hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv", "hstu_attn_fwd"}
+    assert set(ablation.LIBRARY) == set(ablation.FUNCTION) == set(ablation.VARIANTS)
     for kernel in ("hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"):
         assert {"one TF32 pass (hi*hi only)", "a constant bucket (no lookup)"} <= set(ablation.VARIANTS[kernel])
     assert {"no dts sums", "no dpos sums"} <= set(ablation.VARIANTS["hstu_rab_bwd_dq"])
+    assert set(ablation.VARIANTS["hstu_attn_fwd"]) == {
+        "unchanged", "one TF32 pass (hi*hi only)", "no products (operands still loaded and split)",
+        "no score path (P = S: no mask, bias or silu)", "one K/V/bias stage (no ring)",
+        "the bias read from global memory in the score loop (not staged)",
+    }
 
 
 def test_a_missing_text_fails_the_variant():

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the rab kernels goes, by ablation: K1 (hstu_rab_fwd),
-K2 (hstu_rab_bwd), K2a (hstu_rab_bwd_dq) and K2b (hstu_rab_bwd_dkv).
+"""Where the time of the attention kernels goes, by ablation: K1
+(hstu_rab_fwd), K2 (hstu_rab_bwd), K2a (hstu_rab_bwd_dq), K2b
+(hstu_rab_bwd_dkv) and K3 (hstu_attn_fwd, the materialised-bias forward).
 
     python3 tools/rab_kernel_ablation.py
 
-Needs a CUDA device and nvcc.  Builds copies of ``csrc/hstu_rab_fwd.cu`` and
-``csrc/hstu_rab_bwd.cu`` with one part of the work taken out (the tensor-core
-passes, the bucket lookup, the table-gradient sums, ...), times each at the
-serving shape (B8 H8 L256, dqk = dv = 32) and at L1024 the way
-``chip_smoke.py`` times the kernels, and prints the difference to the
-unchanged kernel.  A variant whose text is not in the source fails the run,
+Needs a CUDA device and nvcc.  Builds copies of ``csrc/hstu_rab_fwd.cu``,
+``csrc/hstu_rab_bwd.cu`` and ``csrc/hstu_attn_fwd.cu`` with one part of the
+work taken out (the tensor-core passes, the bucket lookup, the
+table-gradient sums, the second ring stage, the staging of K3's bias, ...),
+times each at the serving shape (B8 H8 L256, dqk = dv = 32; K3 on the
+serving model's own per-batch rab, ``chip_smoke.py``'s case (a)) and at
+L1024 the way ``chip_smoke.py`` times the kernels, and prints the
+difference to the unchanged kernel.  A variant whose text is not in the source fails the run,
 so no variant times an unchanged copy; copies with the same text are built
 once.  A variant computes wrong values by design: only the unchanged build
 is checked against the plain version.  Also prints the atomic, tensor-core
@@ -43,8 +46,8 @@ HEADER = {  # variants of hstu_rab_common.cuh
     "one TF32 pass (hi*hi only)": [(MMA3, "  mma_tf32(d, ah, bh);")],
     "no products (operands still loaded and split)": [(MMA3, "  d[0] += __uint_as_float(ah[0] ^ bh[0] ^ al[0] ^ bl[0]);")],
 }
-LIBRARY = {"hstu_rab_fwd": "hstu_rab_fwd", "hstu_rab_bwd": "hstu_rab_bwd", "hstu_rab_bwd_dq": "hstu_rab_bwd", "hstu_rab_bwd_dkv": "hstu_rab_bwd"}
-FUNCTION = {"hstu_rab_fwd": "hstu_rab_fwd_kernel", "hstu_rab_bwd": "bwd_fused_kernel", "hstu_rab_bwd_dq": "bwd_q_kernel", "hstu_rab_bwd_dkv": "bwd_kv_kernel"}
+LIBRARY = {"hstu_rab_fwd": "hstu_rab_fwd", "hstu_rab_bwd": "hstu_rab_bwd", "hstu_rab_bwd_dq": "hstu_rab_bwd", "hstu_rab_bwd_dkv": "hstu_rab_bwd", "hstu_attn_fwd": "hstu_attn_fwd"}
+FUNCTION = {"hstu_rab_fwd": "hstu_rab_fwd_kernel", "hstu_rab_bwd": "bwd_fused_kernel", "hstu_rab_bwd_dq": "bwd_q_kernel", "hstu_rab_bwd_dkv": "bwd_kv_kernel", "hstu_attn_fwd": "hstu_attn_fwd_kernel"}
 ONE_STAGE = [("    f.stages = option < 2 ? 2 : 1;", "    f.stages = 1;")]  # K2, K2a and K2b choose their ring alike
 VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
     "hstu_rab_fwd": {
@@ -77,6 +80,17 @@ VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
         **{k: (v, []) for k, v in HEADER.items()},
         "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq[qq], tk_r[i >> 1]);", "              const int u = 3;")]),
         "one Q/G stage (no ring)": ([], ONE_STAGE),
+    },
+    "hstu_attn_fwd": {
+        "unchanged": ([], []),
+        **{k: (v, []) for k, v in HEADER.items()},
+        "no score path (P = S: no mask, bias or silu)": ([], [("            if (l < L && m <= l && (p.mask == nullptr || km[c])) {", "            pv = s[nt][i];\n            if (false) {")]),
+        "one K/V/bias stage (no ring)": ([], [("  p.stages = 2;", "  p.stages = 1;")]),
+        "the bias read from global memory in the score loop (not staged)": ([], [
+            ("    copy_causal_tile(st + lay.b, ldb, bb, q0, kBlockQ, k0, BK, L, p.vec_b, tid, kThreads);\n", ""),
+            ("      const float* brow[2] = {st + lay.b + (16 * rg + g) * ldb + c0 + 2 * t, st + lay.b + (16 * rg + g + 8) * ldb + c0 + 2 * t};",
+             "      const float* brow[2] = {bb + (size_t)(r0 + g) * L + m0 + 2 * t, bb + (size_t)(r0 + g + 8) * L + m0 + 2 * t};"),
+        ]),
     },
 }
 
@@ -131,18 +145,21 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     paths = build_all()
     cycles_per_ms = cs.spin_cycles_per_ms()
-    cases = {"B8 L256": cs.rab_case(0, 8, 256, 256), "B8 L1024": cs.rab_case(4, 8, 1024, 1024)}
-    grads = {k: torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda() for k, c in cases.items()}
+    rab_cases = {"B8 L256": cs.rab_case(0, 8, 256, 256), "B8 L1024": cs.rab_case(4, 8, 1024, 1024)}
+    bias_cases = {"B8 L256": cs.bias_case(20, 8, 256, 256), "B8 L1024": cs.bias_case(25, 8, 1024, 1024)}
+    grads = {k: torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda() for k, c in rab_cases.items()}
 
     def args(c, g):
         return (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
 
-    calls = {  # kernel: (call, index of its first output in dense_backward's gradients)
-        "hstu_rab_fwd": (lambda c, g: cs.run_kernel(c), None),
-        "hstu_rab_bwd": (lambda c, g: rab.rab_backward_fused(*args(c, g)), 0),
-        "hstu_rab_bwd_dq": (lambda c, g: rab.rab_backward_dq(*args(c, g)), 0),
-        "hstu_rab_bwd_dkv": (lambda c, g: rab.rab_backward_dkv(*args(c, g)), 1),
+    calls = {  # kernel: (its cases, call, index of its first output in dense_backward's gradients)
+        "hstu_rab_fwd": (rab_cases, lambda c, g: cs.run_kernel(c), None),
+        "hstu_rab_bwd": (rab_cases, lambda c, g: rab.rab_backward_fused(*args(c, g)), 0),
+        "hstu_rab_bwd_dq": (rab_cases, lambda c, g: rab.rab_backward_dq(*args(c, g)), 0),
+        "hstu_rab_bwd_dkv": (rab_cases, lambda c, g: rab.rab_backward_dkv(*args(c, g)), 1),
+        "hstu_attn_fwd": (bias_cases, lambda c, g: cs.run_op(c), None),
     }
+    plain = {"hstu_rab_fwd": cs.run_plain, "hstu_attn_fwd": cs.run_op_plain}  # the forwards' plain versions
     loaded = {}
     real_load = _build.load
     _build.load = lambda name: loaded[name]
@@ -150,14 +167,14 @@ def main():
         for kernel, variants in VARIANTS.items():
             print(f"{kernel} (device ms, medians of {cs.REPS}; difference to the unchanged kernel):")
             base = {}
-            call, first = calls[kernel]
+            cases, call, first = calls[kernel]
             for name in variants:
                 loaded[LIBRARY[kernel]] = ctypes.CDLL(str(paths[kernel, name]))
                 if name == "unchanged":
                     c, g = cases["B8 L256"], grads["B8 L256"]
                     out = call(c, g)
                     out = out if first is None else out[0]
-                    ref = cs.run_plain(c) if first is None else rab.dense_backward(*args(c, g)[:-1], True)[first]
+                    ref = plain[kernel](c) if first is None else rab.dense_backward(*args(c, g)[:-1], True)[first]
                     cs.check_close(f"{kernel} (unchanged build)", out, ref, cs.KERNEL_RTOL, cs.KERNEL_ATOL)
                     print(f"  SASS of {FUNCTION[kernel]}<4>, the unchanged build: {sass_counts(paths[kernel, name], FUNCTION[kernel])}")
                 parts = []

@@ -1,6 +1,6 @@
-// Building blocks shared by the rab attention kernels (hstu_rab_fwd.cu,
-// hstu_rab_bwd.cu): 3xTF32 tensor-core products with mma.sync, cp.async
-// tile copies, and the exact O(1) time-bucket lookup.
+// Building blocks shared by the attention kernels (hstu_rab_fwd.cu,
+// hstu_rab_bwd.cu, hstu_attn_fwd.cu): 3xTF32 tensor-core products with
+// mma.sync, cp.async tile copies, and the exact O(1) time-bucket lookup.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +107,37 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, 
       cp_async16(dst + r * ld + 4 * c, s + 4 * c, in ? 16 : 0);
     else
       cp_async4(dst + r * ld + c, s + c, in ? 4 : 0);
+    r += dr;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// Rows row0 .. row0+rows-1, columns col0 .. col0+cols-1 (cols a multiple
+// of 4) of a row-major (L, L) fp32 matrix into a shared tile of row stride
+// ld, for a causal reader: a chunk at or past L in either dimension, or
+// wholly above its row's diagonal (its first column past the row), is
+// zero-filled and not read.  16-byte chunks where vec (L % 4 == 0 and the
+// matrix 16-byte aligned, so that a chunk lies wholly inside or wholly
+// past L), else 4-byte ones.  The walk is copy_rows's.
+__device__ __forceinline__ void copy_causal_tile(float* dst, int ld, const float* src, int row0, int rows, int col0,
+                                                 int cols, int L, bool vec, int tid, int nthreads) {
+  const int w = vec ? 4 : 1;  // floats per chunk
+  const int cpr = cols / w;   // chunks per row
+  const int total = rows * cpr;
+  int r = tid / cpr, c = tid - r * cpr;
+  const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
+  for (int i = tid; i < total; i += nthreads) {
+    const int row = row0 + r, col = col0 + w * c;
+    const bool in = row < L && col <= row;  // col <= row < L
+    const float* s = src + (in ? (size_t)row * L + col : 0);
+    if (vec)
+      cp_async16(dst + r * ld + 4 * c, s, in ? 16 : 0);
+    else
+      cp_async4(dst + r * ld + c, s, in ? 4 : 0);
     r += dr;
     c += dc;
     if (c >= cpr) {

@@ -7,10 +7,11 @@ shared across the batch (e.g. the output of
 ``RelativeBucketedTimeAndPositionBias``).
 
 Kernel, CUDA C++ for Hopper (sm_90a), bound through ctypes: the forward,
-``csrc/hstu_attn_fwd.cu``, replaces the TPU's ``_fwd_kernel`` (K3).  At the
-serving shape with a per-batch bias it is bound by the bias's bytes, not by
-FMAs; it reads only the bias tiles at or below the diagonal and skips the
-elements of masked pairs (the source note has the design).
+``csrc/hstu_attn_fwd.cu``, replaces the TPU's ``_fwd_kernel`` (K3).  It is
+K1's design with a bias tile in place of the tables: products in 3xTF32 on
+the tensor cores, and the bias tiles at or below the diagonal brought in
+with K and V through a ``cp.async`` ring (the source note has the design).
+At the serving shape with a per-batch bias it is bound by bytes.
 
 The backward is autograd of :func:`dense_forward` on the saved inputs: the
 same recompute as the JAX package's XLA backward (``_hstu_bwd``), which has
@@ -63,6 +64,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.hstu_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [f, f, p]
         lib.hstu_attn_fwd.restype = i
+        lib.hstu_attn_fwd_occupancy.argtypes = [i] * 3 + [p]
+        lib.hstu_attn_fwd_occupancy.restype = i
         lib.hstu_attn_error_string.argtypes = [i]
         lib.hstu_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,8 +93,8 @@ def _check_kernel_inputs(q, k, v, bias, padding_mask):
         raise ValueError("hstu_attention: padding_mask must be bool (B, L)")
     if not (1 <= dv <= MAX_DV and 1 <= dqk <= MAX_DQK):
         raise ValueError(f"hstu_attention: the CUDA kernel takes dv <= {MAX_DV} and dqk <= {MAX_DQK}, got dqk={dqk} dv={dv}")
-    if b * h > 65535:
-        raise ValueError(f"hstu_attention: B*H = {b * h} exceeds the grid limit 65535")
+    if -(-l // 32) > 65535:
+        raise ValueError(f"hstu_attention: L = {l} exceeds the grid limit of 65535 tiles of 32 rows")
 
 
 def _launch(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float) -> torch.Tensor:
@@ -111,6 +114,19 @@ def _launch(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float) -> to
         raise RuntimeError(f"hstu_attn_fwd launch failed: {lib.hstu_attn_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
     launches += 1
     return out
+
+
+def occupancy(l: int, dqk: int, dv: int) -> tuple:
+    """K3 as this shape would launch it: ``(CTAs per SM, registers per thread, shared bytes per CTA)``.
+
+    From ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
+    ``cudaFuncGetAttributes`` through the C interface; nothing is launched.
+    """
+    info = (ctypes.c_int * 3)()
+    rc = _lib().hstu_attn_fwd_occupancy(l, dqk, dv, info)
+    if rc != 0:
+        raise RuntimeError(f"hstu_attn_fwd occupancy query failed: error {rc}")
+    return tuple(info)
 
 
 class _AttentionKernel(torch.autograd.Function):
