@@ -28,7 +28,22 @@
    one step with ``_FUSED_BWD[0] = False`` through K2a and K2b; the layers'
    backward timed through K2 and through K2a + K2b; one batch's parameter
    gradients against the same weights without the kernels.
-6. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+6. DeepFM serving, at ``bench.py``'s small config (batch 4096, 26 sparse
+   features of vocab 10,000 and dim 16, 13 dense, MLP (256, 128)) with
+   random weights from a seed: ``CTRTrainer.predict`` (ms per batch,
+   examples/s, device time and idle share of a batch), the exact and the
+   bucketed AUC through ``evaluate``, the card's logits against the CPU's on
+   the same weights; then one predict batch at the Criteo-full geometry
+   (``bench.py:51``) under the ``"auto"`` layout, its table shapes checked.
+7. DeepFM training, the same config through ``CTRTrainer.train_one_epoch``
+   on ``ArrayLoader`` and ``DeviceCachedLoader`` (examples/s, ms per step,
+   the loss finite and every parameter moved); a step's stages by device
+   time and host clock, and its kernels by class (``torch.profiler``); one
+   step against the CPU from the same weights (loss, gradients, parameters
+   after Adam, BatchNorm statistics); ``fit`` on learnable data to a test AUC
+   above 0.65.  No kernel of the port lies on this path: the phases check
+   that none was launched.
+8. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -50,11 +65,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_rechub_tpu_torch.basic.features import DenseFeature, SparseFeature  # noqa: E402
 from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
+from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
-from torch_rechub_tpu_torch.trainers.seq_trainer import SeqTrainer  # noqa: E402
-from torch_rechub_tpu_torch.utils.data import SeqLoader  # noqa: E402
+from torch_rechub_tpu_torch.trainers import CTRTrainer, SeqTrainer  # noqa: E402
+from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
 
 # the module of the op K3: the package binds the name hstu_attention to the op itself
@@ -93,6 +110,29 @@ BWD_KERNELS = {
     "hstu_rab_bwd_dq": dict(fn=rab.rab_backward_dq, outs=("dq", "dpos", "dts"), fma=(2, 1), line=313),
     "hstu_rab_bwd_dkv": dict(fn=rab.rab_backward_dkv, outs=("dk", "dv"), fma=(2, 2), line=404),
 }
+# DeepFM at bench.py's small config (bench.py:43,90-93): batch 4096, 26 sparse features of
+# vocab 10,000 and dim 16, 13 dense features, MLP (256, 128) with ReLU, dropout 0, Adam
+CTR = dict(batch=4096, n_sparse=26, n_dense=13, vocab=10_000, dim=16)
+CTR_MLP = {"dims": (256, 128), "dropout": 0.0, "activation": "relu"}
+CTR_OPT = {"lr": 1e-3, "weight_decay": 1e-5}
+# the Criteo-full geometry (bench.py:51): under "auto" the six tables of at least 262,144 rows fuse
+VOCABS_FULL = [4_000_000, 2_000_000, 1_000_000, 500_000, 300_000, 300_000, 200_000, 100_000, 50_000, 50_000] + [10_000] * 16
+CTR_SERVE_BATCHES = 8  # predict batches per timed pass
+CTR_TRAIN_BATCHES, CTR_EPOCHS = 16, 5  # steps per timed epoch, timed epochs per loader
+CTR_FIT_BATCHES = 32  # batches of learnable data, split 0.7 / 0.15 / 0.15
+CTR_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ctr")
+# the tolerances of the CPU parity tests (tests/test_torch_ctr_model.py, test_torch_ctr_train.py):
+# logits and BatchNorm statistics; a step's loss, gradients and Adam; the bucketed AUC against the exact one
+CTR_LOGIT_RTOL, CTR_LOGIT_ATOL = 1e-5, 1e-6
+CTR_STATS_RTOL, CTR_STATS_ATOL = 1e-5, 1e-6
+CTR_LOSS_RTOL, CTR_LOSS_ATOL = 2e-5, 1e-5
+CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL = 2e-4, 1e-4
+CTR_ADAM_RTOL, CTR_ADAM_UPDATE_TOL = 1e-6, 3e-5
+CTR_BUCKET_ATOL = 1e-4
+# the Dense biases in front of a BatchNorm: the loss gives them an exact gradient of 0, rounding noise below
+# this share of the model's largest gradient
+CTR_BN_INVARIANT, CTR_NOISE_REL = ("MLP_0.Dense_0.bias", "MLP_0.Dense_1.bias"), 1e-6
+CARD = torch.device("cuda")
 COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv"}
 
 
@@ -595,8 +635,12 @@ def kernel_class(name):
     return "elementwise, reductions, gathers"
 
 
-def kernel_breakdown(name, fn, steps=3):
-    """Device time per call of ``fn`` by kernel class, from torch.profiler's kernel events."""
+def profile_kernels(fn, steps=3):
+    """``{kernel name: (device ms, launches)}`` per call of ``fn``, from torch.profiler's kernel events.
+
+    A ``record_function`` range also shows on the device's timeline (``Optimizer.step#Adam.step`` spans
+    every kernel of the optimizer's step) with device time of its own; like torch.profiler's own table,
+    this leaves such user annotations out, so no kernel counts twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -605,17 +649,27 @@ def kernel_breakdown(name, fn, steps=3):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    classes = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            ms, n = classes.get(kernel_class(e.key), (0.0, 0))
-            classes[kernel_class(e.key)] = (ms + e.self_device_time_total / 1e3 / steps, n + e.count / steps)
-    total = sum(ms for ms, _ in classes.values())
-    if total <= 0:
+    kernels = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0 and not e.is_user_annotation}
+    if not kernels:
         raise AssertionError("torch.profiler saw no device time")
+    return kernels
+
+
+def kernel_breakdown(name, fn, steps=3, classify=kernel_class, top=0):
+    """Device time per call of ``fn`` by kernel class, and its ``top`` kernels by name; returns the kernels' total ms per call."""
+    kernels = profile_kernels(fn, steps)
+    classes = {}
+    for key, (ms, n) in kernels.items():
+        total_ms, total_n = classes.get(classify(key), (0.0, 0))
+        classes[classify(key)] = (total_ms + ms, total_n + n)
+    total = sum(ms for ms, _ in classes.values())
     print(f"  {name} train_step kernels by class (torch.profiler, {steps} steps): {total:.4f} ms of kernels per step")
     for label, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
         print(f"    {ms:.4f} ms {ms / total:6.1%} {n:6.1f} launches  {label}")
+    for key, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    kernel {ms:.4f} ms {n:5.1f} launches  {key[:120]}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +782,247 @@ def training_phase(cycles_per_ms):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 6. DeepFM / CTR: serving and training at bench.py's configurations
+# ---------------------------------------------------------------------------
+
+def ctr_features(vocabs):
+    sparse = tuple(SparseFeature(f"C{i}", vocab_size=v, embed_dim=CTR["dim"]) for i, v in enumerate(vocabs))
+    return sparse, tuple(DenseFeature(f"I{i}") for i in range(CTR["n_dense"]))
+
+
+def ctr_data(n, vocabs, seed, zipf=False):
+    """bench.py's data: uniform ids (zipf-distributed for the Criteo-full geometry), normal dense values, random labels."""
+    rng = np.random.default_rng(seed)
+    x = {f"C{i}": ((rng.zipf(1.2, n) % v) if zipf else rng.integers(0, v, n)).astype(np.int32) for i, v in enumerate(vocabs)}
+    x.update({f"I{i}": rng.normal(size=n).astype(np.float32) for i in range(CTR["n_dense"])})
+    return x, rng.integers(0, 2, n).astype(np.float32)
+
+
+def ctr_model(vocabs, seed, device):
+    """bench.py's DeepFM: the MLP over the dense features, LR and FM over the sparse ones; random weights from ``seed``."""
+    sparse, dense = ctr_features(vocabs)
+    return DeepFM(dense, sparse, CTR_MLP, generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def wall_ms(fn, reps=REPS, warmup=3):
+    """Median host clock of one call of ``fn`` ended by a synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def ratio_of(got, ref, rtol, atol):
+    """max |got - ref| / (atol + rtol |ref|), over float64 copies on the CPU."""
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def ctr_kernel_class(name):
+    """``kernel_class`` with the gathers, the embedding backward (a sort, then segment sums) and the reductions apart."""
+    lowered = name.lower()
+    for keys, label in ((("indexselect", "index_select"), "gathers (embedding lookups)"),
+                        (("radix", "sort"), "sorts (embedding backward)"),
+                        (("segment", "compute_grad_weight", "sum_and_scatter", "embedding_backward"), "segment sums (embedding backward)"),
+                        (("gemv",), "matrix products (cuBLAS / CUTLASS, fp32)"),
+                        (("reduce_kernel",), "reductions (BatchNorm statistics, loss, sums)")):
+        if any(k in lowered for k in keys):
+            return label
+    return kernel_class(name)
+
+
+def ctr_serving_phase(cycles_per_ms):
+    """bench.py's small config through CTRTrainer.predict / evaluate; the card's logits against the CPU's on the
+    same weights; then one predict batch at the Criteo-full geometry under the "auto" layout."""
+    b, small = CTR["batch"], [CTR["vocab"]] * CTR["n_sparse"]
+    model = ctr_model(small, seed=0, device=CARD)
+    trainer = CTRTrainer(model, optimizer_params=CTR_OPT)
+    n = CTR_SERVE_BATCHES * b
+    x, y = ctr_data(n, small, seed=0)
+    loader = ArrayLoader(x, y, batch_size=b)
+    trainer.predict(model, loader)  # warm-up: cuBLAS handles, the allocator
+    walls, preds = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds = trainer.predict(model, loader)  # ends in a host read of the probabilities
+        walls.append(time.perf_counter() - t0)
+    seconds = float(np.median(walls))
+    if preds.shape != (n,) or preds.dtype != np.float32 or not (np.isfinite(preds).all() and ((preds > 0) & (preds < 1)).all()):
+        raise AssertionError(f"predict gave {preds.shape} {preds.dtype} probabilities out of (0, 1)")
+    exact, bucketed = trainer.evaluate(model, loader), trainer.evaluate(model, loader, bucketed=True)
+    print(f"  small config B{b}: predict {seconds / CTR_SERVE_BATCHES * 1e3:.3f} ms per batch, {n / seconds:,.0f} examples/s "
+          f"(host clock, median of 3 passes over {CTR_SERVE_BATCHES} batches); AUC on random labels: exact {exact:.5f}, bucketed {bucketed:.5f}")
+    if not (0.0 <= exact <= 1.0 and abs(exact - bucketed) < CTR_BUCKET_ATOL):
+        raise AssertionError(f"the bucketed AUC {bucketed} is not within {CTR_BUCKET_ATOL} of the exact {exact}")
+
+    xb = {k: torch.from_numpy(v[:b]).to(CARD) for k, v in x.items()}
+    device, wall = timed(lambda: trainer._probabilities(xb), cycles_per_ms)
+    print(f"  one predict batch (the model's forward and a sigmoid): device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
+
+    cpu = ctr_model(small, seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        ref = cpu.eval()({k: v.cpu() for k, v in xb.items()})
+        got = model.eval()(xb)
+    r = ratio_of(got, ref, CTR_LOGIT_RTOL, CTR_LOGIT_ATOL)
+    print(f"  card vs CPU eval logits, same weights, B{b}: max abs err {float((got.cpu() - ref).abs().max()):.3e}, max |d|/(atol+rtol|ref|) {r:.3f} (rtol {CTR_LOGIT_RTOL}, atol {CTR_LOGIT_ATOL})")
+    if r > 1.0:
+        raise AssertionError("the card's DeepFM logits disagree with the CPU's")
+    del model, trainer, cpu
+
+    full = ctr_model(VOCABS_FULL, seed=3, device=CARD)
+    shapes = {k: tuple(v.shape) for k, v in full.EmbeddingCollection_0.named_parameters()}
+    expected = {"fused_d16_table": (8_100_032, 16), "C6_table": (200_000, 16), "C7_table": (100_032, 16),
+                **{f"C{i}_table": (v, 16) for i, v in enumerate(VOCABS_FULL) if v < 100_000}}
+    if shapes != expected:
+        raise AssertionError(f"the Criteo-full \"auto\" layout gave {shapes}, expected {expected}")
+    trainer = CTRTrainer(full, optimizer_params=CTR_OPT)
+    xf, yf = ctr_data(b, VOCABS_FULL, seed=3, zipf=True)
+    t0 = time.perf_counter()
+    preds = trainer.predict(full, ArrayLoader(xf, yf, batch_size=b))
+    first = time.perf_counter() - t0
+    if preds.shape != (b,) or not (np.isfinite(preds).all() and ((preds > 0) & (preds < 1)).all()):
+        raise AssertionError("the Criteo-full predict gave probabilities out of (0, 1)")
+    xb = {k: torch.from_numpy(v).to(CARD) for k, v in xf.items()}
+    device, wall = timed(lambda: trainer._probabilities(xb), cycles_per_ms)
+    table_mb = sum(math.prod(s) for s in shapes.values()) * 4 / 1e6
+    print(f"  Criteo-full geometry (bench.py:51), \"auto\": fused_d16_table {shapes['fused_d16_table']} and {len(shapes) - 1} per-feature tables, {table_mb:,.0f} MB of fp32 tables; "
+          f"one predict batch of {b}: {first * 1e3:.3f} ms host clock (first call), then device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%}")
+
+
+def ctr_step_against_cpu(b):
+    """One CTRTrainer step of a partial batch (padded by cycling rows, weight 0) on the card and on the CPU from the
+    same weights: the loss, every gradient, every parameter after Adam and the BatchNorm statistics.  Adam's first
+    step is about lr * sign(g), so a parameter is also allowed what the update rule makes of the two gradients'
+    difference (the Dense biases in front of a BatchNorm have an exact gradient of 0, so theirs are rounding noise)."""
+    small = [CTR["vocab"]] * CTR["n_sparse"]
+    card = ctr_model(small, seed=2, device=CARD)
+    cpu = ctr_model(small, seed=2, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+    x, y = ctr_data(b - 1000, small, seed=4)
+    lr, wd = CTR_OPT["lr"], CTR_OPT["weight_decay"]
+    losses = [CTRTrainer(m, optimizer_params=CTR_OPT, device=d).train_one_epoch(ArrayLoader(x, y, batch_size=b), log_interval=0) for m, d in ((card, CARD), (cpu, "cpu"))]
+    if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
+        raise AssertionError(f"one step's loss: card {losses[0]}, CPU {losses[1]}")
+
+    def adam(g, p):
+        g = g.double() + wd * p.double()
+        return g / (g.abs() + 1e-8)
+
+    floor = CTR_NOISE_REL * max(float(p.grad.abs().max()) for p in cpu.parameters())
+    worst = {"grad": 0.0, "param": 0.0, "stats": 0.0}
+    for (name, a), p in zip(card.named_parameters(), cpu.parameters(), strict=True):
+        g, r = a.grad.cpu(), p.grad
+        if name in CTR_BN_INVARIANT:
+            if float(g.abs().max()) >= floor or float(r.abs().max()) >= floor:
+                raise AssertionError(f"{name}: a gradient the batch mean removes is not rounding noise")
+        else:
+            worst["grad"] = max(worst["grad"], ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * float(r.abs().max()) + 1e-12))
+        # what is left of the difference once the update rule's share is taken off, over Adam's tolerance
+        carried = lr * (adam(g, p0[name]) - adam(r, p0[name])).abs()
+        excess = (a.detach().cpu().double() - p.detach().double()).abs() - carried
+        worst["param"] = max(worst["param"], float((excess / (CTR_ADAM_UPDATE_TOL * lr + CTR_ADAM_RTOL * p.detach().double().abs())).max()))
+        if torch.equal(p.detach(), p0[name]) and r.any():
+            raise AssertionError(f"{name} did not move")
+    for a, p in zip(card.buffers(), cpu.buffers(), strict=True):
+        worst["stats"] = max(worst["stats"], ratio_of(a, p, CTR_STATS_RTOL, CTR_STATS_ATOL))
+    print(f"  one train step, card vs CPU from the same weights, a partial batch of {b - 1000} padded to {b}: loss {losses[0]:.7f} vs {losses[1]:.7f}; "
+          f"worst max |d|/tol: gradients {worst['grad']:.3f} (rtol {CTR_GRAD_RTOL}, atol {CTR_GRAD_ATOL_REL} x the tensor's max), "
+          f"parameters after Adam {worst['param']:.3f} (rtol {CTR_ADAM_RTOL}, atol {CTR_ADAM_UPDATE_TOL} x lr, beyond the update rule's share), BatchNorm statistics {worst['stats']:.3f} (rtol {CTR_STATS_RTOL}, atol {CTR_STATS_ATOL})")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"one train step on the card disagrees with the CPU: {worst}")
+
+
+def ctr_fit_check(b):
+    """fit on learnable data (the label from C0's parity and I0): the test AUC passes 0.65 within 3 epochs."""
+    small = [CTR["vocab"]] * CTR["n_sparse"]
+    x, _ = ctr_data(CTR_FIT_BATCHES * b, small, seed=5)
+    y = ((x["C0"] % 2) + x["I0"] > 0.5).astype(np.float32)
+    train, val, test = DataGenerator(x, y, seed=0).generate_dataloader(split_ratio=[0.7, 0.15], batch_size=b)
+    trainer = CTRTrainer(ctr_model(small, seed=5, device=CARD), optimizer_params=CTR_OPT, n_epoch=3, model_path=CTR_MODEL_PATH)
+    t0 = time.perf_counter()
+    trainer.fit(train, val, log_interval=0)
+    auc = trainer.evaluate(trainer.model, test)
+    print(f"  fit, 3 epochs of {train.n} rows (label from C0's parity and I0): test AUC {auc:.5f} ({time.perf_counter() - t0:.2f} s with validation)")
+    if not auc > 0.65:
+        raise AssertionError(f"fit reached a test AUC of {auc}, not above 0.65")
+
+
+def ctr_training_phase():
+    """bench.py's small config through CTRTrainer.train_one_epoch on both loaders; the stages of one step; its kernels
+    by class; a step against the CPU; fit on learnable data."""
+    b, small = CTR["batch"], [CTR["vocab"]] * CTR["n_sparse"]
+    n = CTR_TRAIN_BATCHES * b
+    x, y = ctr_data(n, small, seed=1)
+    loaders = {"ArrayLoader": ArrayLoader(x, y, batch_size=b), "DeviceCachedLoader": DeviceCachedLoader(x, y, batch_size=b, group_size=CTR_TRAIN_BATCHES)}
+    trainers = {}
+    for name, loader in loaders.items():
+        trainer = CTRTrainer(ctr_model(small, seed=1, device=CARD), optimizer_params=CTR_OPT)
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        trainer.train_one_epoch(loader, log_interval=0)  # warm-up: cuBLAS handles, the allocator, Adam's state
+        seconds, losses = [], []
+        for _ in range(CTR_EPOCHS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_one_epoch(loader, log_interval=0))  # ends in a host read of the losses
+            seconds.append(time.perf_counter() - t0)
+        med = float(np.median(seconds))
+        print(f"  {name}: {n / med:,.0f} examples/s, {med / CTR_TRAIN_BATCHES * 1e3:.3f} ms per step (host clock, median of {CTR_EPOCHS} epochs of "
+              f"{CTR_TRAIN_BATCHES} steps of {b}; epochs {min(seconds) * 1e3:.1f}-{max(seconds) * 1e3:.1f} ms); train loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+        if not all(math.isfinite(v) and 0 < v < 2 for v in losses):
+            raise AssertionError(f"training loss out of range ({name}): {losses}")
+        moved = [not torch.equal(p.detach(), q) for p, q in zip(trainer.model.parameters(), before)]
+        if not all(moved):
+            raise AssertionError(f"{moved.count(False)} parameters did not move ({name})")
+        trainers[name] = trainer
+
+    # where a step's time goes: device time per call of each stage from torch.profiler's kernel events (the embedding
+    # backward synchronises with the host, so a call cannot be enqueued behind a spin wait as `timed` does)
+    trainer = trainers["DeviceCachedLoader"]
+    xs, ys, ws = next(loaders["DeviceCachedLoader"].device_groups())
+    dx, dy, dw = {k: v[0] for k, v in xs.items()}, ys[0], ws[0]
+    model = trainer.model.train()
+    ec = model.EmbeddingCollection_0
+
+    def embed():
+        return ec(dx, model.deep_features, squeeze_dim=True), ec(dx, model.fm_features)
+
+    def embed_lr_fm():
+        _, fm = embed()
+        return model.LR_0(fm.reshape(fm.shape[0], -1)) + model.FM_0(fm)
+
+    def loss_backward():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer.loss_fn(dx, dy, dw).backward()
+
+    stages = {
+        "embed": ("the embedding lookups (26 gathers) and the dense concat", embed),
+        "lr_fm": ("+ LR and FM", embed_lr_fm),
+        "forward": ("the model's forward (+ the MLP with BatchNorm)", lambda: model(dx, generator=trainer.generator)),
+        "loss": ("+ the weighted BCE", lambda: trainer.loss_fn(dx, dy, dw)),
+        "backward": ("+ backward", loss_backward),
+        "step": ("train_step (+ Adam and zero_grad)", lambda: trainer.train_step(dx, dy, dw)),
+    }
+    walls = {key: wall_ms(fn) for key, (_, fn) in stages.items()}  # every host clock before the profiler first runs
+    t = {}
+    for key, (stage, fn) in stages.items():
+        t[key] = sum(ms for ms, _ in profile_kernels(fn, steps=5).values())
+        print(f"  stage {stage}: device {t[key]:.4f} ms (kernels, torch.profiler, 5 calls), host clock {walls[key]:.4f} ms (median of {REPS}), device idle {1 - t[key] / walls[key]:.0%}")
+    print(f"  by difference (device ms): gathers {t['embed']:.4f}, LR + FM {t['lr_fm'] - t['embed']:.4f}, MLP {t['forward'] - t['lr_fm']:.4f}, "
+          f"loss {t['loss'] - t['forward']:.4f}, backward {t['backward'] - t['loss']:.4f}, Adam and zero_grad {t['step'] - t['backward']:.4f}")
+    kernel_breakdown(f"DeepFM B{b}", lambda: trainer.train_step(dx, dy, dw), steps=5, classify=ctr_kernel_class, top=8)
+
+    ctr_step_against_cpu(b)
+    ctr_fit_check(b)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -767,6 +1062,18 @@ def main():
     print("training phase (full-width HSTU through SeqTrainer.train_one_epoch):")
     for name, n in training_phase(cycles_per_ms).items():
         launches[name] += n
+
+    # the DeepFM path runs PyTorch's own kernels only: none of the port's is launched there
+    reset_counts()
+    attn.launches = 0
+    print("DeepFM serving phase (bench.py's small config through CTRTrainer.predict / evaluate; one batch at the Criteo-full geometry):")
+    ctr_serving_phase(cycles_per_ms)
+    print("DeepFM training phase (bench.py's small config through CTRTrainer.train_one_epoch; a step against the CPU; fit):")
+    ctr_training_phase()
+    ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
+    print("  the port's kernels launched by the DeepFM phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
+    if any(ctr_launches.values()):
+        raise AssertionError(f"the DeepFM path launched an HSTU attention kernel: {ctr_launches}")
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45")}

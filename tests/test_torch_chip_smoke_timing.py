@@ -105,3 +105,38 @@ def test_timed_raises_after_more_repeats_than_reps(fake_card):
     assert card.calls == WARMUP + REPS + REPS + 1
     assert len(card.sleeps_ms) == REPS + 1
     assert all(b > a for a, b in zip(card.sleeps_ms, card.sleeps_ms[1:]))  # each repeat waits longer
+
+
+def test_profile_kernels_leaves_user_annotations_out(monkeypatch, capsys):
+    """A ``record_function`` range (``Optimizer.step#Adam.step``) carries device time on the card's
+    timeline that spans kernels already counted: the kernel sums leave it out."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    steps = 4
+
+    def row(key, device_type, us, count, annotation=False):
+        return types.SimpleNamespace(key=key, device_type=device_type, self_device_time_total=us * steps, count=count * steps, is_user_annotation=annotation)
+
+    rows = [row("multi_tensor_apply_kernel", cuda, 150.0, 8), row("Optimizer.step#Adam.step", cuda, 1100.0, 1, annotation=True),
+            row("indexSelectLargeIndex", cuda, 100.0, 26), row("aten::embedding", cpu, 0.0, 26), row("idle kernel", cuda, 0.0, 1)]
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return rows
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = []
+    kernels = cs.profile_kernels(lambda: calls.append(1), steps=steps)
+    assert len(calls) == 1 + steps
+    assert kernels == {"multi_tensor_apply_kernel": (0.15, 8), "indexSelectLargeIndex": (0.1, 26)}
+    assert cs.kernel_breakdown("fake", lambda: None, steps=steps) == pytest.approx(0.25)
+    assert "Adam (foreach kernels)" in capsys.readouterr().out

@@ -59,6 +59,21 @@ def test_seq_trainer_without_a_card_raises():
         SeqTrainer(torch.nn.Linear(2, 2))
 
 
+def test_ctr_trainer_and_device_cached_loader_without_a_card_raise():
+    import numpy as np
+
+    from torch_rechub_tpu_torch.trainers import CTRTrainer
+    from torch_rechub_tpu_torch.utils.data import DeviceCachedLoader
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CTRTrainer(torch.nn.Linear(2, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceCachedLoader({"a": np.zeros(4, np.int32)}, np.zeros(4, np.float32), batch_size=2)
+    assert DeviceCachedLoader({"a": np.zeros(4, np.int32)}, batch_size=2, device="cpu")._xs["a"].device.type == "cpu"
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     import torch.utils.cpp_extension
 

@@ -2,14 +2,85 @@
 
 Values are drawn on the CPU (where the generator lives) and copied into the
 parameter, so one seed gives the same weights on every device.
+
+The embedding-table specs (``RandomNormal``, ``RandomUniform``,
+``XavierNormal``, ``XavierUniform``, ``Pretrained``) are the counterparts of
+``torch_rechub_tpu/basic/initializers.py``: frozen dataclasses that a feature
+carries, whose ``init(shape, generator)`` returns a CPU float32 tensor.
+``EmbeddingCollection`` owns the parameter and zeroes a ``padding_idx`` row.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
+import numpy as np
 import torch
+
+
+class Initializer:
+    """Base initializer spec; subclasses implement ``init(shape, generator)``."""
+
+    def init(self, shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __call__(self, shape, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.init(tuple(shape), generator).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomNormal(Initializer):
+    mean: float = 0.0
+    std: float = 1e-4
+
+    def init(self, shape, generator=None):
+        return self.mean + self.std * torch.randn(shape, generator=generator)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomUniform(Initializer):
+    minval: float = 0.0
+    maxval: float = 1.0
+
+    def init(self, shape, generator=None):
+        return torch.empty(shape).uniform_(self.minval, self.maxval, generator=generator)
+
+
+@dataclasses.dataclass(frozen=True)
+class XavierNormal(Initializer):
+    gain: float = 1.0
+
+    def init(self, shape, generator=None):
+        return self.gain * math.sqrt(2.0 / (shape[-2] + shape[-1])) * torch.randn(shape, generator=generator)
+
+
+@dataclasses.dataclass(frozen=True)
+class XavierUniform(Initializer):
+    gain: float = 1.0
+
+    def init(self, shape, generator=None):
+        bound = self.gain * math.sqrt(6.0 / (shape[-2] + shape[-1]))
+        return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Pretrained(Initializer):
+    """Initialize from a host array of shape ``(vocab, dim)``.
+
+    ``freeze`` is carried for the JAX package's API; no trainer reads it, in
+    either package.
+    """
+
+    weights: Any = None
+    freeze: bool = True
+
+    def init(self, shape, generator=None):
+        w = torch.as_tensor(np.asarray(self.weights), dtype=torch.float32)
+        if tuple(w.shape) != tuple(shape):
+            raise ValueError(f"Pretrained weights shape {tuple(w.shape)} != requested {tuple(shape)}")
+        return w.clone()
 
 
 def uniform_(param: torch.Tensor, bound: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,0 +1,83 @@
+"""Losses and regularization.
+
+Counterpart of ``torch_rechub_tpu/basic/loss.py``: ``bce_with_logits`` and
+``mse_loss`` with a per-example weight (a padded batch's padding rows weigh
+0), computed in float32; ``classify_param`` and ``RegularizationLoss``,
+which sort parameters by name into normalisation (exempt), embedding and
+dense.  The port's ``state_dict`` names keep the words that sort them
+(``EmbeddingCollection``, ``_table``, ``BatchNorm``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Optional, Tuple
+
+import torch
+
+
+def _weighted_mean(loss: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+    if weight is None:
+        return loss.mean()
+    weight = weight.to(loss.dtype)
+    return (loss * weight).sum() / torch.clamp_min(weight.sum(), 1e-12)
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy from logits, ``Σ w·ℓ / max(Σ w, 1e-12)``, in float32."""
+    logits = logits.reshape(targets.shape).to(torch.float32)
+    targets = targets.to(logits.dtype)
+    loss = torch.clamp_min(logits, 0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return _weighted_mean(loss, weight)
+
+
+def mse_loss(preds: torch.Tensor, targets: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    preds = preds.reshape(targets.shape).to(torch.float32)
+    return _weighted_mean((preds - targets.to(preds.dtype)) ** 2, weight)
+
+
+_NORM_MARKERS = ("batchnorm", "layernorm", "groupnorm", "instancenorm", "_norm")
+_EMBED_MARKERS = ("embedding", "embed_table", "tables")
+
+
+def classify_param(name: str) -> str:
+    """``'norm' | 'embedding' | 'dense'`` by the parameter's name, as the JAX package sorts flax paths."""
+    p = name.lower()
+    if any(m in p for m in _NORM_MARKERS):
+        return "norm"
+    if any(m in p for m in _EMBED_MARKERS):
+        return "embedding"
+    return "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class RegularizationLoss:
+    """L1 / L2 regularization with separate embedding and dense coefficients."""
+
+    embedding_l1: float = 0.0
+    embedding_l2: float = 0.0
+    dense_l1: float = 0.0
+    dense_l2: float = 0.0
+
+    def __bool__(self):
+        return any(c > 0 for c in (self.embedding_l1, self.embedding_l2, self.dense_l1, self.dense_l2))
+
+    def __call__(self, named_parameters: Iterable[Tuple[str, torch.Tensor]]) -> torch.Tensor:
+        """The penalty over ``module.named_parameters()``.
+
+        The L1 term's gradient at 0 is 1, as ``jnp.abs``'s is (torch's
+        ``abs`` gives 0 there): the zero-initialised biases take the L1
+        coefficient on the first step in both packages.
+        """
+        total = 0.0
+        for name, leaf in named_parameters:
+            kind = classify_param(name)
+            if kind == "norm":
+                continue
+            l1 = self.embedding_l1 if kind == "embedding" else self.dense_l1
+            l2 = self.embedding_l2 if kind == "embedding" else self.dense_l2
+            if l1 > 0:
+                total = total + l1 * torch.where(leaf >= 0, leaf, -leaf).sum()
+            if l2 > 0:
+                total = total + l2 * leaf.square().sum()
+        return torch.as_tensor(total, dtype=torch.float32)

@@ -10,10 +10,12 @@ optimizer's parameter groups (:func:`step_lr`).
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from ..basic.loss import classify_param
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,22 +37,93 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def make_optimizer(parameters: Iterable[torch.nn.Parameter], optimizer_params: Optional[Dict] = None) -> Tuple[torch.optim.Adam, float]:
-    """``(Adam, lr0)``, the update of the JAX package's ``make_optimizer``.
+class TableOptimizer(torch.optim.Optimizer):
+    """The update of embedding tables under ``embedding_optimizer``, ``p ← p − lr·u``.
+
+    ``"adagrad"`` is optax's ``scale_by_rss(initial_accumulator_value, eps)``:
+    ``acc ← acc + g²`` from ``acc = initial_accumulator_value``, then
+    ``u = g · rsqrt(acc + eps)`` where ``acc > 0``, else 0.  That is not
+    ``torch.optim.Adagrad``, which starts the sum at 0 and adds eps outside
+    the square root.  ``"sgd"`` is ``u = g``.  Neither decays weights.
+    """
+
+    def __init__(self, params, lr: float, rule: str = "adagrad", initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        if rule not in ("adagrad", "sgd"):
+            raise ValueError(f"unknown embedding_optimizer {rule!r}")
+        super().__init__(params, dict(lr=lr, rule=rule, initial_accumulator_value=initial_accumulator_value, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["rule"] == "adagrad":
+                    state = self.state[p]
+                    if not state:
+                        state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+                    acc = state["sum_of_squares"]
+                    acc.add_(g * g)
+                    g = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0) * g
+                p.sub_(group["lr"] * g)
+
+
+class SplitOptimizer:
+    """Adam for the dense parameters and a :class:`TableOptimizer` for the
+    embedding tables, stepped, zeroed and scheduled as one optimizer."""
+
+    def __init__(self, *optimizers: torch.optim.Optimizer):
+        self.optimizers = optimizers
+
+    @property
+    def param_groups(self):
+        return [g for opt in self.optimizers for g in opt.param_groups]
+
+    def step(self):
+        for opt in self.optimizers:
+            opt.step()
+
+    def zero_grad(self, set_to_none: bool = True):
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+
+def make_optimizer(parameters: Iterable, optimizer_params: Optional[Dict] = None):
+    """``(optimizer, lr0)``, the update of the JAX package's ``make_optimizer``.
 
     There, ``add_decayed_weights(wd)`` then ``scale_by_adam(b1)`` with the
     learning rate applied outside: weight decay added to the gradient, then
     bias-corrected Adam with eps 1e-8 outside the square root, which is
     ``torch.optim.Adam(weight_decay=wd)``.  Only ``betas[0]`` is read there,
     so b2 is 0.999 whatever ``betas`` says.
+
+    ``embedding_optimizer`` (``"adagrad" | "sgd"``) gives the parameters that
+    :func:`classify_param` calls "embedding" a :class:`TableOptimizer` and
+    the rest Adam, as optax's ``multi_transform`` does there; it needs
+    ``parameters`` as ``(name, parameter)`` pairs (``named_parameters()``).
     """
     optimizer_params = dict(optimizer_params or {"lr": 1e-3, "weight_decay": 1e-5})
     lr = float(optimizer_params.pop("lr", 1e-3))
     wd = float(optimizer_params.pop("weight_decay", 0.0))
     b1 = float(optimizer_params.pop("betas", (0.9, 0.999))[0]) if "betas" in optimizer_params else 0.9
-    if optimizer_params.pop("embedding_optimizer", None) is not None:
-        raise NotImplementedError("embedding_optimizer is not ported yet: it comes with the trainer core of the CTR slice (ROADMAP queue 1, item 7)")
-    return torch.optim.Adam(parameters, lr=lr, betas=(b1, 0.999), eps=1e-8, weight_decay=wd), lr
+    emb_opt = optimizer_params.pop("embedding_optimizer", None)
+    parameters = list(parameters)
+    named = bool(parameters) and isinstance(parameters[0], tuple)
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=lr, betas=(b1, 0.999), eps=1e-8, weight_decay=wd)
+
+    if emb_opt is None:
+        return adam([p for _, p in parameters] if named else parameters), lr
+    if emb_opt not in ("adagrad", "sgd"):
+        raise ValueError(f"unknown embedding_optimizer {emb_opt!r}")
+    if not named:
+        raise ValueError("embedding_optimizer sorts parameters by name: pass named_parameters()")
+    tables = [p for name, p in parameters if classify_param(name) == "embedding"]
+    dense = [p for name, p in parameters if classify_param(name) != "embedding"]
+    parts = ([adam(dense)] if dense else []) + ([TableOptimizer(tables, lr, emb_opt)] if tables else [])
+    return SplitOptimizer(*parts), lr
 
 
 def step_lr(lr0: float, epoch: int, scheduler_params: Optional[Dict]) -> float:
@@ -70,7 +143,7 @@ class TorchTrainer:
     def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.optimizer, self.lr0 = make_optimizer(self.model.parameters(), optimizer_params)
+        self.optimizer, self.lr0 = make_optimizer(self.model.named_parameters(), optimizer_params)
         self.scheduler_params = scheduler_params
         self.n_epoch = n_epoch
         self.earlystop_patience = earlystop_patience
@@ -94,5 +167,30 @@ class TorchTrainer:
 
     def load(self, name: str = "model.pt") -> torch.nn.Module:
         target = self.model_path if os.path.isfile(self.model_path) else os.path.join(self.model_path, name)
-        self.model.load_state_dict(torch.load(target, map_location=self.device, weights_only=True))
+        state = torch.load(target, map_location=self.device, weights_only=True)
+        check_table_rows(state, self.model.state_dict(), target)
+        self.model.load_state_dict(state)
         return self.model
+
+
+def check_table_rows(restored: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor], target: str) -> None:
+    """Raise a ``ValueError`` naming every embedding table whose ROW count in
+    a checkpoint differs from the model's (same width).
+
+    The usual cause: a checkpoint saved before tables of at least 65,536
+    rows were padded to a multiple of 64 rows.
+    """
+    mismatched = {
+        k: (tuple(restored[k].shape), tuple(template[k].shape))
+        for k in restored.keys() & template.keys()
+        if k.endswith(("_table", "_embedding")) and restored[k].shape != template[k].shape and restored[k].shape[1:] == template[k].shape[1:]
+    }
+    if mismatched:
+        detail = ", ".join(f"{k}: checkpoint {c} vs model {t}" for k, (c, t) in sorted(mismatched.items()))
+        raise ValueError(
+            f"checkpoint {target!r} has embedding tables whose ROW counts differ from the "
+            f"model's ({detail}). Tables >= 65536 rows are padded to a 64-row multiple (padded "
+            f"rows are zero and take no gradient); a checkpoint saved before that padding cannot "
+            f"load directly. Rebuild the model at the checkpoint's shapes, or pad / slice the "
+            f"restored table rows to the model's and save again."
+        )

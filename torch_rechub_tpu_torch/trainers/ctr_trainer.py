@@ -1,0 +1,187 @@
+"""CTRTrainer: single-task binary CTR training, evaluation and prediction.
+
+Counterpart of ``torch_rechub_tpu/trainers/ctr_trainer.py``.  A step is
+eager PyTorch: the model's logits in train mode, BCE with logits weighted
+by the padded batch's row weights (plus the regularization and, with
+``loss_mode=False``, the model's auxiliary loss), ``backward``, the
+optimizer.  Every batch is padded to the loader's ``batch_size`` by cycling
+its rows, so BatchNorm sees the same batch as in the JAX package.
+``steps_per_call`` groups run as that many single steps, which the JAX
+package's scan equals.  ``fit`` runs epochs with StepLR and early stopping
+on the validation AUC; ``predict`` returns fp32 probabilities of the real
+rows; ``evaluate`` the exact AUC, or the bucketed one from histograms that
+add up on the device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..basic.callback import EarlyStopper
+from ..basic.loss import RegularizationLoss, bce_with_logits
+from ..basic.metric import auc_from_histogram, auc_histogram, auc_score
+from ..basic.tracking import iter_loggers
+from ..utils.data import pad_batch
+from .base import TorchTrainer, to_numpy
+
+
+class CTRTrainer(TorchTrainer):
+    """Trains and evaluates a ranking model (dict input -> ``(B,)`` logits) on
+    ``device``: the CUDA card unless the caller passes another
+    (``device="cpu"``); with no card and no device it raises.
+
+    ``mesh``, ``precision="bf16"`` and ``sparse_embedding`` are not ported
+    yet and raise; ``batch_size_hint`` is accepted and unused, as in the JAX
+    package.
+    """
+
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
+        if sparse_embedding is not None:
+            raise NotImplementedError("CTRTrainer(sparse_embedding=...) is not ported yet: the sparse row-wise updates come with ROADMAP queue 1, item 8")
+        if precision is not None and str(precision).lower() not in ("f32", "float32"):
+            raise NotImplementedError(f"CTRTrainer(precision={precision!r}) is not ported yet: bf16 compute comes with ROADMAP queue 1, item 14")
+        if mesh is not None:
+            raise NotImplementedError("CTRTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device)
+        self.loss_mode = loss_mode
+        self.reg_loss_fn = RegularizationLoss(**(regularization_params or {}))
+        self.early_stopper = EarlyStopper(patience=earlystop_patience)
+        self.steps_per_call = int(steps_per_call)
+
+    def _to_device(self, x, *arrays):
+        put = lambda a: torch.as_tensor(np.asarray(a), device=self.device)  # noqa: E731
+        return ({k: put(v) for k, v in x.items()},) + tuple(put(a) for a in arrays)
+
+    # -- training ------------------------------------------------------------
+    def loss_fn(self, x, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The training loss of one padded batch (the model in train mode)."""
+        out = self.model(x, generator=self.generator)
+        aux = 0.0
+        if not self.loss_mode:
+            out, aux = out
+        loss = bce_with_logits(out, y, w) + aux
+        if self.reg_loss_fn:
+            loss = loss + self.reg_loss_fn(self.model.named_parameters())
+        return loss
+
+    def train_step(self, x, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on one padded batch; returns the loss on the device (no host sync)."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(x, y, w)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def _iter_groups(self, data_loader):
+        """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` on the device."""
+        batch_size = data_loader.batch_size
+        pending = []
+
+        def stacked():
+            xs = {k: np.stack([b[0][k] for b in pending]) for k in pending[0][0]}
+            ys = np.stack([b[1] for b in pending]).astype(np.float32)
+            ws = np.stack([b[2] for b in pending])
+            return self._to_device(xs, ys, ws)
+
+        for x, y in data_loader:
+            pending.append(pad_batch(x, y, batch_size))
+            if len(pending) >= max(1, self.steps_per_call):
+                yield stacked()
+                pending = []
+        if pending:
+            yield stacked()
+
+    def train_one_epoch(self, data_loader, log_interval: int = 10, lr: Optional[float] = None) -> float:
+        """One pass over ``data_loader``; returns the mean step loss (one host read at the end).
+
+        A loader with ``device_groups`` (``DeviceCachedLoader``) hands its
+        groups over on the device; any other is padded and staged here.
+        """
+        self.set_lr(self.lr0 if lr is None else lr)
+        losses = []
+        n_seen = 0
+        t0 = time.perf_counter()
+        groups = data_loader.device_groups() if hasattr(data_loader, "device_groups") else self._iter_groups(data_loader)
+        for gi, (xs, ys, ws) in enumerate(groups):
+            for s in range(ys.shape[0]):  # a group of n batches runs as n single steps
+                losses.append(self.train_step({k: v[s] for k, v in xs.items()}, ys[s], ws[s]))
+            n_seen += int(ys.shape[0]) * int(ys.shape[1])
+            if log_interval and (gi + 1) % log_interval == 0:
+                print(f"  train {n_seen} examples, loss {float(torch.stack(losses[-ys.shape[0]:]).mean()):.5f}, {n_seen / (time.perf_counter() - t0):,.0f} ex/s")
+        return float(to_numpy(torch.stack(losses)).mean()) if losses else 0.0
+
+    def fit(self, train_dataloader, val_dataloader=None, log_interval: int = 10):
+        for logger in iter_loggers(self.loggers):
+            logger.log_hyperparams({"n_epoch": self.n_epoch, "learning_rate": self.lr0, "loss_mode": self.loss_mode})
+        for epoch_i in range(self.n_epoch):
+            lr = self.epoch_lr(epoch_i)
+            t0 = time.perf_counter()
+            train_loss = self.train_one_epoch(train_dataloader, log_interval, lr=lr)
+            print(f"epoch: {epoch_i} train loss: {train_loss:.5f} ({time.perf_counter() - t0:.2f}s, lr={lr:g})")
+            for logger in iter_loggers(self.loggers):
+                logger.log_metrics({"train/loss": train_loss, "learning_rate": lr}, step=epoch_i)
+            if val_dataloader:
+                auc = self.evaluate(self.model, val_dataloader)
+                print(f"epoch: {epoch_i} validation auc: {auc:.5f}")
+                for logger in iter_loggers(self.loggers):
+                    logger.log_metrics({"val/auc": auc}, step=epoch_i)
+                # the state_dict holds the BatchNorm running statistics too
+                weights = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+                if self.early_stopper.stop_training(auc, weights):
+                    print(f"validation: best auc: {self.early_stopper.best_auc}")
+                    break
+        if val_dataloader and self.early_stopper.best_weights is not None:
+            self.model.load_state_dict(self.early_stopper.best_weights)
+        self.save()
+        for logger in iter_loggers(self.loggers):
+            logger.finish()
+
+    # -- evaluation ----------------------------------------------------------
+    @torch.inference_mode()
+    def _probabilities(self, x) -> torch.Tensor:
+        out = self.model(x)
+        if not self.loss_mode:
+            out = out[0]
+        return torch.sigmoid(out.to(torch.float32))
+
+    def evaluate(self, model, data_loader, bucketed: bool = False, n_bins: int = 65536) -> float:
+        """Validation AUC of the trainer's model (``model`` is taken for the JAX package's API).
+
+        ``bucketed=False``: the exact tie-aware AUC on the host.
+        ``bucketed=True``: per-batch (pos, neg) score histograms add up on
+        the device and one scalar reaches the host; within 1e-4 of exact at
+        the default bins.
+        """
+        if not bucketed:
+            targets, predicts = self.predict(model, data_loader, return_targets=True)
+            return auc_score(targets, predicts)
+        self.model.eval()
+        pos = neg = torch.zeros(n_bins, dtype=torch.float32, device=self.device)
+        for x, y in data_loader:
+            x, y, w = pad_batch(x, y, data_loader.batch_size)
+            x, y, w = self._to_device(x, np.asarray(y, np.float32), w)
+            p, n = auc_histogram(y, self._probabilities(x), n_bins=n_bins, weight=w)
+            pos, neg = pos + p, neg + n
+        return float(auc_from_histogram(pos, neg))
+
+    def predict(self, model, data_loader, return_targets: bool = False):
+        """fp32 probabilities of every row of ``data_loader`` (one host read at the end)."""
+        self.model.eval()
+        preds, targets = [], []
+        for batch in data_loader:
+            x, y = batch if isinstance(batch, tuple) else (batch, None)
+            n = len(next(iter(x.values())))
+            x, _, _ = pad_batch(x, None, data_loader.batch_size)
+            (x,) = self._to_device(x)
+            preds.append(self._probabilities(x).reshape(-1)[:n])
+            if y is not None:
+                targets.append(np.asarray(y).reshape(-1)[:n])
+        preds = to_numpy(torch.cat(preds)) if preds else np.zeros(0)
+        if return_targets:
+            return np.concatenate(targets), preds
+        return preds

@@ -7,9 +7,16 @@ into the port's counterpart module.  The mapping:
 - ``Dense.kernel (in, out)`` -> ``Linear.weight (out, in)``; ``Dense.bias`` as is
 - ``LayerNorm.scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``
 - ``layer_{i}`` -> ``layers.{i}`` (``HSTUBlock``'s ``nn.ModuleList``)
+- ``BatchNorm.scale`` / ``bias`` -> ``BatchNorm.weight`` / ``bias``, and its
+  ``batch_stats`` ``mean`` / ``var`` -> the buffers ``mean`` / ``var``
 - every other leaf (``rab/pos_w``, ``rab/ts_w``, ``token_embedding``,
   ``position_embedding``, ``time_embedding``, ``output_bias``,
-  ``output_projection``, ``output_projection_bias``) is copied as is.
+  ``output_projection``, ``output_projection_bias``, the embedding tables
+  ``{feature}_table`` and ``fused_d{dim}_table``, ``Dice``'s ``alpha``,
+  ``PReLU``'s ``slope``) is copied as is.
+
+The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
+``MLP_0/Dense_0``, ``MLP_0/BatchNorm_0``, ...), so no other renaming is needed.
 
 ``proj1``'s output columns keep the reference's q | k | u | v order, which
 ``HSTULayer`` splits the same way.
@@ -23,7 +30,7 @@ in the JAX package continues in the port.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -49,9 +56,12 @@ def flax_to_state_dict(params: Mapping[str, Any], prefix: str = "") -> Dict[str,
     return out
 
 
-def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
-    """Copy a flax ``params`` tree into ``module`` (every parameter, strictly)."""
-    module.load_state_dict(flax_to_state_dict(params), strict=True)
+def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None) -> torch.nn.Module:
+    """Copy a flax ``params`` tree, and its ``batch_stats`` where the module
+    has BatchNorm buffers, into ``module`` (every entry, strictly)."""
+    state = flax_to_state_dict(params)
+    state.update(flax_to_state_dict(batch_stats or {}))
+    module.load_state_dict(state, strict=True)
     return module
 
 
