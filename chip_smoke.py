@@ -43,7 +43,21 @@
    after Adam, BatchNorm statistics); ``fit`` on learnable data to a test AUC
    above 0.65.  No kernel of the port lies on this path: the phases check
    that none was launched.
-8. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+8. Sparse row-wise embedding updates.  (a) DeepFM at the Criteo-full
+   geometry (``bench.py:122-152``: the ``"auto"`` layout's ``(8,100,032, 16)``
+   fused table, zipf(1.2) ids) with ``sparse_embedding="adagrad"`` on
+   ``DeviceCachedLoader``: the first step moves the batch's rows and no
+   other, the fused table takes no gradient and no Adam state; examples/s,
+   a step's stages (forward, backward, Adam over the rest, the sparse
+   update), host synchronisations and memory; the update alone under
+   ``torch.cuda.set_sync_debug_mode("error")``; one dense-Adam step at the
+   same geometry beside it; the small config fused, one step of ``"sgd"``
+   and ``"adagrad"`` card against CPU, sparse SGD against dense SGD, ``fit``
+   above a test AUC of 0.65.  (b) The serving HSTU untied, with the sampled
+   softmax and ``"adagrad"``: tokens/s, a step's device time, K1 and K2
+   once per layer per step; the PAD row stays 0; the recorded rows'
+   gradients against the dense table gradients through K1 and K2.
+9. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -59,6 +73,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -70,8 +85,11 @@ from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
 from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
+from torch_rechub_tpu_torch.ops.embedding import set_fused_default  # noqa: E402
+from torch_rechub_tpu_torch.ops.sparse_update import pair_sparse_grads, record_rows, rowwise_adagrad_update, sparse_sgd_update  # noqa: E402
 from torch_rechub_tpu_torch.trainers import CTRTrainer, SeqTrainer  # noqa: E402
-from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader  # noqa: E402
+from torch_rechub_tpu_torch.trainers.sparse import apply_sparse_table_updates  # noqa: E402
+from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, pad_batch  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
 
 # the module of the op K3: the package binds the name hstu_attention to the op itself
@@ -132,6 +150,16 @@ CTR_BUCKET_ATOL = 1e-4
 # the Dense biases in front of a BatchNorm: the loss gives them an exact gradient of 0, rounding noise below
 # this share of the model's largest gradient
 CTR_BN_INVARIANT, CTR_NOISE_REL = ("MLP_0.Dense_0.bias", "MLP_0.Dense_1.bias"), 1e-6
+# the sparse step, card against CPU: the table's step (step_ratio), which under SGD is -lr times the
+# table's gradient and is held to the gradient's tolerances, under row-wise Adagrad to twice its relative
+# error; an accumulator is a mean of squared row gradients, so its relative error is twice a gradient's
+# too, with an absolute floor relative to the largest accumulator
+CTR_STEP_RTOL = {"sgd": CTR_GRAD_RTOL, "adagrad": 2 * CTR_GRAD_RTOL}
+# and the table's values at the JAX package's sparse tolerances (tests/test_sparse_embedding.py)
+CTR_TABLE_RTOL, CTR_TABLE_ATOL = 1e-5, 1e-6
+CTR_ACCUM_RTOL, CTR_ACCUM_ATOL_REL = 2 * CTR_GRAD_RTOL, 1e-6
+CTR_SPARSE_FUSED_SMALL = (260_032, 16)  # the small config's 26 x 10,000 rows fused, padded to a multiple of 64 with a spare row
+HSTU_SAMPLED = {"num_negatives": 1024}
 CARD = torch.device("cuda")
 COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv"}
 
@@ -825,6 +853,25 @@ def ratio_of(got, ref, rtol, atol):
     return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
+def step_ratio(after, before, d_ref, rtol, atol_rel, adds=1):
+    """Worst ``|d - d_ref| / tol`` of a table's step ``d = after - before`` against a reference step, and the largest reference step.
+
+    The step is held, not the table: one SGD step moves a row by lr times a gradient of a batch
+    mean, which can lie below any fixed atol on the table, so an unmoved table would pass that.
+    ``tol = rtol |d_ref| + atol_rel max|d_ref| + adds eps (|after| + |before + d_ref|)``, the last
+    term the fp32 rounding of the two stored tables: each add into a row rounds once, and ``adds``
+    is the most adds one row takes in the step (SGD adds once per occurrence of an id).  Raises
+    unless the largest reference step is ten times the largest rounding term, so that a step left
+    undone, or taken with another sign or learning rate, cannot pass.
+    """
+    after, before, d_ref = (t.detach().cpu().double() for t in (after, before, d_ref))
+    rounding = adds * torch.finfo(torch.float32).eps * (after.abs() + (before + d_ref).abs())
+    scale = float(d_ref.abs().max())
+    if not scale > 10 * float(rounding.max()):
+        raise AssertionError(f"the reference step (largest {scale:.3e}) is lost in the tables' fp32 rounding ({float(rounding.max()):.3e})")
+    return float(((after - before - d_ref).abs() / (rtol * d_ref.abs() + atol_rel * scale + rounding)).max()), scale
+
+
 def ctr_kernel_class(name):
     """``kernel_class`` with the gathers, the embedding backward (a sort, then segment sums) and the reductions apart."""
     lowered = name.lower()
@@ -983,8 +1030,8 @@ def ctr_training_phase():
             raise AssertionError(f"{moved.count(False)} parameters did not move ({name})")
         trainers[name] = trainer
 
-    # where a step's time goes: device time per call of each stage from torch.profiler's kernel events (the embedding
-    # backward synchronises with the host, so a call cannot be enqueued behind a spin wait as `timed` does)
+    # where a step's time goes: device time per call of each stage as the sum of torch.profiler's kernel events, host
+    # clock by wall_ms
     trainer = trainers["DeviceCachedLoader"]
     xs, ys, ws = next(loaders["DeviceCachedLoader"].device_groups())
     dx, dy, dw = {k: v[0] for k, v in xs.items()}, ys[0], ws[0]
@@ -1018,9 +1065,379 @@ def ctr_training_phase():
     print(f"  by difference (device ms): gathers {t['embed']:.4f}, LR + FM {t['lr_fm'] - t['embed']:.4f}, MLP {t['forward'] - t['lr_fm']:.4f}, "
           f"loss {t['loss'] - t['forward']:.4f}, backward {t['backward'] - t['loss']:.4f}, Adam and zero_grad {t['step'] - t['backward']:.4f}")
     kernel_breakdown(f"DeepFM B{b}", lambda: trainer.train_step(dx, dy, dw), steps=5, classify=ctr_kernel_class, top=8)
+    print(f"  dense step: {sync_text(count_syncs(lambda: trainer.train_step(dx, dy, dw)))}")
 
     ctr_step_against_cpu(b)
     ctr_fit_check(b)
+
+
+# ---------------------------------------------------------------------------
+# 7. sparse row-wise embedding updates: DeepFM at the Criteo-full geometry, HSTU through K1 and K2
+# ---------------------------------------------------------------------------
+
+# CUDA runtime calls that block the host until the device is done
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+
+
+def count_syncs(fn, steps=3):
+    """Host synchronisations per call of ``fn``, counted two ways.
+
+    ``calls``: the CUDA runtime calls that wait for the device (``SYNC_CALLS``) among torch.profiler's CPU
+    events, per call, less those of profiling a call that does nothing (the ``torch.cuda.synchronize`` that
+    ends the profiled calls, the profiler's own).  ``warned``: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")`` in one call, a prototype that does not see every
+    synchronising operation, with the lines that raised them.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    def runtime_syncs(f):
+        f()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                f()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages() if e.key in SYNC_CALLS}
+
+    base, counted = runtime_syncs(lambda: None), runtime_syncs(fn)
+    calls = {k: (counted.get(k, 0) - base.get(k, 0)) / steps for k in SYNC_CALLS}
+    calls = {k: v for k, v in calls.items() if v}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    where = sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in warned})
+    return sum(calls.values()), calls, len(warned), where
+
+
+def sync_text(counted):
+    total, calls, warned, where = counted
+    detail = ", ".join(f"{k} {v:g}" for k, v in calls.items()) or "none"
+    return f"{total:g} host synchronisations per step by torch.profiler's runtime calls ({detail}, beyond profiling a call that does nothing); set_sync_debug_mode(\"warn\") saw {warned}" + (f" ({', '.join(where)})" if where else "")
+
+
+def optimizer_tensors(optimizer):
+    """``(the parameters an optimizer steps, the parameters it holds state for, its state tensors)``."""
+    parts = getattr(optimizer, "optimizers", [optimizer])
+    params = [p for opt in parts for g in opt.param_groups for p in g["params"]]
+    keyed = [p for opt in parts for p in opt.state]
+    states = [v for opt in parts for s in opt.state.values() for v in s.values() if isinstance(v, torch.Tensor)]
+    return params, keyed, states
+
+
+def check_sparse_tables_left_out(trainer):
+    """The sparse tables took no gradient, and the dense optimizer neither steps one nor holds state for one."""
+    params, keyed, _ = optimizer_tensors(trainer.optimizer)
+    for name, table in trainer.sparse_tables.items():
+        if table.grad is not None:
+            raise AssertionError(f"{name} took a dense gradient in a sparse step")
+        if any(p is table for p in params + keyed):
+            raise AssertionError(f"the dense optimizer steps {name} or holds state for it")
+
+
+def ctr_sparse_step_against_cpu(b):
+    """bench.py's small config with every table fused (one (260,032, 16) table): one sparse step of "sgd" and of
+    "adagrad", card against CPU from the same weights and batch (the loss, the dense parameters after Adam, the
+    table, the accumulators); sparse SGD's table against table - lr * (the dense table gradient) of a separate
+    dense backward on the card.  index_add_'s float atomics sum in another order on the card."""
+    small = [CTR["vocab"]] * CTR["n_sparse"]
+    x, y = ctr_data(b - 1000, small, seed=8)
+    xp, yp, wp = pad_batch(x, y, b)
+    # each feature owns its rows of the fused table: an SGD step adds into a row once per occurrence of its id
+    adds = {"sgd": max(int(np.bincount(xp[f"C{i}"]).max()) for i in range(CTR["n_sparse"])), "adagrad": 1}
+    lr, wd = CTR_OPT["lr"], CTR_OPT["weight_decay"]
+    for method in ("sgd", "adagrad"):
+        card = ctr_model(small, seed=7, device=CARD)
+        cpu = ctr_model(small, seed=7, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+        trainers = [CTRTrainer(m, optimizer_params=CTR_OPT, sparse_embedding=method, device=d) for m, d in ((card, CARD), (cpu, "cpu"))]
+        (name,) = trainers[0].sparse_tables
+        if tuple(p0[name].shape) != CTR_SPARSE_FUSED_SMALL:
+            raise AssertionError(f"the fused small config gave {name} {tuple(p0[name].shape)}, expected {CTR_SPARSE_FUSED_SMALL}")
+        losses = [tr.train_one_epoch(ArrayLoader(x, y, batch_size=b), log_interval=0) for tr in trainers]
+        if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
+            raise AssertionError(f"one {method} sparse step's loss: card {losses[0]}, CPU {losses[1]}")
+
+        def adam(g, p):
+            g = g.double() + wd * p.double()
+            return g / (g.abs() + 1e-8)
+
+        worst = {"param": 0.0, "table": 0.0, "step": 0.0, "accum": 0.0}
+        for (pname, a), p in zip(card.named_parameters(), cpu.parameters(), strict=True):
+            if pname == name:
+                continue
+            carried = lr * (adam(a.grad.cpu(), p0[pname]) - adam(p.grad, p0[pname])).abs()
+            excess = (a.detach().cpu().double() - p.detach().double()).abs() - carried
+            worst["param"] = max(worst["param"], float((excess / (CTR_ADAM_UPDATE_TOL * lr + CTR_ADAM_RTOL * p.detach().double().abs())).max()))
+        table_card, table_cpu = trainers[0].sparse_tables[name], trainers[1].sparse_tables[name]
+        worst["table"] = ratio_of(table_card, table_cpu, CTR_TABLE_RTOL, CTR_TABLE_ATOL)
+        worst["step"], moved = step_ratio(table_card, p0[name], table_cpu.detach().double() - p0[name].double(), CTR_STEP_RTOL[method], CTR_GRAD_ATOL_REL, adds[method])
+        acc_card, acc_cpu = trainers[0].sparse_accums[name], trainers[1].sparse_accums[name]
+        worst["accum"] = ratio_of(acc_card, acc_cpu, CTR_ACCUM_RTOL, CTR_ACCUM_ATOL_REL * float(acc_cpu.max()) + 1e-30)
+        check_sparse_tables_left_out(trainers[0])
+        print(f"  {method}: one sparse step, card vs CPU from the same weights, {b - 1000} rows padded to {b}: loss {losses[0]:.7f} vs {losses[1]:.7f}; worst max |d|/tol: "
+              f"dense parameters after Adam {worst['param']:.3f} (beyond the update rule's share), the table {worst['table']:.3f} (max abs err "
+              f"{float((table_card.detach().cpu() - table_cpu.detach()).abs().max()):.3e}; rtol {CTR_TABLE_RTOL}, atol {CTR_TABLE_ATOL}), the table's step {worst['step']:.3f} "
+              f"(largest step {moved:.3e}; rtol {CTR_STEP_RTOL[method]}, atol {CTR_GRAD_ATOL_REL} x the largest step, plus {adds[method]} fp32 roundings of each table), accumulators {worst['accum']:.3f} (rtol {CTR_ACCUM_RTOL}, atol {CTR_ACCUM_ATOL_REL} x the largest)")
+        if max(worst.values()) > 1.0:
+            raise AssertionError(f"one {method} sparse step on the card disagrees with the CPU: {worst}")
+        if method == "sgd":  # sparse SGD is dense SGD: the same weights through a dense backward on the card
+            dense = ctr_model(small, seed=7, device=CARD)
+            dense_trainer = CTRTrainer(dense, optimizer_params=CTR_OPT)
+            dense.train()
+            dx, dy, dw = dense_trainer._to_device(xp, yp.astype(np.float32), wp)
+            dense_trainer.loss_fn(dx, dy, dw).backward()
+            dense_table = dict(dense.named_parameters())[name]
+            r_table = ratio_of(table_card, dense_table.detach() - lr * dense_table.grad, CTR_TABLE_RTOL, CTR_TABLE_ATOL)
+            r, moved = step_ratio(table_card, p0[name], -lr * dense_table.grad.double(), CTR_STEP_RTOL["sgd"], CTR_GRAD_ATOL_REL, adds["sgd"])
+            print(f"  sgd: the sparse step's table against table - lr * (the dense table gradient), on the card: max |d|/tol {r_table:.3f} (rtol {CTR_TABLE_RTOL}, "
+                  f"atol {CTR_TABLE_ATOL}); its step against -lr * (the dense table gradient) {r:.3f} (largest step {moved:.3e}; "
+                  f"rtol {CTR_STEP_RTOL['sgd']}, atol {CTR_GRAD_ATOL_REL} x the largest step, plus {adds['sgd']} fp32 roundings of the table)")
+            if max(r_table, r) > 1.0:
+                raise AssertionError("sparse SGD's table is not dense SGD's")
+            del dense, dense_trainer
+
+
+def ctr_sparse_fit_check(b):
+    """fit with sparse_embedding="adagrad" on learnable data (the label from C0's parity and I0), every table fused."""
+    small = [CTR["vocab"]] * CTR["n_sparse"]
+    x, _ = ctr_data(CTR_FIT_BATCHES * b, small, seed=9)
+    y = ((x["C0"] % 2) + x["I0"] > 0.5).astype(np.float32)
+    train, val, test = DataGenerator(x, y, seed=0).generate_dataloader(split_ratio=[0.7, 0.15], batch_size=b)
+    trainer = CTRTrainer(ctr_model(small, seed=9, device=CARD), optimizer_params=CTR_OPT, n_epoch=3, model_path=CTR_MODEL_PATH, sparse_embedding="adagrad")
+    t0 = time.perf_counter()
+    trainer.fit(train, val, log_interval=0)
+    auc = trainer.evaluate(trainer.model, test)
+    print(f"  sparse adagrad fit, 3 epochs of {train.n} rows: test AUC {auc:.5f} ({time.perf_counter() - t0:.2f} s with validation)")
+    if not auc > 0.65:
+        raise AssertionError(f"sparse fit reached a test AUC of {auc}, not above 0.65")
+
+
+def ctr_sparse_phase(cycles_per_ms):
+    """DeepFM at the Criteo-full geometry (bench.py:122-152: VOCABS_FULL, zipf(1.2) ids, "auto", batch 4096) with
+    sparse_embedding="adagrad" on DeviceCachedLoader: the first step's rows, examples/s, a step's stages, host
+    synchronisations, memory; one dense-Adam step at the same geometry; then the small config fused, card against
+    CPU, and fit."""
+    b = CTR["batch"]
+    n = CTR_TRAIN_BATCHES * b
+    x, y = ctr_data(n, VOCABS_FULL, seed=6, zipf=True)
+    loader = DeviceCachedLoader(x, y, batch_size=b, group_size=CTR_TRAIN_BATCHES)
+    model = ctr_model(VOCABS_FULL, seed=6, device=CARD)
+    trainer = CTRTrainer(model, optimizer_params=CTR_OPT, sparse_embedding="adagrad")
+    (name,) = trainer.sparse_tables
+    table, accum = trainer.sparse_tables[name], trainer.sparse_accums[name]
+    if tuple(table.shape) != (8_100_032, 16):
+        raise AssertionError(f"the sparse table is {name} {tuple(table.shape)}")
+    ec = model.EmbeddingCollection_0
+    xs, ys, ws = next(loader.device_groups())
+    dx, dy, dw = {k: v[0] for k, v in xs.items()}, ys[0], ws[0]
+
+    # the first step of a fresh trainer: the batch's rows moved, every other row and accumulator is as it was
+    ids = torch.cat([dx[owner].to(torch.int64) + off for owner, (_, off) in ec.layout.offsets.items()])
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=CARD)
+    touched[ids] = True
+    before = table.detach().clone()
+    trainer.train_step(dx, dy, dw)
+    check_sparse_tables_left_out(trainer)
+    moved = (table.detach() != before).any(dim=1)
+    n_touched, n_moved, stray = int(touched.sum()), int(moved[touched].sum()), int((moved & ~touched).sum())
+    stray_accum, zero_accum = int(((accum != 0) & ~touched).sum()), int((accum[touched] == 0).sum())
+    print(f"  first step: {ids.numel()} fused ids, {n_touched} distinct rows; {n_moved} of them moved, {stray} other rows changed, "
+          f"{stray_accum} other accumulators non-zero, {zero_accum} touched accumulators zero; {name}.grad is None")
+    if stray or stray_accum or n_moved != n_touched or zero_accum:
+        raise AssertionError("the sparse step changed rows outside the batch, or left a touched row unchanged")
+    del before, touched, moved
+
+    trainer.train_one_epoch(loader, log_interval=0)  # warm-up: the allocator, Adam's state over the rest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(CTR_EPOCHS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_one_epoch(loader, log_interval=0))
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(seconds))
+    print(f"  sparse adagrad, DeviceCachedLoader: {n / med:,.0f} examples/s, {med / CTR_TRAIN_BATCHES * 1e3:.3f} ms per step (host clock, median of {CTR_EPOCHS} epochs of "
+          f"{CTR_TRAIN_BATCHES} steps of {b}; epochs {min(seconds) * 1e3:.1f}-{max(seconds) * 1e3:.1f} ms); train loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    if not all(math.isfinite(v) and 0 < v < 2 for v in losses):
+        raise AssertionError(f"sparse training loss out of range: {losses}")
+    accum_mb = sum(a.numel() * a.element_size() for a in trainer.sparse_accums.values()) / 1e6
+    params, _, states = optimizer_tensors(trainer.optimizer)
+    state_mb = sum(s.numel() * s.element_size() for s in states) / 1e6
+    print(f"  memory: accumulators {accum_mb:.1f} MB, Adam state over the rest ({sum(p.numel() for p in params):,} parameters) {state_mb:.1f} MB, "
+          f"peak allocated {peak:.3f} GB over the timed epochs")
+
+    # a step's stages: device ms as the sum of torch.profiler's kernel events, as the dense DeepFM phase takes them,
+    # host clock by wall_ms
+    model.train()
+
+    def forward():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with record_rows(trainer.sparse_tables) as rec:
+            loss = trainer.loss_fn(dx, dy, dw)
+        return loss, rec
+
+    def backward():
+        loss, rec = forward()
+        loss.backward()
+        return rec
+
+    def adam():
+        rec = backward()
+        trainer.optimizer.step()
+        return rec
+
+    stages = {
+        "forward": ("the forward and loss, the recorder open (21 gathers, LR, FM, MLP, BCE)", forward),
+        "backward": ("+ backward (20 sorted per-feature embedding backwards; the fused rows' gradient)", backward),
+        "adam": ("+ Adam over the rest", adam),
+        "step": ("train_step (+ the row-wise Adagrad update of the fused table)", lambda: trainer.train_step(dx, dy, dw)),
+    }
+    walls = {key: wall_ms(fn) for key, (_, fn) in stages.items()}
+    t = {}
+    for key, (stage, fn) in stages.items():
+        t[key] = sum(ms for ms, _ in profile_kernels(fn, steps=5).values())
+        print(f"  stage {stage}: device {t[key]:.4f} ms (kernels, torch.profiler, 5 calls), host clock {walls[key]:.4f} ms (median of {REPS}), device idle {1 - t[key] / walls[key]:.0%}")
+    print(f"  by difference (device ms): forward {t['forward']:.4f}, backward {t['backward'] - t['forward']:.4f}, Adam over the rest {t['adam'] - t['backward']:.4f}, "
+          f"sparse update {t['step'] - t['adam']:.4f}")
+    print(f"  sparse step: {sync_text(count_syncs(lambda: trainer.train_step(dx, dy, dw)))}")
+    kernel_breakdown(f"DeepFM Criteo-full sparse B{b}", lambda: trainer.train_step(dx, dy, dw), steps=5, classify=ctr_kernel_class, top=8)
+
+    # the update alone, behind a spin wait (it reads nothing back to the host)
+    records = adam()
+    grads = [(n_, ids_.reshape(-1), rows.grad.reshape(-1, rows.shape[-1])) for n_, ids_, rows in records.records]
+    flat_ids = torch.cat([g[1].to(torch.int64) for g in grads])
+    flat_grads = torch.cat([g[2] for g in grads])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rowwise_adagrad_update(table, accum, flat_ids, flat_grads, trainer.lr)
+        sparse_sgd_update(table, flat_ids, flat_grads, 0.0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"  rowwise_adagrad_update and sparse_sgd_update of {flat_ids.numel()} ids ran under torch.cuda.set_sync_debug_mode(\"error\")")
+    device, wall = timed(lambda: apply_sparse_table_updates(trainer.sparse_tables, trainer.sparse_accums, records.records, "adagrad", trainer.lr), cycles_per_ms)
+    print(f"  the update alone (apply_sparse_table_updates: dedup by sort, row-wise Adagrad on {flat_ids.numel()} ids): device {device:.4f} ms, host clock {wall:.4f} ms, "
+          f"device idle {1 - device / wall:.0%} (medians of {REPS})")
+    del records, grads, flat_ids, flat_grads
+
+    # the same geometry and batch with dense Adam over every table
+    dense = CTRTrainer(model, optimizer_params=CTR_OPT)
+    dense.train_step(dx, dy, dw)  # warm-up: Adam's moments over the tables
+    wall = wall_ms(lambda: dense.train_step(dx, dy, dw))
+    device = sum(ms for ms, _ in profile_kernels(lambda: dense.train_step(dx, dy, dw), steps=5).values())
+    syncs_dense = sync_text(count_syncs(lambda: dense.train_step(dx, dy, dw)))
+    _, _, states = optimizer_tensors(dense.optimizer)
+    print(f"  dense Adam step, the same geometry and batch: device {device:.4f} ms (kernels, torch.profiler, 5 calls), host clock {wall:.4f} ms (median of {REPS}), "
+          f"device idle {1 - device / wall:.0%}; {syncs_dense}; Adam state {sum(s.numel() * s.element_size() for s in states) / 1e6:,.1f} MB")
+    del dense, trainer, model, loader
+
+    old = set_fused_default(True)
+    try:
+        ctr_sparse_step_against_cpu(b)
+        ctr_sparse_fit_check(b)
+    finally:
+        set_fused_default(old)
+
+
+def hstu_sparse_grads_against_dense(sparse, dense, batch):
+    """The hooks' recorded rows' gradients, scattered into zero (V, d) tables, against the dense gradients of the
+    same tables, from the same weights and equally seeded generators, both through K1 and K2."""
+    worst = (0.0, "")
+    for tr in (sparse, dense):
+        tr.model.train()
+        tr.model.zero_grad(set_to_none=True)  # also the tables another trainer of the same model stepped
+        tr.generator.manual_seed(11)
+    with record_rows(sparse.sparse_tables) as rec:
+        loss = sparse.loss_fn(*batch)
+    loss.backward()
+    dense_loss = dense.loss_fn(*batch)
+    dense_loss.backward()
+    loss, dense_loss = float(loss.detach()), float(dense_loss.detach())
+    if not math.isclose(loss, dense_loss, rel_tol=1e-6):
+        raise AssertionError(f"the recorded and the dense loss differ: {loss} vs {dense_loss}")
+    scattered = {name: torch.zeros_like(t) for name, t in sparse.sparse_tables.items()}
+    for name, ids, grads in pair_sparse_grads(rec.records):
+        scattered[name].index_add_(0, ids.to(torch.int64), grads)
+    for name, got in scattered.items():
+        table = sparse.sparse_tables[name]
+        if table.grad is not None:
+            raise AssertionError(f"{name} took a dense gradient inside the recorder")
+        ref = getattr(dense.model, name.rsplit(".", 1)[-1]).grad
+        diff = (got - ref).abs()
+        ratio = float((diff / (GRAD_ATOL_REL * float(ref.abs().max()) + 1e-12 + GRAD_RTOL * ref.abs())).max())
+        worst = max(worst, (ratio, name))
+        if not (torch.isfinite(got).all() and ratio <= 1.0):
+            raise AssertionError(f"the recorded row gradients of {name} disagree with its dense gradient: max abs err {float(diff.max()):.3e}, ratio {ratio:.3f}")
+    if scattered["token_embedding"][0].any():
+        raise AssertionError("PAD row 0 took a gradient")
+    return worst
+
+
+def hstu_sparse_phase():
+    """The full-width untied HSTU (PERF.md §4) with the sampled softmax (1024 negatives) and
+    sparse_embedding="adagrad" through SeqTrainer.train_one_epoch, on data with PAD prefixes: tokens/s, a step's
+    device time and host clock, its synchronisations, K1's and K2's launches per step; PAD row 0 stays 0 and the
+    output projection's fill row 0 unchanged; the recorded row gradients against the dense ones, chunked 8192 and
+    sampled, through K1 and K2."""
+    l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
+    cfg = {**SERVE, "tie_embeddings": False}
+    data = serving_data(BATCH * TRAIN_BATCHES, l, vocab, seed=7, pad=True)
+    loader = SeqLoader(*data, batch_size=BATCH)
+    first = SeqLoader(*(a[:BATCH] for a in data), batch_size=BATCH)
+    model = HSTUModel(**cfg, generator=torch.Generator().manual_seed(7), device="cuda")
+    trainer = SeqTrainer(model, loss_type="sampled_softmax", loss_params=HSTU_SAMPLED, sparse_embedding="adagrad")
+    if set(trainer.sparse_tables) != {"token_embedding", "output_projection"}:
+        raise AssertionError(f"the sparse tables are {sorted(trainer.sparse_tables)}")
+    out_row0 = model.output_projection[0].detach().clone()
+    trainer.train_one_epoch(first, log_interval=0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = trainer.train_one_epoch(loader, log_interval=0)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expected = {"hstu_rab_fwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd_dq": 0, "hstu_rab_bwd_dkv": 0}
+    print(f"  launches over {TRAIN_BATCHES} sparse steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != expected:
+        raise AssertionError(f"the sparse HSTU step did not run K1 and K2 once per layer: {counts}, expected {expected}")
+    tokens = BATCH * TRAIN_BATCHES * l
+    print(f"  sampled softmax ({HSTU_SAMPLED['num_negatives']} negatives), sparse adagrad: train loss {loss:.6f}, {tokens / seconds:,.0f} tokens/s, "
+          f"{seconds / TRAIN_BATCHES * 1e3:.3f} ms per step of {BATCH} x L{l} (host clock, {TRAIN_BATCHES} steps)")
+    if not math.isfinite(loss):
+        raise AssertionError(f"sparse HSTU training loss {loss}")
+    check_sparse_tables_left_out(trainer)
+    if model.token_embedding[0].any() or not torch.equal(model.output_projection[0], out_row0):
+        raise AssertionError("the fill row 0 of a sparse table changed")
+    print("  token_embedding's PAD row 0 is exactly 0 and output_projection's fill row 0 unchanged")
+
+    toks, _, tds, tgts = next(iter(first))
+    batch = tuple(torch.from_numpy(a).cuda() for a in (toks, tds, tgts))
+    wall = wall_ms(lambda: trainer.train_step(*batch))
+    device = sum(ms for ms, _ in profile_kernels(lambda: trainer.train_step(*batch), steps=5).values())
+    print(f"  a sparse step: device {device:.4f} ms (kernels, torch.profiler, 5 calls), host clock {wall:.4f} ms (median of {REPS}), device idle {1 - device / wall:.0%}; "
+          f"{sync_text(count_syncs(lambda: trainer.train_step(*batch)))}")
+    kernel_breakdown("HSTU sparse sampled", lambda: trainer.train_step(*batch), steps=5)
+
+    # the recorded rows' gradients against the dense ones, from the same weights
+    plain = HSTUModel(**cfg, device="cuda")
+    plain.load_state_dict(model.state_dict())
+    pairs = {
+        "chunked 8192": (SeqTrainer(model, vocab_chunk_size=8192, sparse_embedding="sgd"), SeqTrainer(plain, vocab_chunk_size=8192)),
+        "sampled softmax": (SeqTrainer(model, loss_type="sampled_softmax", loss_params=HSTU_SAMPLED, sparse_embedding="sgd"), SeqTrainer(plain, loss_type="sampled_softmax", loss_params=HSTU_SAMPLED)),
+    }
+    for label, (sparse, dense) in pairs.items():
+        ratio, worst_name = hstu_sparse_grads_against_dense(sparse, dense, batch)
+        print(f"  {label}: recorded row gradients ({', '.join(sparse.sparse_tables)}) scattered vs the dense table gradients, one batch through K1 and K2: "
+              f"worst max |d|/(atol+rtol|ref|) {ratio:.3f} ({worst_name}; rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x the tensor's max |ref|); PAD row 0's gradient 0")
+    return counts
 
 
 def main():
@@ -1070,10 +1487,21 @@ def main():
     ctr_serving_phase(cycles_per_ms)
     print("DeepFM training phase (bench.py's small config through CTRTrainer.train_one_epoch; a step against the CPU; fit):")
     ctr_training_phase()
+    print("DeepFM sparse training phase (the Criteo-full geometry with sparse_embedding=\"adagrad\"; the small config fused, card against CPU; fit):")
+    t0 = time.perf_counter()
+    ctr_sparse_phase(cycles_per_ms)
+    print(f"  DeepFM sparse training phase: {time.perf_counter() - t0:.1f} s")
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
     print("  the port's kernels launched by the DeepFM phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
         raise AssertionError(f"the DeepFM path launched an HSTU attention kernel: {ctr_launches}")
+
+    reset_counts()
+    print("HSTU sparse training phase (the full-width untied HSTU, sampled softmax, sparse_embedding=\"adagrad\", through K1 and K2):")
+    t0 = time.perf_counter()
+    for name, n in hstu_sparse_phase().items():
+        launches[name] += n
+    print(f"  HSTU sparse training phase: {time.perf_counter() - t0:.1f} s")
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45")}
@@ -1084,7 +1512,7 @@ def main():
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving path + training path; K3: the calls of its own phase
+        "launches": launches[name],  # serving, training and sparse training paths; K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

@@ -395,7 +395,12 @@ def test_loss_mode_false_adds_the_aux_loss(tmp_path):
 
 def test_unported_options_raise():
     model = deepfm()
-    for kw, item in (({"sparse_embedding": "adagrad"}, "item 8"), ({"precision": "bf16"}, "item 14"), ({"mesh": object()}, "item 14")):
+    for kw, item in (({"precision": "bf16"}, "item 14"), ({"mesh": object()}, "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             CTRTrainer(model, device="cpu", **kw)
+    # sparse_embedding is ported (tests/test_torch_sparse_train.py): an unknown method, or a model
+    # without a fused table under the default "auto" layout, raises a ValueError
+    for method, message in (("adam", "sparse_embedding must be"), ("adagrad", "set_fused_default")):
+        with pytest.raises(ValueError, match=message):
+            CTRTrainer(model, device="cpu", sparse_embedding=method)
     assert CTRTrainer(model, precision="f32", device="cpu").loss_mode

@@ -322,5 +322,9 @@ def test_fit_trains_a_learnable_sequence_task(tmp_path):
 
 
 def test_sparse_embedding_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sparse"):
+    """The sparse path is ported (tests/test_torch_sparse_train.py) for untied models only: a tied
+    model, whose token table takes a dense gradient through the logits, and an unknown method raise."""
+    with pytest.raises(ValueError, match="tie_embeddings"):
         SeqTrainer(HSTUModel(**MODEL_KW), sparse_embedding="adagrad", device="cpu")
+    with pytest.raises(ValueError, match="sparse_embedding must be"):
+        SeqTrainer(HSTUModel(**MODEL_KW, tie_embeddings=False), sparse_embedding="adam", device="cpu")

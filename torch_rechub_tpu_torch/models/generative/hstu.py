@@ -5,6 +5,12 @@ position + bucketed-time embeddings (PAD positions zeroed), an ``HSTUBlock``
 stack, a tied (or separate) output projection, optional L2-normalised
 scoring with a temperature, and the ``max_seq_len`` guard.  Dropout is active
 in ``train()`` mode and draws from the ``generator`` given to ``forward``.
+
+An untied model's token gather, and the gather of its output rows for the
+sampled softmax (``output_rows``), are hooks of the sparse row-wise
+updates: inside ``ops.sparse_update.record_rows`` they read the rows as a
+recorded leaf (``SeqTrainer(sparse_embedding=...)``).  A tied table also
+takes a dense gradient through the output projection, so it has no hook.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from torch import nn
 
 from ...basic.hstu import HSTUBlock, dropout
 from ...basic.initializers import xavier_uniform_
+from ...ops.sparse_update import gather_rows
 from ...utils.hstu_utils import bucketize_time
 
 
@@ -55,7 +62,7 @@ class HSTUModel(nn.Module):
         x = x.to(torch.int64)
         padding_mask = x != 0
 
-        token_emb = self.token_embedding[x]
+        token_emb = self.token_embedding[x] if self.tie_embeddings else gather_rows(self.token_embedding, x)
         if self.scale_input_embedding:
             token_emb = token_emb * (self.d_model**0.5)
         emb = token_emb + self.position_embedding[None, :l, :]
@@ -73,8 +80,7 @@ class HSTUModel(nn.Module):
         else:
             weight, bias = self.output_projection, self.output_projection_bias
         if self.score_norm == "l2":
-            out = out / torch.clamp_min(torch.linalg.vector_norm(out, dim=-1, keepdim=True), self.l2_norm_eps)
-            weight = weight / torch.clamp_min(torch.linalg.vector_norm(weight, dim=-1, keepdim=True), self.l2_norm_eps)
+            out, weight = self._l2(out), self._l2(weight)
 
         if return_hidden:
             # for the chunked large-vocab CE: score-normalised hidden states
@@ -87,3 +93,14 @@ class HSTUModel(nn.Module):
         if self.temperature != 1.0:
             logits = logits / self.temperature
         return logits
+
+    def _l2(self, t: torch.Tensor) -> torch.Tensor:
+        return t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), self.l2_norm_eps)
+
+    def output_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the output table (the token table when tied),
+        L2-normalised under ``score_norm="l2"``: the sampled softmax's
+        candidate rows.  An untied table's gather is a hook of the sparse
+        row-wise updates, as the token gather is."""
+        rows = self.token_embedding[ids] if self.tie_embeddings else gather_rows(self.output_projection, ids)
+        return self._l2(rows) if self.score_norm == "l2" else rows

@@ -21,6 +21,12 @@ fused table, the previous table's last row, or the spare row for the first
 table).  Ids of at least the table's rows are the caller's error.  The
 ``padding_idx`` row is masked by a multiply, so it reads as zero and takes
 no gradient.
+
+Inside a sparse step (``ops.sparse_update.record_rows``) the fused gather
+is the hook of the sparse row-wise updates: the rows come from the
+detached table as a leaf that takes their gradient, and the recorder keeps
+it with the unwrapped ids (``ids + offset``).  The padding mask applies
+after that leaf, so a padding id's rows take a zero gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..basic.features import DenseFeature, Feature, SequenceFeature, SparseFeature, table_name
+from .sparse_update import gather_rows
 
 # The process-wide default of EmbeddingCollection.fused.
 _FUSED_DEFAULT = ["auto"]
@@ -205,8 +212,9 @@ class EmbeddingCollection(nn.Module):
     def _fused_batched_embed(self, x: Mapping[str, torch.Tensor], features) -> Dict[int, torch.Tensor]:
         """One gather per fused table for all its features: ``{index in features: (B, [L,] D)}``.
 
-        The single ``(B, T, D)`` gather per dim group is where the sparse
-        row-wise updates (ROADMAP queue 1, item 8) will take the rows' gradient.
+        The single ``(B, T, D)`` gather per dim group is the sparse updates'
+        hook: under an open recorder that owns the table, it records the
+        gathered rows and their unwrapped ids (module docstring).
         """
         by_dim: Dict[int, list] = {}
         for idx, fea in enumerate(features):
@@ -217,7 +225,8 @@ class EmbeddingCollection(nn.Module):
             raw = [_ids(x, fea) for _, fea in items]
             raw = [ids[:, None] if ids.ndim == 1 else ids for ids in raw]  # scalar ids -> (B, 1)
             segs = [ids + self.layout.offsets[table_name(fea)][1] for ids, (_, fea) in zip(raw, items)]
-            emb = _gather(getattr(self, f"fused_d{dim}_table"), segs[0] if len(segs) == 1 else torch.cat(segs, dim=1))
+            table, all_ids = getattr(self, f"fused_d{dim}_table"), segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+            emb = gather_rows(table, all_ids, _gather)
             pos = 0
             for (idx, fea), ids in zip(items, raw):
                 e = emb[:, pos: pos + ids.shape[1]]

@@ -10,12 +10,14 @@ optimizer's parameter groups (:func:`step_lr`).
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..basic.loss import classify_param
+from ..ops.sparse_update import record_rows
+from .sparse import apply_sparse_table_updates, init_sparse_opt_state, validate_method
 
 
 def resolve_device(device=None) -> torch.device:
@@ -138,12 +140,24 @@ def step_lr(lr0: float, epoch: int, scheduler_params: Optional[Dict]) -> float:
 class TorchTrainer:
     """What the concrete trainers share: the device, the optimizer, a seeded
     ``torch.Generator`` on the device (dropout masks, sampled negatives),
-    the per-epoch learning rate and the ``state_dict`` checkpoint."""
+    the per-epoch learning rate, the training step over the subclass's
+    ``loss_fn`` and the ``state_dict`` checkpoint."""
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.optimizer, self.lr0 = make_optimizer(self.model.named_parameters(), optimizer_params)
+        # sparse_embedding: the tables the row-wise updates own, their
+        # accumulators and fill rows (trainers/sparse.py); the dense optimizer
+        # covers the other parameters
+        self.sparse_embedding = validate_method(sparse_embedding)
+        self.sparse_tables: Dict[str, torch.Tensor] = {}
+        self.sparse_accums: Dict[str, torch.Tensor] = {}
+        self.spare_rows = dict(spare_rows or {})
+        dense = list(self.model.named_parameters())
+        if self.sparse_embedding:
+            self.sparse_tables, self.sparse_accums, dense = init_sparse_opt_state(self.model, sparse_names)
+        self.optimizer, self.lr0 = make_optimizer(dense, optimizer_params)
+        self.lr = self.lr0  # the learning rate of the epoch (set_lr); the sparse table updates read it
         self.scheduler_params = scheduler_params
         self.n_epoch = n_epoch
         self.earlystop_patience = earlystop_patience
@@ -156,8 +170,25 @@ class TorchTrainer:
         return step_lr(self.lr0, epoch, self.scheduler_params)
 
     def set_lr(self, lr: float) -> None:
+        self.lr = lr
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+
+    def train_step(self, *batch) -> torch.Tensor:
+        """One optimizer step on one batch (the arguments of ``loss_fn``); returns the loss on the device (no host sync).
+
+        The sparse tables' gather hooks record inside the loss; after the
+        dense optimizer, their rows update (``trainers/sparse.py``).  With
+        no sparse tables nothing records and nothing more is done.
+        """
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        with record_rows(self.sparse_tables) as rec:
+            loss = self.loss_fn(*batch)
+        loss.backward()
+        self.optimizer.step()
+        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows)
+        return loss.detach()
 
     def save(self, name: str = "model.pt") -> str:
         os.makedirs(self.model_path or ".", exist_ok=True)

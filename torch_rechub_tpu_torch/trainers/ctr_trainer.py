@@ -11,6 +11,10 @@ package's scan equals.  ``fit`` runs epochs with StepLR and early stopping
 on the validation AUC; ``predict`` returns fp32 probabilities of the real
 rows; ``evaluate`` the exact AUC, or the bucketed one from histograms that
 add up on the device.
+
+``sparse_embedding="sgd" | "adagrad"`` updates the fused tables row by row
+(``trainers/sparse.py``): Adam (and the regularization) cover the other
+parameters only, the per-feature tables included.
 """
 
 from __future__ import annotations
@@ -34,19 +38,16 @@ class CTRTrainer(TorchTrainer):
     ``device``: the CUDA card unless the caller passes another
     (``device="cpu"``); with no card and no device it raises.
 
-    ``mesh``, ``precision="bf16"`` and ``sparse_embedding`` are not ported
-    yet and raise; ``batch_size_hint`` is accepted and unused, as in the JAX
-    package.
+    ``mesh`` and ``precision="bf16"`` are not ported yet and raise;
+    ``batch_size_hint`` is accepted and unused, as in the JAX package.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if sparse_embedding is not None:
-            raise NotImplementedError("CTRTrainer(sparse_embedding=...) is not ported yet: the sparse row-wise updates come with ROADMAP queue 1, item 8")
         if precision is not None and str(precision).lower() not in ("f32", "float32"):
             raise NotImplementedError(f"CTRTrainer(precision={precision!r}) is not ported yet: bf16 compute comes with ROADMAP queue 1, item 14")
         if mesh is not None:
             raise NotImplementedError("CTRTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding)
         self.loss_mode = loss_mode
         self.reg_loss_fn = RegularizationLoss(**(regularization_params or {}))
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -64,18 +65,9 @@ class CTRTrainer(TorchTrainer):
         if not self.loss_mode:
             out, aux = out
         loss = bce_with_logits(out, y, w) + aux
-        if self.reg_loss_fn:
-            loss = loss + self.reg_loss_fn(self.model.named_parameters())
+        if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
+            loss = loss + self.reg_loss_fn((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables)
         return loss
-
-    def train_step(self, x, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on one padded batch; returns the loss on the device (no host sync)."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(x, y, w)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
 
     def _iter_groups(self, data_loader):
         """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` on the device."""

@@ -13,8 +13,13 @@ last-position logits.
 A step is eager PyTorch: forward, loss, ``backward`` (through the CUDA
 backward kernels of the attention on the card), ``optimizer.step``.
 ``steps_per_call`` is accepted for the JAX package's API; its groups run
-as that many single steps, which the JAX package's scan equals.  The sparse
-row-wise embedding updates (``sparse_embedding``) are not ported yet.
+as that many single steps, which the JAX package's scan equals.
+
+``sparse_embedding="sgd" | "adagrad"`` (an untied model only) updates the
+input token table row by row (``trainers/sparse.py``); under the sampled
+softmax the output projection too, from the gathered candidate rows.  The
+PAD row 0 is the Adagrad fill row of both: its embedding is masked out of
+the forward, so it takes no update.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ import torch
 
 from ..basic.callback import EarlyStopper
 from ..basic.tracking import iter_loggers
-from ..ops.chunked_ce import chunked_last_logits, chunked_next_token_loss, sampled_next_token_loss, shifted_labels
+from ..ops import chunked_ce
+from ..ops.chunked_ce import chunked_last_logits, chunked_next_token_loss, sampled_loss_from_rows, shifted_labels
 from .base import TorchTrainer, to_numpy
+from .sparse import validate_method
 
 
 def next_token_loss(logits: torch.Tensor, seq_tokens: torch.Tensor, targets: torch.Tensor, temperature: float = 1.0, ignore_index: int = 0) -> torch.Tensor:
@@ -49,9 +56,18 @@ class SeqTrainer(TorchTrainer):
     def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, device=None):
         if loss_type not in ("cross_entropy", "nce", "sampled_softmax"):
             raise ValueError(f"loss_type must be cross_entropy|nce|sampled_softmax, got {loss_type!r}")
-        if sparse_embedding is not None:
-            raise NotImplementedError("SeqTrainer(sparse_embedding=...) is not ported yet: the sparse row-wise updates come with ROADMAP queue 1, item 8")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device)
+        if validate_method(sparse_embedding) and getattr(model, "tie_embeddings", False):
+            raise ValueError(
+                "SeqTrainer(sparse_embedding=...) requires an untied output projection "
+                "(tie_embeddings=False): with tied embeddings the token table gets a dense "
+                "gradient through the CE logits matmul, so sparse row-wise updates would "
+                "silently drop it. Untie the model (or use the dense path for tied models)."
+            )
+        # the named tables the sparse path owns: the input token table; under
+        # the sampled softmax the output projection too (only its candidate
+        # rows are read there, where the full CE reads every row)
+        sparse_names = ("token_embedding", "output_projection") if loss_type == "sampled_softmax" else ("token_embedding",)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, sparse_names, spare_rows={"token_embedding": 0, "output_projection": 0})
         self.loss_type = loss_type
         if loss_type == "nce":
             self.loss_params = loss_params or {"temperature": 0.1, "ignore_index": 0}
@@ -87,21 +103,15 @@ class SeqTrainer(TorchTrainer):
         if self.loss_type == "sampled_softmax":
             out = model(seq_tokens, time_diffs, return_hidden=True, generator=gen)
             p = self.loss_params
-            return sampled_next_token_loss(out["hidden"], out["weight"], seq_tokens, targets, gen, out["bias"], self.sampled_t, ignore, int(p["num_negatives"]), bool(p.get("remove_accidental_hits", True)), bool(p.get("logq_correction", True)))
+            next_tokens, negs = chunked_ce.sampled_candidates(seq_tokens, targets, gen, model.vocab_size, int(p["num_negatives"]), ignore)
+            bias = out["bias"]
+            b_pos, b_neg = (None, None) if bias is None else (bias[next_tokens], bias[negs])
+            return sampled_loss_from_rows(out["hidden"], model.output_rows(next_tokens), model.output_rows(negs), b_pos, b_neg, next_tokens, negs, model.vocab_size, self.sampled_t, ignore, bool(p.get("remove_accidental_hits", True)), bool(p.get("logq_correction", True)))
         if self.vocab_chunk_size is not None:
             out = model(seq_tokens, time_diffs, return_hidden=True, generator=gen)
             return chunked_next_token_loss(out["hidden"], out["weight"], seq_tokens, targets, out["bias"], self.chunked_t, ignore, self.vocab_chunk_size)
         logits = model(seq_tokens, time_diffs, generator=gen)
         return next_token_loss(logits, seq_tokens, targets, self.temperature, ignore)
-
-    def train_step(self, seq_tokens: torch.Tensor, time_diffs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        """One Adam step on one batch; returns the loss on the device (no host sync)."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(seq_tokens, time_diffs, targets)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
 
     def _iter_groups(self, data_loader):
         """Yield stacked ``(n, B, ...)`` groups of full-size batches and plain

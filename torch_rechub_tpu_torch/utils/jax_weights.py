@@ -25,6 +25,13 @@ The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
 ``nu``, ``count``) into ``torch.optim.Adam``'s state (``exp_avg``,
 ``exp_avg_sq``, ``step``) by the same mapping, so a run that took N steps
 in the JAX package continues in the port.
+
+A sparse JAX trainer's ``opt_state`` is ``(optax state over the rest,
+{table path: (R,) accumulator})``, both keyed by flat path tuples
+(``flax.traverse_util.flatten_dict``).  Its Adam moments load into the
+port's optimizer over the rest by :func:`load_optax_adam_state`, which
+takes nested or flat trees, and its accumulators into the trainer's
+``sparse_accums`` by :func:`load_sparse_accumulators`.
 """
 
 from __future__ import annotations
@@ -38,8 +45,22 @@ import torch
 _LAYER = re.compile(r"^layer_(\d+)$")
 
 
+def nest(tree: Mapping) -> Mapping:
+    """A flat ``{path tuple: leaf}`` dict as the nested dict it flattens; any other tree as it is."""
+    if not tree or not all(isinstance(k, tuple) for k in tree):
+        return tree
+    out: Dict[str, Any] = {}
+    for path, leaf in tree.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def flax_to_state_dict(params: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flatten a flax params tree into the port's ``state_dict`` names."""
+    """Flatten a flax params tree (nested, or flat with path-tuple keys) into the port's ``state_dict`` names."""
+    params = nest(params)
     out: Dict[str, torch.Tensor] = {}
     for key, value in params.items():
         m = _LAYER.match(key)
@@ -66,13 +87,15 @@ def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any], batch_s
 
 
 def load_optax_adam_state(optimizer: torch.optim.Optimizer, module: torch.nn.Module, mu: Mapping[str, Any], nu: Mapping[str, Any], count) -> torch.optim.Optimizer:
-    """Set ``optimizer``'s Adam state for every parameter of ``module`` from
-    optax's first and second moments (flax-shaped trees of numpy arrays) and
-    its step count."""
+    """Set ``optimizer``'s Adam state for every parameter of ``module`` that
+    it steps (all of them, or the rest beside a sparse trainer's tables)
+    from optax's first and second moments (trees of numpy arrays, nested or
+    flat) and its step count."""
     mu_sd, nu_sd = flax_to_state_dict(mu), flax_to_state_dict(nu)
-    params = dict(module.named_parameters())
+    stepped = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    params = {name: p for name, p in module.named_parameters() if id(p) in stepped}
     if set(mu_sd) != set(params) or set(nu_sd) != set(params):
-        raise ValueError(f"Adam moments do not cover the module's parameters: {sorted(set(params) ^ set(mu_sd))}")
+        raise ValueError(f"Adam moments do not cover the optimizer's parameters: {sorted(set(params) ^ set(mu_sd))}")
     step = float(np.asarray(count))
     for name, p in params.items():
         optimizer.state[p] = {
@@ -81,3 +104,15 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, module: torch.nn.Mod
             "exp_avg_sq": nu_sd[name].to(device=p.device, dtype=p.dtype),
         }
     return optimizer
+
+
+def load_sparse_accumulators(accumulators: Dict[str, torch.Tensor], accums: Mapping[Any, Any]) -> Dict[str, torch.Tensor]:
+    """Copy a sparse JAX trainer's row-wise accumulators (``{table path tuple:
+    (R,)}``, the second half of its ``opt_state``) into the port trainer's
+    ``sparse_accums`` (``{parameter name: (R,)}``), every table, in place."""
+    src = flax_to_state_dict(accums)
+    if set(src) != set(accumulators):
+        raise ValueError(f"accumulators do not cover the sparse tables: {sorted(set(src) ^ set(accumulators))}")
+    for name, acc in accumulators.items():
+        acc.copy_(src[name].to(device=acc.device, dtype=acc.dtype))
+    return accumulators
