@@ -57,7 +57,22 @@
    softmax and ``"adagrad"``: tokens/s, a step's device time, K1 and K2
    once per layer per step; the PAD row stays 0; the recorded rows'
    gradients against the dense table gradients through K1 and K2.
-9. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+9. The ranking zoo through ``CTRTrainer``, at full width with random weights
+   from a seed, dropout 0: WideDeep, DCN, DCNv2 (parallel, low-rank mixture;
+   stacked, full matrices), EDCN, AFM, AutoInt, FiBiNet, DeepFFM and
+   FatDeepFFM at bench.py's small config under ``benchmarks/models.py``'s
+   defaults, and DIN, BST and DIEN at the Amazon-Electronics shape of
+   ``examples/ranking/run_amazon_electronics.py`` (192,403 users, 63,001
+   items, 801 categories, embed dim 8, histories of 1-50 post-padded to L50,
+   B4096).  Per configuration: ``train_one_epoch`` on ``DeviceCachedLoader``
+   (examples/s, ms per step, the loss finite, every parameter moved but
+   AFM's constant attention), a step's device time, host clock, idle share
+   and launches, ``predict``, and the card against the CPU from the same
+   weights at B1024 (logits, DIEN's aux loss, one step's loss, gradients and
+   every parameter's step); ``fit`` above a test AUC of 0.65 for DCNv2 and
+   DIN.  The DeepFM and zoo phases check that none of the port's kernels was
+   launched: no TPU kernel lies on these paths.
+10. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -65,11 +80,14 @@ Float32 throughout, TF32 off.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import gc
 import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,10 +95,12 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from torch_rechub_tpu_torch.basic.features import DenseFeature, SparseFeature  # noqa: E402
+from torch_rechub_tpu_torch.basic.features import DenseFeature, SequenceFeature, SparseFeature  # noqa: E402
+from torch_rechub_tpu_torch.models import ranking  # noqa: E402
 from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
 from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
@@ -160,6 +180,19 @@ CTR_TABLE_RTOL, CTR_TABLE_ATOL = 1e-5, 1e-6
 CTR_ACCUM_RTOL, CTR_ACCUM_ATOL_REL = 2 * CTR_GRAD_RTOL, 1e-6
 CTR_SPARSE_FUSED_SMALL = (260_032, 16)  # the small config's 26 x 10,000 rows fused, padded to a multiple of 64 with a spare row
 HSTU_SAMPLED = {"num_negatives": 1024}
+# the ranking zoo.  Criteo-shaped: bench.py's small config (26 sparse features of vocab 10,000 and dim 16,
+# 13 dense, B4096) under each model's defaults of benchmarks/models.py:13-35, dropout 0.  Sequence models:
+# Amazon-Electronics-shaped at the widths of examples/ranking/run_amazon_electronics.py:74-95 (embed dim 8,
+# the DIN paper's 192,403 users, 63,001 items and 801 categories), histories post-padded to L50
+ZOO_CRITEO = ("WideDeep", "DCN", "DCNv2", "DCNv2_stacked", "EDCN", "AFM", "AutoInt", "FiBiNet", "DeepFFM", "FatDeepFFM")
+ZOO_SEQ = ("DIN", "BST", "DIEN")
+ZOO_SEQ_SHAPE = dict(users=192_403, items=63_001, cates=801, dim=8, seq_len=50, all_pad_share=0.01)
+ZOO_STEPS, ZOO_EPOCHS = 8, 3  # steps per timed epoch on DeviceCachedLoader, timed epochs
+ZOO_CHECK_BATCH = 1024  # card against CPU
+# parameters that cannot move but by weight decay: AFM's softmax runs over an axis of size 1, so its attention
+# Dense and h take an exact zero gradient (models/ranking/afm.py)
+ZOO_UNMOVED = {"AFM": ("Dense_0.weight", "Dense_0.bias", "h")}
+ZOO_FIT_BATCHES = 32
 CARD = torch.device("cuda")
 COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv"}
 
@@ -853,7 +886,7 @@ def ratio_of(got, ref, rtol, atol):
     return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
-def step_ratio(after, before, d_ref, rtol, atol_rel, adds=1):
+def step_ratio(after, before, d_ref, rtol, atol_rel, adds=1, carried=0.0):
     """Worst ``|d - d_ref| / tol`` of a table's step ``d = after - before`` against a reference step, and the largest reference step.
 
     The step is held, not the table: one SGD step moves a row by lr times a gradient of a batch
@@ -862,14 +895,16 @@ def step_ratio(after, before, d_ref, rtol, atol_rel, adds=1):
     term the fp32 rounding of the two stored tables: each add into a row rounds once, and ``adds``
     is the most adds one row takes in the step (SGD adds once per occurrence of an id).  Raises
     unless the largest reference step is ten times the largest rounding term, so that a step left
-    undone, or taken with another sign or learning rate, cannot pass.
+    undone, or taken with another sign or learning rate, cannot pass.  ``carried`` (a tensor or 0), what
+    an Adam step makes of the two sides' gradient difference, is taken off the difference first.
     """
     after, before, d_ref = (t.detach().cpu().double() for t in (after, before, d_ref))
     rounding = adds * torch.finfo(torch.float32).eps * (after.abs() + (before + d_ref).abs())
     scale = float(d_ref.abs().max())
     if not scale > 10 * float(rounding.max()):
         raise AssertionError(f"the reference step (largest {scale:.3e}) is lost in the tables' fp32 rounding ({float(rounding.max()):.3e})")
-    return float(((after - before - d_ref).abs() / (rtol * d_ref.abs() + atol_rel * scale + rounding)).max()), scale
+    excess = torch.clamp_min((after - before - d_ref).abs() - carried, 0.0)
+    return float((excess / (rtol * d_ref.abs() + atol_rel * scale + rounding)).max()), scale
 
 
 def ctr_kernel_class(name):
@@ -944,6 +979,12 @@ def ctr_serving_phase(cycles_per_ms):
           f"one predict batch of {b}: {first * 1e3:.3f} ms host clock (first call), then device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%}")
 
 
+def adam_update(g, p0):
+    """The first Adam step's update in float64 (weight decay in the gradient, m_hat = g, v_hat = g²)."""
+    g = g.double() + CTR_OPT["weight_decay"] * p0.double()
+    return g / (g.abs() + 1e-8)
+
+
 def ctr_step_against_cpu(b):
     """One CTRTrainer step of a partial batch (padded by cycling rows, weight 0) on the card and on the CPU from the
     same weights: the loss, every gradient, every parameter after Adam and the BatchNorm statistics.  Adam's first
@@ -955,14 +996,10 @@ def ctr_step_against_cpu(b):
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
     x, y = ctr_data(b - 1000, small, seed=4)
-    lr, wd = CTR_OPT["lr"], CTR_OPT["weight_decay"]
+    lr = CTR_OPT["lr"]
     losses = [CTRTrainer(m, optimizer_params=CTR_OPT, device=d).train_one_epoch(ArrayLoader(x, y, batch_size=b), log_interval=0) for m, d in ((card, CARD), (cpu, "cpu"))]
     if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
         raise AssertionError(f"one step's loss: card {losses[0]}, CPU {losses[1]}")
-
-    def adam(g, p):
-        g = g.double() + wd * p.double()
-        return g / (g.abs() + 1e-8)
 
     floor = CTR_NOISE_REL * max(float(p.grad.abs().max()) for p in cpu.parameters())
     worst = {"grad": 0.0, "param": 0.0, "stats": 0.0}
@@ -974,7 +1011,7 @@ def ctr_step_against_cpu(b):
         else:
             worst["grad"] = max(worst["grad"], ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * float(r.abs().max()) + 1e-12))
         # what is left of the difference once the update rule's share is taken off, over Adam's tolerance
-        carried = lr * (adam(g, p0[name]) - adam(r, p0[name])).abs()
+        carried = lr * (adam_update(g, p0[name]) - adam_update(r, p0[name])).abs()
         excess = (a.detach().cpu().double() - p.detach().double()).abs() - carried
         worst["param"] = max(worst["param"], float((excess / (CTR_ADAM_UPDATE_TOL * lr + CTR_ADAM_RTOL * p.detach().double().abs())).max()))
         if torch.equal(p.detach(), p0[name]) and r.any():
@@ -1149,7 +1186,7 @@ def ctr_sparse_step_against_cpu(b):
     xp, yp, wp = pad_batch(x, y, b)
     # each feature owns its rows of the fused table: an SGD step adds into a row once per occurrence of its id
     adds = {"sgd": max(int(np.bincount(xp[f"C{i}"]).max()) for i in range(CTR["n_sparse"])), "adagrad": 1}
-    lr, wd = CTR_OPT["lr"], CTR_OPT["weight_decay"]
+    lr = CTR_OPT["lr"]
     for method in ("sgd", "adagrad"):
         card = ctr_model(small, seed=7, device=CARD)
         cpu = ctr_model(small, seed=7, device="cpu")
@@ -1163,15 +1200,11 @@ def ctr_sparse_step_against_cpu(b):
         if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
             raise AssertionError(f"one {method} sparse step's loss: card {losses[0]}, CPU {losses[1]}")
 
-        def adam(g, p):
-            g = g.double() + wd * p.double()
-            return g / (g.abs() + 1e-8)
-
         worst = {"param": 0.0, "table": 0.0, "step": 0.0, "accum": 0.0}
         for (pname, a), p in zip(card.named_parameters(), cpu.parameters(), strict=True):
             if pname == name:
                 continue
-            carried = lr * (adam(a.grad.cpu(), p0[pname]) - adam(p.grad, p0[pname])).abs()
+            carried = lr * (adam_update(a.grad.cpu(), p0[pname]) - adam_update(p.grad, p0[pname])).abs()
             excess = (a.detach().cpu().double() - p.detach().double()).abs() - carried
             worst["param"] = max(worst["param"], float((excess / (CTR_ADAM_UPDATE_TOL * lr + CTR_ADAM_RTOL * p.detach().double().abs())).max()))
         table_card, table_cpu = trainers[0].sparse_tables[name], trainers[1].sparse_tables[name]
@@ -1440,6 +1473,279 @@ def hstu_sparse_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 9. the ranking zoo through CTRTrainer: Criteo-shaped and sequence models
+# ---------------------------------------------------------------------------
+
+def zoo_model(name, seed, device):
+    """One configuration of the zoo at full width, random weights from ``seed``."""
+    kw = {"generator": torch.Generator().manual_seed(seed), "device": device}
+    if name in ZOO_SEQ:
+        return zoo_seq_model(name, **kw)
+    vocab, dim = CTR["vocab"], CTR["dim"]
+    sparse, dense = ctr_features([vocab] * CTR["n_sparse"])
+    mlp = CTR_MLP
+    if name in ("DeepFFM", "FatDeepFFM"):
+        n = CTR["n_sparse"]
+        cross = tuple(SparseFeature(f"C{i}", vocab_size=vocab * n, embed_dim=dim) for i in range(n))  # field-aware ids x·F + offset
+        linear = tuple(SparseFeature(f"C{i}", vocab_size=vocab, embed_dim=1) for i in range(n))
+        if name == "DeepFFM":
+            return ranking.DeepFFM(linear, cross, dim, mlp, **kw)
+        return ranking.FatDeepFFM(linear, cross, dim, 2, mlp, **kw)
+    return {
+        "WideDeep": lambda: ranking.WideDeep(dense, sparse, mlp, **kw),
+        "DCN": lambda: ranking.DCN(sparse + dense, 3, mlp, **kw),
+        "DCNv2": lambda: ranking.DCNv2(sparse + dense, 3, mlp, model_structure="parallel", use_low_rank_mixture=True, low_rank=32, num_experts=4, **kw),
+        "DCNv2_stacked": lambda: ranking.DCNv2(sparse + dense, 3, mlp, model_structure="stacked", use_low_rank_mixture=False, **kw),
+        "EDCN": lambda: ranking.EDCN(sparse, 2, mlp, **kw),
+        "AFM": lambda: ranking.AFM(sparse, dim, t=64, **kw),
+        "AutoInt": lambda: ranking.AutoInt(sparse, dense, num_layers=3, num_heads=2, mlp_params=mlp, **kw),
+        "FiBiNet": lambda: ranking.FiBiNet(sparse, mlp, bilinear_type="field_interaction", **kw),
+    }[name]()
+
+
+def zoo_seq_model(name, **kw):
+    """DIN, BST or DIEN on the Amazon-Electronics shape, with the example's widths."""
+    s, d = ZOO_SEQ_SHAPE, ZOO_SEQ_SHAPE["dim"]
+    profile = (SparseFeature("user_id", s["users"], d),)
+    target = (SparseFeature("target_item_id", s["items"], d, padding_idx=0), SparseFeature("target_cate_id", s["cates"], d, padding_idx=0))
+    history = (SequenceFeature("hist_item_id", s["items"], d, pooling="concat", shared_with="target_item_id", padding_idx=0),
+               SequenceFeature("hist_cate_id", s["cates"], d, pooling="concat", shared_with="target_cate_id", padding_idx=0))
+    head = {"dims": (64, 32), "dropout": 0.0}
+    if name == "DIN":
+        return ranking.DIN(profile, history, target, head, {"dims": (36,), "activation": "dice"}, **kw)
+    if name == "BST":
+        return ranking.BST(profile, history, target, head, nhead=2, dropout=0.0, num_layers=1, max_seq_len=s["seq_len"] + 1, dim_feedforward=64, **kw)
+    neg = (SequenceFeature("neg_hist_item_id", s["items"], d, pooling="concat", shared_with="target_item_id", padding_idx=0),)
+    return ranking.DIEN(profile, history[:1], neg, target[:1], head, alpha=0.2, **kw)
+
+
+def zoo_data(name, n, seed):
+    """Criteo-shaped data as bench.py's (``ctr_data``), or histories of lengths 1-50 post-padded to L50 with
+    a share of all-PAD rows, uniform items and categories, the negatives as the example draws them."""
+    if name not in ZOO_SEQ:
+        return ctr_data(n, [CTR["vocab"]] * CTR["n_sparse"], seed)
+    s, rng = ZOO_SEQ_SHAPE, np.random.default_rng(seed)
+    lengths = rng.integers(1, s["seq_len"] + 1, n)
+    lengths[rng.uniform(size=n) < s["all_pad_share"]] = 0
+    valid = np.arange(s["seq_len"])[None, :] < lengths[:, None]
+    hist = np.where(valid, rng.integers(1, s["items"], (n, s["seq_len"])), 0).astype(np.int32)
+    neg = np.where(hist > 0, (hist + rng.integers(1, s["items"] - 1, hist.shape)) % s["items"], 0)
+    x = {"user_id": rng.integers(0, s["users"], n).astype(np.int32), "hist_item_id": hist,
+         "hist_cate_id": np.where(valid, rng.integers(1, s["cates"], hist.shape), 0).astype(np.int32),
+         "neg_hist_item_id": np.where((neg == 0) & (hist > 0), 1, neg).astype(np.int32),
+         "target_item_id": rng.integers(1, s["items"], n).astype(np.int32), "target_cate_id": rng.integers(1, s["cates"], n).astype(np.int32)}
+    return x, rng.integers(0, 2, n).astype(np.float32)
+
+
+def shift_invariant(names):
+    """The Dense biases right in front of a BatchNorm: the batch mean removes them, so the loss does not depend on them."""
+    out = set()
+    for name in names:
+        m = re.match(r"(.*)Dense_(\d+)\.bias$", name)
+        if m and f"{m.group(1)}BatchNorm_{m.group(2)}.weight" in names:
+            out.add(name)
+    return out
+
+
+@torch.no_grad()
+def redraw_tables(model, seed):
+    """Every embedding table redrawn at N(0, 0.3²), as the CPU parity tests do: with tables near their 1e-4 start,
+    BST's target position is nearly the same position embedding in every row, and the train-mode BatchNorm of its
+    MLP divides by a variance that E[x²] − E[x]² loses to fp32 rounding, on either device."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith("_table"):
+            p.copy_(0.3 * torch.randn(p.shape, generator=g))
+
+
+@contextlib.contextmanager
+def kink_branches(masks, replay):
+    """Record the branch that every relu / leaky_relu took (``replay=False``, appending ``x > 0`` to ``masks``),
+    or take the recorded branches in the same order (``replay=True``); yields ``[count]`` of the elements whose
+    own branch differs from the recorded one.  A ReLU input within rounding of 0 takes one branch on one device
+    and the other on the other: the forward barely moves, but that element's gradient is whole on one side and 0
+    on the other, and a train-mode BatchNorm spreads it over its column.  With 10^5-10^6 such inputs in a step
+    that happens; replaying the card's branches on the CPU compares the gradients of the same function."""
+    relu, leaky = torch.relu, F.leaky_relu
+    recorded, crossed = iter(list(masks)), [0]
+
+    def branch(x):
+        if not replay:
+            masks.append((x > 0).cpu())
+            return x > 0
+        m = next(recorded).to(x.device)
+        crossed[0] += int((m != (x > 0)).sum())
+        return m
+
+    torch.relu = lambda x: torch.where(branch(x), x, torch.zeros_like(x))
+    F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: torch.where(branch(x), x, negative_slope * x)
+    try:
+        yield crossed
+    finally:
+        torch.relu, F.leaky_relu = relu, leaky
+
+
+def zoo_against_cpu(name, b):
+    """A fresh model from a seed with its tables redrawn, on the CPU and a copy on the card (a model trained on
+    random labels grows sharp enough that fp32 rounding, not the device, decides its gradients): eval logits
+    (DIEN's aux loss) on ``b`` rows, then one step of a
+    fresh CTRTrainer on a partial batch padded to ``b`` on each: the loss, every gradient, every parameter's step
+    (after minus before, ``step_ratio``, less what Adam's first update makes of the gradients' difference) and
+    the BatchNorm statistics.  A gradient is a sum over the rows that may cancel, so its error scales with the
+    terms and not with the sum: the absolute part of its tolerance is relative to the model's largest gradient.
+    The CPU's step takes the branches the card's ReLUs took (``kink_branches``).
+    The Dense biases in front of a BatchNorm do not change the loss: their gradients are rounding noise, of a size
+    that says nothing (the BatchNorm divides by the batch's standard deviation), and are not compared; their steps
+    are, less Adam's share.  Any other gradient that is exactly 0 must be noise on both sides, below b·eps of the
+    largest gradient."""
+    cpu = zoo_model(name, seed=2, device="cpu")
+    redraw_tables(cpu, seed=4)
+    model = copy.deepcopy(cpu).to(CARD)
+    x, y = zoo_data(name, b, seed=3)
+    with torch.inference_mode():
+        got = model.eval()({k: torch.from_numpy(v).to(CARD) for k, v in x.items()})
+        ref = cpu.eval()({k: torch.from_numpy(v) for k, v in x.items()})
+    got, ref = (o if name == "DIEN" else (o, None) for o in (got, ref))
+    worst = {"logits": ratio_of(got[0], ref[0], CTR_LOGIT_RTOL, CTR_LOGIT_ATOL)}
+    if name == "DIEN":
+        worst["aux"] = ratio_of(got[1].reshape(1), ref[1].reshape(1), CTR_LOGIT_RTOL, CTR_LOGIT_ATOL)
+    max_abs = float((got[0].cpu() - ref[0]).abs().max())
+
+    p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+    xs, ys = {k: v[: b - 100] for k, v in x.items()}, y[: b - 100]
+    masks, losses = [], []
+    for m, d, replay in ((model, CARD, False), (cpu, "cpu", True)):
+        with kink_branches(masks, replay) as crossed:
+            losses.append(CTRTrainer(m, optimizer_params=CTR_OPT, loss_mode=name != "DIEN", device=d).train_one_epoch(ArrayLoader(xs, ys, batch_size=b), log_interval=0))
+    if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
+        raise AssertionError(f"{name}: one step's loss, card {losses[0]}, CPU {losses[1]}")
+    lr, eps = CTR_OPT["lr"], torch.finfo(torch.float32).eps
+    largest = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    floor = b * eps * largest
+    worst.update(grad=0.0, step=0.0, stats=0.0)
+    where, still = {}, []
+    invariant = shift_invariant({k for k, _ in cpu.named_parameters()})
+    for (pname, a), p in zip(model.named_parameters(), cpu.parameters(), strict=True):
+        g, r = a.grad.cpu(), p.grad
+        if pname in invariant:
+            pass
+        elif float(r.abs().max()) < floor:  # an exact 0: both must be rounding noise
+            if float(g.abs().max()) >= floor:
+                raise AssertionError(f"{name} {pname}: a gradient that is exactly 0 reads {float(g.abs().max()):.3e} on the card")
+        elif ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * largest) > worst["grad"]:
+            worst["grad"], where["grad"] = ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * largest), pname
+        d_ref = p.detach() - p0[pname]
+        if not d_ref.any():  # a zero parameter with an exact zero gradient: neither side moves it
+            if not torch.equal(a.detach().cpu(), p0[pname]):
+                raise AssertionError(f"{name} {pname} moved on the card and not on the CPU")
+            still.append(pname)
+            continue
+        carried = lr * (adam_update(g, p0[pname]) - adam_update(r, p0[pname])).abs()
+        step = step_ratio(a, p0[pname], d_ref, CTR_GRAD_RTOL, CTR_ADAM_UPDATE_TOL, carried=carried)[0]
+        if step > worst["step"]:
+            worst["step"], where["step"] = step, pname
+    for a, p in zip(model.buffers(), cpu.buffers(), strict=True):
+        if p.is_floating_point():
+            worst["stats"] = max(worst["stats"], ratio_of(a, p, CTR_STATS_RTOL, CTR_STATS_ATOL))
+    if still != [k for k in ZOO_UNMOVED.get(name, ()) if k in still]:
+        raise AssertionError(f"{name}: {still} kept their values in a step")
+    return worst, where, max_abs, losses, still, (crossed[0], sum(m.numel() for m in masks))
+
+
+def zoo_config(name):
+    """One configuration: CTRTrainer.train_one_epoch on DeviceCachedLoader (examples/s, ms per step, every
+    parameter moved), a step's device time, host clock and launches, predict, and the card against the CPU."""
+    b = CTR["batch"]
+    model = zoo_model(name, seed=0, device=CARD)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = CTRTrainer(model, optimizer_params=CTR_OPT, loss_mode=name != "DIEN")
+    x, y = zoo_data(name, ZOO_STEPS * b, seed=1)
+    loader = DeviceCachedLoader(x, y, batch_size=b, group_size=ZOO_STEPS)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    trainer.train_one_epoch(loader, log_interval=0)  # warm-up: cuBLAS handles, the allocator, Adam's state
+    seconds, losses = [], []
+    for _ in range(ZOO_EPOCHS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_one_epoch(loader, log_interval=0))  # ends in a host read of the losses
+        seconds.append(time.perf_counter() - t0)
+    med = float(np.median(seconds))
+    if not all(math.isfinite(v) and 0 < v < 5 for v in losses):
+        raise AssertionError(f"{name}: training loss out of range: {losses}")
+    unmoved = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+    exempt = ZOO_UNMOVED.get(name, ())
+    if [k for k in unmoved if k not in exempt]:
+        raise AssertionError(f"{name}: {[k for k in unmoved if k not in exempt]} did not move")
+    for k in exempt:  # by construction: an exact zero gradient, so only weight decay moves them
+        if model.get_parameter(k).grad.any():
+            raise AssertionError(f"{name} {k}: a gradient that is 0 by construction is not")
+
+    xs, ys, ws = next(loader.device_groups())
+    dx, dy, dw = {k: v[0] for k, v in xs.items()}, ys[0], ws[0]
+    step = lambda: trainer.train_step(dx, dy, dw)  # noqa: E731
+    wall = wall_ms(step, reps=10)
+    kernels = profile_kernels(step, steps=3)
+    device, launches = sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values())
+    classes = {}
+    for key, (ms, n) in kernels.items():
+        total_ms, total_n = classes.get(ctr_kernel_class(key), (0.0, 0))
+        classes[ctr_kernel_class(key)] = (total_ms + ms, total_n + n)
+
+    predict_loader = ArrayLoader(x, y, batch_size=b)
+    trainer.predict(model, predict_loader)  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds = trainer.predict(model, predict_loader)
+        walls.append(time.perf_counter() - t0)
+    pred_s = float(np.median(walls))
+    if preds.shape != (ZOO_STEPS * b,) or not (np.isfinite(preds).all() and ((preds >= 0) & (preds <= 1)).all()):
+        raise AssertionError(f"{name}: predict gave probabilities out of [0, 1]")
+
+    worst, where, max_abs, step_losses, still, kinks = zoo_against_cpu(name, ZOO_CHECK_BATCH)
+    row = dict(name=name, params=n_params, ms_step=med / ZOO_STEPS * 1e3, ex_s=ZOO_STEPS * b / med, device_ms=device, host_ms=wall, idle=1 - device / wall,
+               launches=launches, predict_ms=pred_s / ZOO_STEPS * 1e3, predict_ex_s=ZOO_STEPS * b / pred_s, worst=worst, max_abs=max_abs)
+    print(f"  {name} ({n_params:,} parameters): train {row['ex_s']:,.0f} examples/s, {row['ms_step']:.3f} ms per step (host clock, median of {ZOO_EPOCHS} epochs of "
+          f"{ZOO_STEPS} steps of {b}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; a step: device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms "
+          f"(median of 10), device idle {row['idle']:.0%}, {launches:.1f} launches; predict {row['predict_ms']:.3f} ms per batch, {row['predict_ex_s']:,.0f} examples/s")
+    print("    a step's kernels by class: " + "; ".join(f"{label} {ms:.4f} ms ({n:.0f})" for label, (ms, n) in sorted(classes.items(), key=lambda kv: -kv[1][0])[:4]))
+    print(f"    card vs CPU, same weights, B{ZOO_CHECK_BATCH}: eval logits max abs err {max_abs:.3e}, worst max |d|/tol: "
+          + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f" (logits rtol {CTR_LOGIT_RTOL} atol {CTR_LOGIT_ATOL}; gradients rtol {CTR_GRAD_RTOL} atol {CTR_GRAD_ATOL_REL} x the model's largest; steps rtol {CTR_GRAD_RTOL} atol {CTR_ADAM_UPDATE_TOL} x"
+          f" the largest step, beyond Adam's share); one step's loss {step_losses[0]:.7f} vs {step_losses[1]:.7f}; the CPU step took the card's ReLU branches, {kinks[0]} of {kinks[1]:,} inputs"
+          " on the other side of 0 there" + (f"; unmoved by construction: {still}" if still else ""))
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{name}: the card disagrees with the CPU: {worst}")
+    return row
+
+
+def zoo_fit_check(name, b):
+    """fit on learnable data to a test AUC above 0.65 within 3 epochs: DCNv2 on the label of the DeepFM check
+    (C0's parity and I0), DIN on the target category's parity."""
+    x, _ = zoo_data(name, ZOO_FIT_BATCHES * b, seed=5)
+    y = (((x["C0"] % 2) + x["I0"] > 0.5) if name not in ZOO_SEQ else (x["target_cate_id"] % 2 == 1)).astype(np.float32)
+    train, val, test = DataGenerator(x, y, seed=0).generate_dataloader(split_ratio=[0.7, 0.15], batch_size=b)
+    trainer = CTRTrainer(zoo_model(name, seed=5, device=CARD), optimizer_params=CTR_OPT, n_epoch=3, model_path=CTR_MODEL_PATH)
+    t0 = time.perf_counter()
+    trainer.fit(train, val, log_interval=0)
+    auc = trainer.evaluate(trainer.model, test)
+    print(f"  {name} fit, 3 epochs of {train.n} rows: test AUC {auc:.5f} ({time.perf_counter() - t0:.2f} s with validation)")
+    if not auc > 0.65:
+        raise AssertionError(f"{name}: fit reached a test AUC of {auc}, not above 0.65")
+
+
+def zoo_phase():
+    t0 = time.perf_counter()
+    rows = [zoo_config(name) for name in ZOO_CRITEO + ZOO_SEQ]
+    print("  summary (ms per step / examples/s host clock; device ms, host ms, idle and launches of one step; predict ms per batch of 4096):")
+    for r in rows:
+        print(f"    {r['name']:14s} {r['ms_step']:9.3f} ms {r['ex_s']:12,.0f} ex/s | device {r['device_ms']:8.4f} host {r['host_ms']:8.4f} idle {r['idle']:4.0%} launches {r['launches']:7.1f} | predict {r['predict_ms']:8.3f} ms")
+    for name in ("DCNv2", "DIN"):
+        zoo_fit_check(name, CTR["batch"])
+    print(f"  ranking zoo phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1491,10 +1797,12 @@ def main():
     t0 = time.perf_counter()
     ctr_sparse_phase(cycles_per_ms)
     print(f"  DeepFM sparse training phase: {time.perf_counter() - t0:.1f} s")
+    print("ranking zoo phase (10 Criteo-shaped and 3 sequence configurations through CTRTrainer; card against CPU; fit):")
+    zoo_phase()
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
-    print("  the port's kernels launched by the DeepFM phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
+    print("  the port's kernels launched by the DeepFM and ranking zoo phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
-        raise AssertionError(f"the DeepFM path launched an HSTU attention kernel: {ctr_launches}")
+        raise AssertionError(f"the DeepFM or ranking zoo path launched an HSTU attention kernel: {ctr_launches}")
 
     reset_counts()
     print("HSTU sparse training phase (the full-width untied HSTU, sampled softmax, sparse_embedding=\"adagrad\", through K1 and K2):")

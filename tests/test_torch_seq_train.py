@@ -321,7 +321,7 @@ def test_fit_trains_a_learnable_sequence_task(tmp_path):
     assert after >= 0.5 > before + 0.2
 
 
-def test_sparse_embedding_is_not_ported_yet():
+def test_sparse_embedding_rejects_tied_and_unknown():
     """The sparse path is ported (tests/test_torch_sparse_train.py) for untied models only: a tied
     model, whose token table takes a dense gradient through the logits, and an unknown method raise."""
     with pytest.raises(ValueError, match="tie_embeddings"):

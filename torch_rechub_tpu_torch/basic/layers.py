@@ -1,23 +1,31 @@
-"""Core layers: the prediction head, LR, MLP with flax-semantics BatchNorm, FM.
+"""The layer zoo: the prediction head, LR, MLP with flax-semantics BatchNorm,
+FM, CIN, the cross networks (v1, v2, the low-rank mixture), SENet, the
+bilinear interaction, AutoInt's interacting layer, FFM and CEN.
 
-Counterpart of ``torch_rechub_tpu/basic/layers.py:36-100``.  flax infers a
+Counterpart of ``torch_rechub_tpu/basic/layers.py:36-416`` (the
+multi-interest layers, ``MultiInterestSA`` and ``CapsuleNetwork``, come with
+the matching models).  As there, loops over experts, pairs and fields are
+einsums over stacked parameters and index vectors.  flax infers a
 ``Dense``'s input width at its first call; here every layer takes an
 explicit ``in_features``, which the models work out from the feature schema.
-Submodules keep flax's automatic names (``Dense_0``, ``BatchNorm_0``, ...),
-so a flax model's ``params`` and ``batch_stats`` load by name
-(``utils/jax_weights.py``).
+Submodules and parameters keep flax's names (``Dense_0``, ``BatchNorm_0``,
+``w_{i}``, ``conv_w_{i}``, ``gate_w``, ``W_Q``, ...), so a flax model's
+``params`` and ``batch_stats`` load by name (``utils/jax_weights.py``); the
+raw parameters are drawn by flax's initializers (``basic/initializers.py``).
 """
 
 from __future__ import annotations
 
+from itertools import combinations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .activation import activation_layer
 from .hstu import dropout
-from .initializers import linear
+from .initializers import linear, param, torch_linear_init, uniform, xavier_normal, zeros
 
 
 def prediction(x: torch.Tensor, task_type: str = "classification") -> torch.Tensor:
@@ -118,3 +126,226 @@ class FM(nn.Module):
         if self.reduce_sum:
             ix = ix.sum(1, keepdim=True)
         return 0.5 * ix
+
+
+def mlp_width(in_features: int, mlp_params) -> int:
+    """Output width of an ``MLP(output_layer=False, **mlp_params)`` on ``in_features``."""
+    dims = tuple(mlp_params.get("dims", ()))
+    return dims[-1] if dims else in_features
+
+
+def _pair_index(num_fields: int, device=None):
+    """The upper-triangle field pairs ``i < j`` in ``combinations`` order, as two index vectors."""
+    pairs = list(combinations(range(num_fields), 2))
+    return torch.tensor([i for i, _ in pairs], device=device), torch.tensor([j for _, j in pairs], device=device)
+
+
+class CIN(nn.Module):
+    """Compressed Interaction Network (xDeepFM) over ``(B, F0, D)``.
+
+    Layer ``i`` crosses ``x0`` with ``h`` field by field and maps the
+    ``F0·Fi`` channels to ``cin_size[i]`` by ``conv_w_{i} (size, F0·Fi)``;
+    with ``split_half`` every layer but the last keeps one half for the
+    output and feeds the other on.  The pooled channels go through
+    ``Dense_0`` to ``(B, 1)``.
+    """
+
+    def __init__(self, input_dim: int, cin_size: Sequence[int], split_half: bool = True, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.cin_size, self.split_half = tuple(cin_size), split_half
+        fi, pooled = input_dim, 0
+        for i, size in enumerate(self.cin_size):
+            self.register_parameter(f"conv_w_{i}", param(torch_linear_init, (size, input_dim * fi), generator, device))
+            self.register_parameter(f"conv_b_{i}", param(zeros, (size,), device=device))
+            if split_half and i != len(self.cin_size) - 1:
+                if size % 2:
+                    raise ValueError(f"cin_size[{i}] = {size} does not split in halves")
+                fi = size // 2
+            else:
+                fi = size
+            pooled += fi
+        self.Dense_0 = linear(pooled, 1, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, d = x.shape
+        x0, h, xs = x, x, []
+        for i, size in enumerate(self.cin_size):
+            z = (x0[:, :, None, :] * h[:, None, :, :]).reshape(b, -1, d)  # (B, F0·Fi, D)
+            w, bias = getattr(self, f"conv_w_{i}"), getattr(self, f"conv_b_{i}")
+            out = F.relu(torch.einsum("bcd,oc->bod", z, w) + bias[None, :, None])
+            if self.split_half and i != len(self.cin_size) - 1:
+                out, h = torch.split(out, size // 2, dim=1)
+            else:
+                h = out
+            xs.append(out)
+        return self.Dense_0(torch.cat(xs, dim=1).sum(2))
+
+
+class CrossLayer(nn.Module):
+    """One DCN cross step ``x0 · (w xi) + b`` over ``(B, d)``."""
+
+    def __init__(self, d: int, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.Dense_0 = linear(d, 1, generator, device, bias=False)
+        self.b = param(zeros, (d,), device=device)
+
+    def forward(self, x0: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        return x0 * self.Dense_0(xi) + self.b
+
+
+class CrossNetwork(nn.Module):
+    """DCN v1 cross network with residual, ``x ← x0 · (w_i x) + b_i + x``."""
+
+    def __init__(self, d: int, num_layers: int, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"w_{i}", linear(d, 1, generator, device, bias=False))
+            self.register_parameter(f"b_{i}", param(zeros, (d,), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0 = x
+        for i in range(self.num_layers):
+            x = x0 * getattr(self, f"w_{i}")(x) + getattr(self, f"b_{i}") + x
+        return x
+
+
+class CrossNetV2(nn.Module):
+    """DCN v2 full-matrix cross network, ``x ← x0 ⊙ (W_i x) + b_i + x``."""
+
+    def __init__(self, d: int, num_layers: int, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"w_{i}", linear(d, d, generator, device, bias=False))
+            self.register_parameter(f"b_{i}", param(zeros, (d,), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0 = x
+        for i in range(self.num_layers):
+            x = x0 * getattr(self, f"w_{i}")(x) + getattr(self, f"b_{i}") + x
+        return x
+
+
+class CrossNetMix(nn.Module):
+    """DCN v2's low-rank mixture of experts: per expert ``x0 ⊙ (U tanh(C tanh(Vᵀ x)) + b)``,
+    gated by a softmax over the experts (in fp32) of ``gate_w x``.
+
+    ``u_{i}``, ``v_{i}`` are ``(E, d, r)`` and ``c_{i}`` ``(E, r, r)``, all
+    experts of a layer in one einsum, as in the JAX package.
+    """
+
+    def __init__(self, d: int, num_layers: int = 2, low_rank: int = 32, num_experts: int = 4, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.gate_w = param(torch_linear_init, (num_experts, d), generator, device)
+        for i in range(num_layers):
+            for name, shape in (("u", (num_experts, d, low_rank)), ("v", (num_experts, d, low_rank)), ("c", (num_experts, low_rank, low_rank))):
+                self.register_parameter(f"{name}_{i}", param(xavier_normal, shape, generator, device))
+            self.register_parameter(f"b_{i}", param(zeros, (d,), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0 = xl = x
+        for i in range(self.num_layers):
+            u, v, c, b = (getattr(self, f"{n}_{i}") for n in ("u", "v", "c", "b"))
+            gate = torch.einsum("bd,ed->be", xl, self.gate_w)
+            vx = torch.tanh(torch.einsum("edr,bd->ber", v, xl))
+            cvx = torch.tanh(torch.einsum("ers,bes->ber", c, vx))
+            uv = torch.einsum("edr,ber->bed", u, cvx)  # (B, E, d)
+            expert_out = x0[:, None, :] * (uv + b)
+            xl = torch.einsum("bed,be->bd", expert_out, torch.softmax(gate.to(torch.float32), dim=1).to(expert_out.dtype)) + xl
+        return xl
+
+
+class SENETLayer(nn.Module):
+    """Squeeze-excitation field gating (FiBiNet) of ``(B, F, D)``."""
+
+    def __init__(self, num_fields: int, reduction_ratio: int = 3, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        reduced = max(1, num_fields // reduction_ratio)
+        self.Dense_0 = linear(num_fields, reduced, generator, device, bias=False)
+        self.Dense_1 = linear(reduced, num_fields, generator, device, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = F.relu(self.Dense_1(F.relu(self.Dense_0(x.mean(-1)))))
+        return x * a[..., None]
+
+
+class BiLinearInteractionLayer(nn.Module):
+    """Pairwise bilinear field crosses (FiBiNet) of ``(B, F, D)`` into ``(B, F(F-1)/2, D)``.
+
+    ``bilinear_type``: ``"field_all"`` (one ``w (D, D)``), ``"field_each"``
+    (``w (F, D, D)``, one per left field) or ``"field_interaction"``
+    (``w (P, D, D)``, one per pair).
+    """
+
+    def __init__(self, num_fields: int, embed_dim: int, bilinear_type: str = "field_interaction", generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        n_pairs = num_fields * (num_fields - 1) // 2
+        shapes = {"field_all": (embed_dim, embed_dim), "field_each": (num_fields, embed_dim, embed_dim), "field_interaction": (n_pairs, embed_dim, embed_dim)}
+        if bilinear_type not in shapes:
+            raise NotImplementedError(bilinear_type)
+        self.bilinear_type = bilinear_type
+        self.w = param(torch_linear_init, shapes[bilinear_type], generator, device)
+        i_idx, j_idx = _pair_index(num_fields, device)
+        self.register_buffer("i_idx", i_idx, persistent=False)
+        self.register_buffer("j_idx", j_idx, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bilinear_type == "field_all":
+            return torch.einsum("bfd,de->bfe", x, self.w)[:, self.i_idx] * x[:, self.j_idx]
+        if self.bilinear_type == "field_each":
+            return torch.einsum("bfd,fde->bfe", x, self.w)[:, self.i_idx] * x[:, self.j_idx]
+        return torch.einsum("bpd,pde->bpe", x[:, self.i_idx], self.w) * x[:, self.j_idx]
+
+
+class InteractingLayer(nn.Module):
+    """AutoInt's multi-head self-attention over the fields of ``(B, F, D)``, with a residual ``W_Res`` and ReLU."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 2, dropout: float = 0.0, residual: bool = True, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        self.num_heads, self.dropout, self.residual = num_heads, dropout, residual
+        for name in ("W_Q", "W_K", "W_V") + (("W_Res",) if residual else ()):
+            self.add_module(name, linear(embed_dim, embed_dim, generator, device, bias=False))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, f, d = x.shape
+        head_dim = d // self.num_heads
+        q, k, v = (m(x).reshape(b, f, self.num_heads, head_dim).transpose(1, 2) for m in (self.W_Q, self.W_K, self.W_V))
+        scores = torch.einsum("bhfd,bhgd->bhfg", q, k) * (head_dim**-0.5)
+        weights = dropout(torch.softmax(scores.to(torch.float32), dim=-1).to(v.dtype), self.dropout, self.training, generator)
+        out = torch.einsum("bhfg,bhgd->bhfd", weights, v).transpose(1, 2).reshape(b, f, d)
+        if self.residual:
+            out = out + self.W_Res(x)
+        return F.relu(out)
+
+
+class FFM(nn.Module):
+    """Field-aware crosses of ``(B, F, F, D)`` embeddings (row: feature, column: the field it faces):
+    ``x[:, i, j] ⊙ x[:, j, i]`` for each pair ``i < j``, summed over D with ``reduce_sum``."""
+
+    def __init__(self, num_fields: int, reduce_sum: bool = True, device=None):
+        super().__init__()
+        self.reduce_sum = reduce_sum
+        i_idx, j_idx = _pair_index(num_fields, device)
+        self.register_buffer("i_idx", i_idx, persistent=False)
+        self.register_buffer("j_idx", j_idx, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        crossed = x[:, self.i_idx, self.j_idx, :] * x[:, self.j_idx, self.i_idx, :]
+        return crossed.sum(-1, keepdim=True) if self.reduce_sum else crossed
+
+
+class CEN(nn.Module):
+    """Compose-excitation attention over the field crosses ``(B, P, D)`` (FAT-DeepFFM), flattened to ``(B, P·D)``."""
+
+    def __init__(self, embed_dim: int, num_field_crosses: int, reduction_ratio: int, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.u = param(uniform(1.0), (num_field_crosses, embed_dim), generator, device)
+        self.MLP_0 = MLP(num_field_crosses, (num_field_crosses // reduction_ratio, num_field_crosses), output_layer=False, generator=generator, device=device)
+
+    def forward(self, em: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        s = self.MLP_0(F.relu((self.u * em).sum(-1)), generator=generator)
+        return (s[..., None] * em).reshape(em.shape[0], -1)

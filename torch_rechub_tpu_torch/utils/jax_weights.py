@@ -5,6 +5,11 @@ Takes a flax ``params`` tree as nested dicts of numpy arrays (no JAX needed:
 into the port's counterpart module.  The mapping:
 
 - ``Dense.kernel (in, out)`` -> ``Linear.weight (out, in)``; ``Dense.bias`` as is
+- ``MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels (BST): ``query``,
+  ``key``, ``value`` ``(in, heads, head_dim)`` -> ``Linear.weight (heads·head_dim,
+  in)`` with their biases ``(heads, head_dim)`` flattened; ``out`` ``(heads,
+  head_dim, out)`` -> ``Linear.weight (out, heads·head_dim)``.  Any other kernel
+  of more than two dimensions raises.
 - ``LayerNorm.scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``
 - ``layer_{i}`` -> ``layers.{i}`` (``HSTUBlock``'s ``nn.ModuleList``)
 - ``BatchNorm.scale`` / ``bias`` -> ``BatchNorm.weight`` / ``bias``, and its
@@ -13,7 +18,9 @@ into the port's counterpart module.  The mapping:
   ``position_embedding``, ``time_embedding``, ``output_bias``,
   ``output_projection``, ``output_projection_bias``, the embedding tables
   ``{feature}_table`` and ``fused_d{dim}_table``, ``Dice``'s ``alpha``,
-  ``PReLU``'s ``slope``) is copied as is.
+  ``PReLU``'s ``slope``, the zoo's raw parameters such as ``w_{i}``'s ``b_{i}``,
+  ``conv_w_{i}``, ``gate_w``, ``u_{i}``, the bilinear ``w``, the GRU's and
+  AUGRU's matrices, BST's ``pos_embedding``) is copied as is.
 
 The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
 ``MLP_0/Dense_0``, ``MLP_0/BatchNorm_0``, ...), so no other renaming is needed.
@@ -43,6 +50,18 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layer_(\d+)$")
+_QKV = ("query", "key", "value")
+
+
+def _kernel_to_weight(array: np.ndarray, parent: str) -> np.ndarray:
+    """A flax kernel as the ``(out, in)`` weight of the ``nn.Linear`` that stands for it."""
+    if array.ndim == 2:
+        return array.T
+    if array.ndim == 3 and parent in _QKV:  # DenseGeneral (in, heads, head_dim)
+        return array.reshape(array.shape[0], -1).T
+    if array.ndim == 3 and parent == "out":  # DenseGeneral (heads, head_dim, out)
+        return array.reshape(-1, array.shape[-1]).T
+    raise ValueError(f"{parent}: no mapping for a kernel of shape {array.shape}")
 
 
 def nest(tree: Mapping) -> Mapping:
@@ -69,8 +88,11 @@ def flax_to_state_dict(params: Mapping[str, Any], prefix: str = "") -> Dict[str,
             out.update(flax_to_state_dict(value, f"{prefix}{name}."))
             continue
         array = np.asarray(value)
+        parent = prefix[:-1].rsplit(".", 1)[-1]
         if key == "kernel":
-            name, array = "weight", array.T
+            name, array = "weight", _kernel_to_weight(array, parent)
+        elif key == "bias" and parent in _QKV and array.ndim == 2:  # DenseGeneral (heads, head_dim)
+            array = array.reshape(-1)
         elif key == "scale":
             name = "weight"
         out[f"{prefix}{name}"] = torch.tensor(array)
