@@ -70,9 +70,31 @@
    and launches, ``predict``, and the card against the CPU from the same
    weights at B1024 (logits, DIEN's aux loss, one step's loss, gradients and
    every parameter's step); ``fit`` above a test AUC of 0.65 for DCNv2 and
-   DIN.  The DeepFM and zoo phases check that none of the port's kernels was
-   launched: no TPU kernel lies on these paths.
-10. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+   DIN.
+10. Matching through ``MatchTrainer``.  (a) The 13 classes at MovieLens-1M's
+   widths (``examples/matching/run_ml_matching.py:33-58``: 6,040 users and
+   3,706 movies, ids shifted by one for PAD, d16, user MLP (64, 16),
+   histories of up to 20 movies, 3 negatives, B256; seeded data, tables
+   redrawn at N(0, 0.3²)), each in its mode (DSSM and DSSMSENet point-wise,
+   FaceBookDSSM and SASRec pair-wise, the rest list-wise, NARM and STAMP over
+   every movie; DSSM once more with in-batch negatives): examples/s and ms per
+   step on ``DeviceCachedLoader``, a step's device time, host clock, idle
+   share and launches, ``inference_embedding`` of every user and movie, the
+   card against the CPU at B256 (scores, one step's loss, gradients, every
+   parameter's step); ``fit`` of YoutubeDNN and MIND on rows with a
+   learnable signal, then ``match_evaluation`` on the card to a recall@10
+   above ten times chance.  (b) YoutubeDNN at the production geometry of
+   ``BASELINE.md:321-328`` (200,000 users, an 8,000,000 × 64 item table,
+   20-item mean-pooled histories, in-batch negatives, B1024, zipf ids) with
+   ``sparse_embedding="adagrad"``: the first step's rows, examples/s, a
+   step's stages, host synchronisations, peak memory; the item tower's
+   ``inference_embedding`` over all 8M items; exact top-10 retrieval of 8,192
+   users over them (``brute_force_topk``, 128 users a batch; the product and
+   the top-k timed apart beside their bounds; 256 users against the CPU);
+   one dense-Adam step beside it.  The DeepFM, zoo and matching phases check
+   that none of the port's kernels was launched: no TPU kernel lies on these
+   paths.
+11. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -99,18 +121,22 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_rechub_tpu_torch.basic import layers  # noqa: E402
 from torch_rechub_tpu_torch.basic.features import DenseFeature, SequenceFeature, SparseFeature  # noqa: E402
-from torch_rechub_tpu_torch.models import ranking  # noqa: E402
+from torch_rechub_tpu_torch.models import matching, ranking  # noqa: E402
 from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
 from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
 from torch_rechub_tpu_torch.ops.embedding import set_fused_default  # noqa: E402
 from torch_rechub_tpu_torch.ops.sparse_update import pair_sparse_grads, record_rows, rowwise_adagrad_update, sparse_sgd_update  # noqa: E402
-from torch_rechub_tpu_torch.trainers import CTRTrainer, SeqTrainer  # noqa: E402
+from torch_rechub_tpu_torch.serving import brute_force_topk, match_evaluation  # noqa: E402
+from torch_rechub_tpu_torch.serving.retrieval import topk_scores  # noqa: E402
+from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, SeqTrainer  # noqa: E402
 from torch_rechub_tpu_torch.trainers.sparse import apply_sparse_table_updates  # noqa: E402
 from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, pad_batch  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
+from torch_rechub_tpu_torch.utils.match import get_item_sample_weight  # noqa: E402
 
 # the module of the op K3: the package binds the name hstu_attention to the op itself
 attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
@@ -1549,13 +1575,14 @@ def shift_invariant(names):
 
 
 @torch.no_grad()
-def redraw_tables(model, seed):
-    """Every embedding table redrawn at N(0, 0.3²), as the CPU parity tests do: with tables near their 1e-4 start,
-    BST's target position is nearly the same position embedding in every row, and the train-mode BatchNorm of its
-    MLP divides by a variance that E[x²] − E[x]² loses to fp32 rounding, on either device."""
+def redraw_tables(model, seed, suffixes=("_table",)):
+    """Every embedding table (a parameter whose name ends in one of ``suffixes``) redrawn at N(0, 0.3²), as the
+    CPU parity tests do: with tables near their 1e-4 start, BST's target position is nearly the same position
+    embedding in every row, and the train-mode BatchNorm of its MLP divides by a variance that E[x²] − E[x]²
+    loses to fp32 rounding, on either device; SINE's concept scores lie within rounding of each other."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
-        if name.endswith("_table"):
+        if name.endswith(suffixes):
             p.copy_(0.3 * torch.randn(p.shape, generator=g))
 
 
@@ -1586,42 +1613,35 @@ def kink_branches(masks, replay):
         torch.relu, F.leaky_relu = relu, leaky
 
 
-def zoo_against_cpu(name, b):
-    """A fresh model from a seed with its tables redrawn, on the CPU and a copy on the card (a model trained on
-    random labels grows sharp enough that fp32 rounding, not the device, decides its gradients): eval logits
-    (DIEN's aux loss) on ``b`` rows, then one step of a
-    fresh CTRTrainer on a partial batch padded to ``b`` on each: the loss, every gradient, every parameter's step
-    (after minus before, ``step_ratio``, less what Adam's first update makes of the gradients' difference) and
-    the BatchNorm statistics.  A gradient is a sum over the rows that may cancel, so its error scales with the
+def against_cpu(label, cpu, outputs, train_step, b, atol_rel=0.0):
+    """A model on the CPU against a copy on the card: ``outputs(model, device)``, a dict of output tensors in
+    eval mode (max abs err of the first; the absolute tolerance ``CTR_LOGIT_ATOL`` plus ``atol_rel`` times the
+    output's largest magnitude), then ``train_step(model, device)``, one step of a fresh trainer on a
+    partial batch padded to ``b`` returning its loss: the loss, every gradient, every parameter's step (after
+    minus before, ``step_ratio``, less what Adam's first update makes of the gradients' difference) and the
+    BatchNorm statistics.  A gradient is a sum over the rows that may cancel, so its error scales with the
     terms and not with the sum: the absolute part of its tolerance is relative to the model's largest gradient.
-    The CPU's step takes the branches the card's ReLUs took (``kink_branches``).
-    The Dense biases in front of a BatchNorm do not change the loss: their gradients are rounding noise, of a size
-    that says nothing (the BatchNorm divides by the batch's standard deviation), and are not compared; their steps
-    are, less Adam's share.  Any other gradient that is exactly 0 must be noise on both sides, below b·eps of the
-    largest gradient."""
-    cpu = zoo_model(name, seed=2, device="cpu")
-    redraw_tables(cpu, seed=4)
+    The CPU's step takes the branches the card's ReLUs took (``kink_branches``).  The Dense biases in front of a
+    BatchNorm do not change the loss: their gradients are rounding noise, of a size that says nothing (the
+    BatchNorm divides by the batch's standard deviation), and are not compared; their steps are, less Adam's
+    share.  Any other gradient that is exactly 0 must be noise on both sides, below b·eps of the largest
+    gradient.  Returns ``(worst, where, max_abs, losses, unmoved, (inputs across 0, inputs))``."""
     model = copy.deepcopy(cpu).to(CARD)
-    x, y = zoo_data(name, b, seed=3)
     with torch.inference_mode():
-        got = model.eval()({k: torch.from_numpy(v).to(CARD) for k, v in x.items()})
-        ref = cpu.eval()({k: torch.from_numpy(v) for k, v in x.items()})
-    got, ref = (o if name == "DIEN" else (o, None) for o in (got, ref))
-    worst = {"logits": ratio_of(got[0], ref[0], CTR_LOGIT_RTOL, CTR_LOGIT_ATOL)}
-    if name == "DIEN":
-        worst["aux"] = ratio_of(got[1].reshape(1), ref[1].reshape(1), CTR_LOGIT_RTOL, CTR_LOGIT_ATOL)
-    max_abs = float((got[0].cpu() - ref[0]).abs().max())
+        got, ref = outputs(model.eval(), CARD), outputs(cpu.eval(), "cpu")
+    worst = {key: ratio_of(got[key], ref[key], CTR_LOGIT_RTOL, CTR_LOGIT_ATOL + atol_rel * float(ref[key].abs().max())) for key in ref}
+    first = next(iter(ref))
+    max_abs = float((got[first].cpu() - ref[first]).abs().max())
 
     p0 = {k: v.detach().clone() for k, v in cpu.named_parameters()}
-    xs, ys = {k: v[: b - 100] for k, v in x.items()}, y[: b - 100]
     masks, losses = [], []
     for m, d, replay in ((model, CARD, False), (cpu, "cpu", True)):
         with kink_branches(masks, replay) as crossed:
-            losses.append(CTRTrainer(m, optimizer_params=CTR_OPT, loss_mode=name != "DIEN", device=d).train_one_epoch(ArrayLoader(xs, ys, batch_size=b), log_interval=0))
+            losses.append(train_step(m, d))
     if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
-        raise AssertionError(f"{name}: one step's loss, card {losses[0]}, CPU {losses[1]}")
+        raise AssertionError(f"{label}: one step's loss, card {losses[0]}, CPU {losses[1]}")
     lr, eps = CTR_OPT["lr"], torch.finfo(torch.float32).eps
-    largest = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    largest = max(float(p.grad.abs().max()) for p in cpu.parameters() if p.grad is not None)
     floor = b * eps * largest
     worst.update(grad=0.0, step=0.0, stats=0.0)
     where, still = {}, []
@@ -1632,13 +1652,13 @@ def zoo_against_cpu(name, b):
             pass
         elif float(r.abs().max()) < floor:  # an exact 0: both must be rounding noise
             if float(g.abs().max()) >= floor:
-                raise AssertionError(f"{name} {pname}: a gradient that is exactly 0 reads {float(g.abs().max()):.3e} on the card")
+                raise AssertionError(f"{label} {pname}: a gradient that is exactly 0 reads {float(g.abs().max()):.3e} on the card")
         elif ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * largest) > worst["grad"]:
             worst["grad"], where["grad"] = ratio_of(g, r, CTR_GRAD_RTOL, CTR_GRAD_ATOL_REL * largest), pname
         d_ref = p.detach() - p0[pname]
         if not d_ref.any():  # a zero parameter with an exact zero gradient: neither side moves it
             if not torch.equal(a.detach().cpu(), p0[pname]):
-                raise AssertionError(f"{name} {pname} moved on the card and not on the CPU")
+                raise AssertionError(f"{label} {pname} moved on the card and not on the CPU")
             still.append(pname)
             continue
         carried = lr * (adam_update(g, p0[pname]) - adam_update(r, p0[pname])).abs()
@@ -1648,9 +1668,31 @@ def zoo_against_cpu(name, b):
     for a, p in zip(model.buffers(), cpu.buffers(), strict=True):
         if p.is_floating_point():
             worst["stats"] = max(worst["stats"], ratio_of(a, p, CTR_STATS_RTOL, CTR_STATS_ATOL))
+    return worst, where, max_abs, losses, still, (crossed[0], sum(m.numel() for m in masks))
+
+
+def zoo_against_cpu(name, b):
+    """A fresh model from a seed with its tables redrawn, on the CPU and a copy on the card (a model trained on
+    random labels grows sharp enough that fp32 rounding, not the device, decides its gradients), through
+    ``against_cpu``: eval logits (DIEN's aux loss) on ``b`` rows, then one step of a fresh CTRTrainer on a
+    partial batch padded to ``b`` on each."""
+    cpu = zoo_model(name, seed=2, device="cpu")
+    redraw_tables(cpu, seed=4)
+    x, y = zoo_data(name, b, seed=3)
+
+    def outputs(m, d):
+        out = m({k: torch.from_numpy(v).to(d) for k, v in x.items()})
+        return {"logits": out[0], "aux": out[1].reshape(1)} if name == "DIEN" else {"logits": out}
+
+    xs, ys = {k: v[: b - 100] for k, v in x.items()}, y[: b - 100]
+
+    def train_step(m, d):
+        return CTRTrainer(m, optimizer_params=CTR_OPT, loss_mode=name != "DIEN", device=d).train_one_epoch(ArrayLoader(xs, ys, batch_size=b), log_interval=0)
+
+    worst, where, max_abs, losses, still, kinks = against_cpu(name, cpu, outputs, train_step, b)
     if still != [k for k in ZOO_UNMOVED.get(name, ()) if k in still]:
         raise AssertionError(f"{name}: {still} kept their values in a step")
-    return worst, where, max_abs, losses, still, (crossed[0], sum(m.numel() for m in masks))
+    return worst, where, max_abs, losses, still, kinks
 
 
 def zoo_config(name):
@@ -1746,6 +1788,439 @@ def zoo_phase():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 10. matching through MatchTrainer, and exact top-k retrieval
+# ---------------------------------------------------------------------------
+
+# MovieLens-1M's widths (examples/matching/run_ml_matching.py:33-58, benchmarks/configs/matching/*.yaml): 6,040 users
+# and 3,706 movies, ids shifted by one (0 is PAD), d16, user MLP (64, 16), histories of up to 20 items, 3 negatives, B256
+ML1M = dict(users=6040, items=3706, dim=16, seq_len=20, n_neg=3, batch=256)
+MATCH_CONFIGS = ("DSSM", "DSSMSENet", "FaceBookDSSM", "YoutubeDNN", "YoutubeSBC", "GRU4Rec", "NARM", "STAMP", "SASRec", "MIND", "ComirecSA", "ComirecDR", "SINE", "DSSM:in_batch")
+MATCH_MODES = {"DSSM": 0, "DSSMSENet": 0, "FaceBookDSSM": 1, "SASRec": 1}  # the rest list-wise (mode 2)
+MATCH_FULL_SOFTMAX = ("NARM", "STAMP")  # list-wise over every movie, the label the positive's id
+MATCH_TOWERS = ("NARM", "STAMP", "SASRec")  # their item tower needs an item feature: the same weights built with one
+MATCH_TABLES = ("_table", "_embedding", "position_emb")
+MATCH_STEPS, MATCH_EPOCHS = 8, 3  # steps per timed epoch on DeviceCachedLoader, timed epochs
+# a score is a dot product whose fp32 rounding (another summation order in cuBLAS than on the CPU) scales with its
+# terms, not with the score: NARM's and STAMP's full-softmax scores of size 10-30 cancel to near 0, so the card
+# against the CPU takes an absolute tolerance of 1e-6 of the largest score beside CTR_LOGIT_ATOL
+MATCH_SCORE_ATOL_REL = 1e-6
+# fit on histories and positives from one of MATCH_FIT["clusters"] groups of movies per user (user_id % clusters):
+# chance recall@10 is 10 / 3,707 = 0.27%, and the check asks for ten times that; knowing the group alone gives up
+# to 10 / 12.  MIND's capsules learn the groups more slowly than YoutubeDNN's mean-pooled history
+MATCH_FIT = dict(rows=40_960, test=2048, epochs={"YoutubeDNN": 3, "MIND": 5}, clusters=300, chance_times=10)
+MATCH_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_match")
+# YoutubeDNN at the production geometry of BASELINE.md:321-328 (benchmarks/models.py:39 for the user MLP): 200,000
+# users, an 8,000,000 x 64 item table, 20-item mean-pooled histories sharing it, in-batch negatives, B1024, zipf ids
+PROD = dict(users=200_000, items=8_000_000, dim=64, seq_len=20, batch=1024, steps=8, epochs=3)
+SERVE_TOPK = dict(users=8192, user_batch=128, k=10, check_users=256, check_batch=32)
+
+
+def match_model(name, seed, device, towers=False):
+    """One configuration at ML-1M's widths, random weights from ``seed``, dropout 0; ``towers`` builds NARM,
+    STAMP and SASRec with an item feature (no other parameter), so their item tower exists."""
+    s, d = ML1M, ML1M["dim"]
+    kw = {"generator": torch.Generator().manual_seed(seed), "device": device}
+    n_users, n_items = s["users"] + 1, s["items"] + 1
+    user = SparseFeature("user_id", n_users, d, padding_idx=0)
+    hist_mean = SequenceFeature("hist_movie_id", n_items, d, pooling="mean", shared_with="movie_id", padding_idx=0)
+    hist = SequenceFeature("hist_movie_id", n_items, d, pooling="concat", shared_with="movie_id", padding_idx=0)
+    item = (SparseFeature("movie_id", n_items, d, padding_idx=0),)
+    neg = (SequenceFeature("neg_items", n_items, d, pooling="concat", shared_with="movie_id", padding_idx=0),)
+    mlp = {"dims": (64, d), "dropout": 0.0}
+    frame = dict(user_features=(user,), history_features=(hist,), item_features=item, neg_item_feature=neg)
+    base = name.partition(":")[0]
+    if base in ("DSSM", "DSSMSENet"):
+        return getattr(matching, base)((user, hist_mean), item, mlp, mlp, **kw)
+    if base == "FaceBookDSSM":
+        return matching.FaceBookDSSM((user, hist_mean), item, (SparseFeature("neg_item", n_items, d, shared_with="movie_id", padding_idx=0),), mlp, mlp, **kw)
+    if base == "YoutubeDNN":
+        return matching.YoutubeDNN((user, hist_mean), item, neg, mlp, **kw)
+    if base == "YoutubeSBC":
+        return matching.YoutubeSBC((user, hist_mean), item, (DenseFeature("sample_weight"),), mlp, mlp, batch_size=s["batch"], n_neg=s["n_neg"], **kw)
+    if base == "GRU4Rec":
+        return matching.GRU4Rec(**frame, user_params={**mlp, "num_layers": 1}, **kw)
+    if base == "MIND":
+        return matching.MIND(**frame, max_length=s["seq_len"], **kw)
+    if base == "ComirecSA":
+        return matching.ComirecSA(**frame, **kw)
+    if base == "ComirecDR":
+        return matching.ComirecDR(**frame, max_length=s["seq_len"], **kw)
+    if base == "SINE":
+        return matching.SINE(("hist_movie_id",), ("movie_id",), ("neg_items",), n_items, d, hidden_dim=32, num_concept=10, num_intention=4, seq_max_len=s["seq_len"], **kw)
+    session = SequenceFeature("hist_movie_id", n_items, d, pooling="concat", padding_idx=0)
+    target = SparseFeature("movie_id", n_items, d, padding_idx=0) if towers else None
+    if base == "NARM":
+        return matching.NARM(session, hidden_dim=32, emb_dropout_p=0.0, session_rep_dropout_p=0.0, item_feature=target, **kw)
+    if base == "STAMP":
+        return matching.STAMP(session, weight_std=0.05, emb_std=0.05, item_feature=target, **kw)
+    seqs = (SequenceFeature("seq", n_items, d, pooling="concat", padding_idx=0),) + tuple(SequenceFeature(f, n_items, d, pooling="concat", shared_with="seq", padding_idx=0) for f in ("pos", "neg"))
+    target = SparseFeature("movie_id", n_items, d, shared_with="seq", padding_idx=0) if towers else None
+    return matching.SASRec(seqs, max_len=s["seq_len"], dropout_rate=0.0, num_blocks=2, num_heads=1, item_feature=target, **kw)
+
+
+def match_data(n, seed, clusters=None):
+    """ML-1M-shaped rows: a user, a history of 1-20 movies post-padded to L20, the positive, 3 negatives (and one
+    for the pair-wise model), SASRec's aligned next-item and negative sequences, YoutubeSBC's word2vec sample weight
+    of the positive, and random 0/1 labels.  With ``clusters``, the history and the positive come from the user's
+    group of movies (``user_id % clusters``), a signal to learn."""
+    s, rng = ML1M, np.random.default_rng(seed)
+    l, n_items = s["seq_len"], s["items"]
+    users = rng.integers(1, s["users"] + 1, n)
+    if clusters:
+        size = n_items // clusters
+        draw = lambda shape: 1 + (users % clusters).reshape(-1, *[1] * (len(shape) - 1)) * size + rng.integers(0, size, shape)  # noqa: E731
+    else:
+        draw = lambda shape: rng.integers(1, n_items + 1, shape)  # noqa: E731
+    lengths = rng.integers(1, l + 1, n)
+    valid = np.arange(l)[None, :] < lengths[:, None]
+    hist = np.where(valid, draw((n, l)), 0).astype(np.int32)
+    movie = draw((n,)).astype(np.int32)
+    pos = np.where(valid, np.concatenate([hist[:, 1:], np.zeros((n, 1), np.int32)], axis=1), 0)
+    pos[np.arange(n), lengths - 1] = movie
+    negs = rng.integers(1, n_items + 1, (n, s["n_neg"])).astype(np.int32)
+    weight = get_item_sample_weight(movie.tolist())
+    x = {"user_id": users.astype(np.int32), "hist_movie_id": hist, "movie_id": movie, "neg_items": negs, "neg_item": negs[:, 0].copy(),
+         "seq": hist, "pos": pos.astype(np.int32), "neg": np.where(valid, rng.integers(1, n_items + 1, (n, l)), 0).astype(np.int32),
+         "sample_weight": np.array([weight[m] for m in movie.tolist()], np.float32)}
+    return x, rng.integers(0, 2, n).astype(np.float32)
+
+
+def match_labels(name, x, y):
+    """The labels a configuration trains on: random 0/1 for the point-wise mode, the positive's id for the
+    full-softmax session models, else column 0 (the positive)."""
+    if MATCH_MODES.get(name, 2) == 0:
+        return y
+    return x["movie_id"].astype(np.int64) if name in MATCH_FULL_SOFTMAX else np.zeros(len(y), np.int64)
+
+
+def match_trainer(name, model, device, **kw):
+    return MatchTrainer(model, mode=MATCH_MODES.get(name.partition(":")[0], 2), in_batch_neg=name.endswith(":in_batch"), optimizer_params=CTR_OPT, device=device, **kw)
+
+
+@contextlib.contextmanager
+def given_routing_start(seed):
+    """MIND's routing start drawn from a CPU generator seeded ``seed`` on every device and in every mode (the
+    trainer's generators differ between the card and the CPU), so one step can be compared."""
+    draw = layers.routing_start
+    layers.routing_start = lambda shape, training, generator, device: torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(device)
+    try:
+        yield
+    finally:
+        layers.routing_start = draw
+
+
+def dead_gate_biases(model):
+    """The tower biases of a DSSMSENet whose SENet gate of one tower is closed for every input.  A gate over one
+    or two fields is ``relu(w1 · relu(w0 · mean))`` with single weights and no bias: where ``w1`` is not positive
+    it reads 0 for every row, that tower's MLP sees 0, its BatchNorms pass their bias 0 to ReLUs at 0, and the
+    tower's embedding is 0; the score, a product of the two towers, is then 0 whatever the other tower does, so
+    no bias of either tower takes a gradient (weight decay moves only the non-zero weights).  The same holds in
+    the JAX package."""
+    gates = [getattr(model, f"{tower}_senet", None) for tower in ("user", "item")]
+    if not any(g is not None and not (g.Dense_1.weight > 0).any() for g in gates):
+        return set()
+    return {k for k, _ in model.named_parameters() if k.startswith(("user_mlp.", "item_mlp.")) and k.endswith(".bias")}
+
+
+def match_against_cpu(name, b):
+    """A fresh model from a seed with its tables redrawn at N(0, 0.3²), on the CPU and a copy on the card
+    (``against_cpu``): the eval scores on ``b`` rows, then one step of a fresh MatchTrainer in the
+    configuration's mode on a partial batch padded to ``b``."""
+    cpu = match_model(name, seed=2, device="cpu")
+    redraw_tables(cpu, seed=4, suffixes=MATCH_TABLES)
+    x, y = match_data(b, seed=3)
+    y = match_labels(name.partition(":")[0], x, y)
+
+    def outputs(m, d):
+        out = m({k: torch.from_numpy(v).to(d) for k, v in x.items()})
+        return {"pos": out[0], "neg": out[1]} if isinstance(out, tuple) else {"scores": out}
+
+    xs, ys = {k: v[: b - 16] for k, v in x.items()}, y[: b - 16]
+
+    def train_step(m, d):
+        with given_routing_start(seed=6):
+            return match_trainer(name, m, d).train_one_epoch(ArrayLoader(xs, ys, batch_size=b), log_interval=0)
+
+    result = against_cpu(name, cpu, outputs, train_step, b, atol_rel=MATCH_SCORE_ATOL_REL)
+    if set(result[4]) - dead_gate_biases(cpu):
+        raise AssertionError(f"{name}: {result[4]} kept their values in a step")
+    return result
+
+
+def match_config(name, all_users, all_items):
+    """One configuration, its tables redrawn: MatchTrainer.train_one_epoch on DeviceCachedLoader (examples/s, ms
+    per step, every parameter moved), a step's device time, host clock and launches, inference_embedding of every user and
+    every movie, and the card against the CPU."""
+    b, base = ML1M["batch"], name.partition(":")[0]
+    model = match_model(name, seed=0, device=CARD)
+    # tables at N(0, 0.3²): from the 1e-4 start DSSMSENet's SENet gates read ~1e-8 and its BatchNorms (eps 1e-5)
+    # give every ReLU an input of 0, so no bias of its towers takes a gradient
+    redraw_tables(model, seed=0, suffixes=MATCH_TABLES)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = match_trainer(name, model, CARD)
+    x, y = match_data(MATCH_STEPS * b, seed=1)
+    loader = DeviceCachedLoader(x, match_labels(base, x, y), batch_size=b, group_size=MATCH_STEPS)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    trainer.train_one_epoch(loader, log_interval=0)  # warm-up
+    seconds, losses = [], []
+    for _ in range(MATCH_EPOCHS):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_one_epoch(loader, log_interval=0))
+        seconds.append(time.perf_counter() - t0)
+    med = float(np.median(seconds))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: training loss not finite: {losses}")
+    unmoved = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+    if set(unmoved) - dead_gate_biases(model):
+        raise AssertionError(f"{name}: {sorted(set(unmoved) - dead_gate_biases(model))} did not move")
+
+    xs, ys, ws = next(loader.device_groups())
+    dx, dy, dw = {k: v[0] for k, v in xs.items()}, ys[0], ws[0]
+    step = lambda: trainer.train_step(dx, dy, dw)  # noqa: E731
+    wall = wall_ms(step, reps=10)
+    kernels = profile_kernels(step, steps=3)
+    device, launches = sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values())
+
+    towers, embedder = model, trainer
+    if base in MATCH_TOWERS:
+        towers = match_model(name, seed=0, device=CARD, towers=True)
+        towers.load_state_dict(model.state_dict())
+        embedder = match_trainer(name, towers, CARD)
+    t0 = time.perf_counter()
+    user_emb = embedder.inference_embedding(towers, "user", ArrayLoader(all_users, batch_size=1024), None)
+    item_emb = embedder.inference_embedding(towers, "item", ArrayLoader(all_items, batch_size=1024), None)
+    embed_s = time.perf_counter() - t0
+    n_users, n_items = len(all_users["user_id"]), len(all_items["movie_id"])
+    if user_emb.shape[0] != n_users or item_emb.shape != (n_items, ML1M["dim"]) or not (np.isfinite(user_emb).all() and np.isfinite(item_emb).all()):
+        raise AssertionError(f"{name}: inference_embedding gave users {user_emb.shape}, items {item_emb.shape}")
+
+    worst, where, max_abs, step_losses, still, kinks = match_against_cpu(name, b)
+    row = dict(name=name, params=n_params, ms_step=med / MATCH_STEPS * 1e3, ex_s=MATCH_STEPS * b / med, device_ms=device, host_ms=wall, idle=1 - device / wall, launches=launches, embed_ms=embed_s * 1e3)
+    print(f"  {name} (mode {MATCH_MODES.get(base, 2)}{', in-batch negatives' if name.endswith(':in_batch') else ''}; {n_params:,} parameters): train {row['ex_s']:,.0f} examples/s, "
+          f"{row['ms_step']:.3f} ms per step (host clock, median of {MATCH_EPOCHS} epochs of {MATCH_STEPS} steps of {b}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; a step: device "
+          f"{device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {row['idle']:.0%}, {launches:.1f} launches; inference_embedding "
+          f"of {n_users} users {tuple(user_emb.shape)} and {n_items} movies {tuple(item_emb.shape)}: {row['embed_ms']:.1f} ms")
+    print(f"    card vs CPU, same weights, B{b}: eval scores max abs err {max_abs:.3e}, worst max |d|/tol: "
+          + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f" (scores rtol {CTR_LOGIT_RTOL} atol {CTR_LOGIT_ATOL} + {MATCH_SCORE_ATOL_REL} x the largest; gradients rtol {CTR_GRAD_RTOL} atol {CTR_GRAD_ATOL_REL} x the model's largest; steps rtol {CTR_GRAD_RTOL} atol "
+          f"{CTR_ADAM_UPDATE_TOL} x the largest step, beyond Adam's share); one step's loss {step_losses[0]:.7f} vs {step_losses[1]:.7f}; the CPU step took the card's ReLU branches, "
+          f"{kinks[0]} of {kinks[1]:,} inputs on the other side of 0 there" + (f"; unmoved behind a closed SENet gate: {still}" if still else ""))
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{name}: the card disagrees with the CPU: {worst}")
+    return row
+
+
+def match_fit_check(name):
+    """fit on rows whose history and positive come from the user's group of movies, then match_evaluation on the
+    card: exact top-10 of each test row's user embedding over every movie, recall@10 above ten times chance."""
+    b, epochs = ML1M["batch"], MATCH_FIT["epochs"][name]
+    floor = MATCH_FIT["chance_times"] * 10 / (ML1M["items"] + 1)
+    x, _ = match_data(MATCH_FIT["rows"], seed=5, clusters=MATCH_FIT["clusters"])
+    y = np.zeros(MATCH_FIT["rows"], np.int64)
+    trainer = match_trainer(name, match_model(name, seed=5, device=CARD), CARD, n_epoch=epochs, model_path=MATCH_MODEL_PATH)
+    t0 = time.perf_counter()
+    trainer.fit(ArrayLoader(x, y, batch_size=b, shuffle=True), log_interval=0)
+    fit_s = time.perf_counter() - t0
+    test, _ = match_data(MATCH_FIT["test"], seed=6, clusters=MATCH_FIT["clusters"])
+    all_items = {"movie_id": np.arange(ML1M["items"] + 1)}
+    user_emb = trainer.inference_embedding(trainer.model, "user", ArrayLoader(test, batch_size=1024), MATCH_MODEL_PATH)
+    item_emb = trainer.inference_embedding(trainer.model, "item", ArrayLoader(all_items, batch_size=1024), MATCH_MODEL_PATH)
+    t0 = time.perf_counter()
+    out = match_evaluation(user_emb, item_emb, {"user_id": np.arange(MATCH_FIT["test"]), "movie_id": test["movie_id"]}, all_items, item_col="movie_id", topk=10, device=CARD)
+    recall = float(out["Recall"][0].split(": ")[1])
+    print(f"  {name} fit, {epochs} epochs of {MATCH_FIT['rows']} rows ({fit_s:.2f} s); match_evaluation on the card ({(time.perf_counter() - t0) * 1e3:.1f} ms) of "
+          f"{MATCH_FIT['test']} test rows over {ML1M['items'] + 1} movies: recall@10 {recall:.4f} (chance {10 / (ML1M['items'] + 1):.4f}; " + ", ".join(v[0] for v in out.values()) + ")")
+    if not recall > floor:
+        raise AssertionError(f"{name}: fit reached a recall@10 of {recall}, not above {floor:.4f}")
+
+
+def matching_phase():
+    t0 = time.perf_counter()
+    all_users, _ = match_data(ML1M["users"], seed=8)
+    all_users["user_id"] = np.arange(1, ML1M["users"] + 1, dtype=np.int32)  # every user once
+    all_users = {k: v for k, v in all_users.items() if not k.startswith("neg")}
+    all_items = {"movie_id": np.arange(ML1M["items"] + 1, dtype=np.int32)}
+    rows = [match_config(name, all_users, all_items) for name in MATCH_CONFIGS]
+    print(f"  summary (ms per step / examples/s host clock; device ms, host ms, idle and launches of one step; inference_embedding ms of {ML1M['users']} users and {ML1M['items'] + 1} movies):")
+    for r in rows:
+        print(f"    {r['name']:14s} {r['ms_step']:8.3f} ms {r['ex_s']:11,.0f} ex/s | device {r['device_ms']:7.4f} host {r['host_ms']:8.4f} idle {r['idle']:4.0%} launches {r['launches']:7.1f} | embed {r['embed_ms']:7.1f} ms")
+    for name in ("YoutubeDNN", "MIND"):
+        match_fit_check(name)
+    print(f"  matching phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def prod_model(device):
+    """YoutubeDNN at the production geometry, random weights from a seed: under "auto" the 8M-row item table
+    fuses (and takes the row-wise update), the 200,000-row user table stays a per-feature table under Adam."""
+    p, d = PROD, PROD["dim"]
+    user = SparseFeature("user_id", p["users"], d)
+    hist = SequenceFeature("hist_item_id", p["items"], d, pooling="mean", shared_with="item_id")
+    item = (SparseFeature("item_id", p["items"], d),)
+    neg = (SequenceFeature("neg_items", p["items"], d, pooling="concat", shared_with="item_id"),)
+    return matching.YoutubeDNN((user, hist), item, neg, {"dims": (64, d)}, generator=torch.Generator().manual_seed(10), device=device)
+
+
+def prod_data(n, seed):
+    """Users uniform, 20-item histories and positives zipf(1.2) over the 8M items."""
+    p, rng = PROD, np.random.default_rng(seed)
+    return {"user_id": rng.integers(0, p["users"], n).astype(np.int32), "hist_item_id": (rng.zipf(1.2, (n, p["seq_len"])) % p["items"]).astype(np.int32),
+            "item_id": (rng.zipf(1.2, n) % p["items"]).astype(np.int32)}
+
+
+def retrieval_phase(item_emb, user_emb, cycles_per_ms):
+    """Exact top-k of SERVE_TOPK["users"] users over every item through brute_force_topk, a user batch bounding the
+    (U, N) score matrix; a batch's product and top-k timed apart beside their bounds; 256 users against the CPU."""
+    k, ub = SERVE_TOPK["k"], SERVE_TOPK["user_batch"]
+    items = torch.from_numpy(item_emb).to(CARD)
+    users = torch.from_numpy(user_emb).to(CARD)
+    n, d, u = items.shape[0], items.shape[1], users.shape[0]
+    brute_force_topk(users[:ub], items, k, batch_size=ub, device=CARD)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = brute_force_topk(users, items, k, batch_size=ub, device=CARD)
+    total = time.perf_counter() - t0
+    batch = users[:ub]
+    dev_ms, wall = timed(lambda: topk_scores(batch, items, k), cycles_per_ms, reps=10)
+    prod_ms, _ = timed(lambda: batch @ items.T, cycles_per_ms, reps=10)
+    score = batch @ items.T
+    topk_ms, _ = timed(lambda: torch.topk(score, k, dim=1), cycles_per_ms, reps=10)
+    del score
+    flop_ms = 2 * ub * n * d / PEAK_FP32_FLOPS * 1e3
+    corpus_ms = n * d * 4 / PEAK_HBM_BYTES * 1e3
+    score_ms = 2 * ub * n * 4 / PEAK_HBM_BYTES * 1e3  # written by the product, read by the top-k
+    batches = -(-u // ub)
+    print(f"  exact top-{k} of {u} users over {n:,} items, {ub} users a batch ({ub * n * 4 / 1e9:.2f} GB of scores): {total * 1e3:.1f} ms in all (host clock, ids and scores "
+          f"back on the host), {total / batches * 1e3:.3f} ms per user batch, {u / total:,.0f} users/s")
+    print(f"    one user batch (timed, median of 10): product + top-k device {dev_ms:.3f} ms (host clock {wall:.3f} ms); the product alone {prod_ms:.3f} ms, the top-k alone "
+          f"{topk_ms:.3f} ms; bounds: operations 2·U·N·D = {2 * ub * n * d / 1e9:.1f} GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s (fp32, TF32 off) {flop_ms:.3f} ms; bytes: the corpus "
+          f"once {corpus_ms:.3f} ms + the score matrix written and read {score_ms:.3f} ms = {corpus_ms + score_ms:.3f} ms (a fused product and top-k: {corpus_ms:.3f} ms); bound "
+          f"{max(flop_ms, corpus_ms + score_ms):.3f} ms by {'operations' if flop_ms > corpus_ms + score_ms else 'bytes'}; all {batches} batches: {batches * dev_ms:.1f} ms of device time "
+          f"against a bound of {batches * max(flop_ms, corpus_ms + score_ms):.1f} ms")
+    m = SERVE_TOPK["check_users"]
+    t0 = time.perf_counter()
+    ref_ids, ref_scores = brute_force_topk(user_emb[:m], item_emb, k, batch_size=SERVE_TOPK["check_batch"], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(scores[:m] - ref_scores).max())
+    distinct = np.all(np.diff(ref_scores, axis=1) < -1e-5, axis=1)
+    same = bool(np.array_equal(ids[:m][distinct], ref_ids[distinct]))
+    print(f"    {m} users against the CPU's top-{k} ({cpu_s:.1f} s there): scores max abs err {err:.3e} (atol 1e-5); ids equal on the {int(distinct.sum())} users whose "
+          f"scores are distinct by more than 1e-5: {same}")
+    if err > 1e-5 or not same:
+        raise AssertionError("the card's top-k disagrees with the CPU's")
+    del items, users
+
+
+def prod_phase(cycles_per_ms):
+    """YoutubeDNN at the production geometry with in-batch negatives and sparse_embedding="adagrad" on
+    DeviceCachedLoader: the first step's rows, examples/s, a step's stages, host synchronisations, memory; the item
+    tower's inference_embedding over every item; exact top-10 retrieval; one dense-Adam step beside it."""
+    t0 = time.perf_counter()
+    p, b = PROD, PROD["batch"]
+    model = prod_model(CARD)
+    trainer = MatchTrainer(model, mode=2, in_batch_neg=True, optimizer_params=CTR_OPT, sparse_embedding="adagrad")
+    (name,) = trainer.sparse_tables
+    table, accum = trainer.sparse_tables[name], trainer.sparse_accums[name]
+    user_table = model.embedding.user_id_table
+    print(f"  model built in {time.perf_counter() - t0:.1f} s: the sparse table {name} {tuple(table.shape)} ({table.numel() * 4 / 1e9:.2f} GB); "
+          f"the user table {tuple(user_table.shape)} under Adam (below \"auto\"'s fuse threshold)")
+    rows = ((p["items"] // 64 + 1) * 64, p["users"] if p["users"] < 65536 else -(-p["users"] // 64) * 64)  # ops/embedding.py's padding
+    if name != "embedding.fused_d64_table" or tuple(table.shape) != (rows[0], 64) or tuple(user_table.shape) != (rows[1], 64):
+        raise AssertionError(f"the production tables are {name} {tuple(table.shape)} and {tuple(user_table.shape)}")
+    x = prod_data(p["steps"] * b, seed=11)
+    loader = DeviceCachedLoader(x, None, batch_size=b, group_size=p["steps"])
+    xs, _, ws = next(loader.device_groups())
+    dx, dw = {k: v[0] for k, v in xs.items()}, ws[0]
+
+    ids = torch.cat([dx["hist_item_id"].reshape(-1), dx["item_id"]]).to(torch.int64)
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=CARD)
+    touched[ids] = True
+    before = table.detach().clone()
+    trainer.train_step(dx, None, dw)
+    check_sparse_tables_left_out(trainer)
+    moved = (table.detach() != before).any(dim=1)
+    n_touched, n_moved, stray = int(touched.sum()), int(moved[touched].sum()), int((moved & ~touched).sum())
+    stray_accum, zero_accum = int(((accum != 0) & ~touched).sum()), int((accum[touched] == 0).sum())
+    print(f"  first step: {ids.numel()} item ids, {n_touched} distinct rows; {n_moved} of them moved, {table.shape[0] - n_touched:,} untouched rows of which {stray} changed, "
+          f"{stray_accum} other accumulators non-zero, {zero_accum} touched accumulators zero; {name}.grad is None")
+    if stray or stray_accum or n_moved != n_touched or zero_accum:
+        raise AssertionError("the sparse step changed rows outside the batch, or left a touched row unchanged")
+    del before, touched, moved
+
+    trainer.train_one_epoch(loader, log_interval=0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(p["epochs"]):
+        t1 = time.perf_counter()
+        losses.append(trainer.train_one_epoch(loader, log_interval=0))
+        seconds.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(seconds))
+    print(f"  sparse adagrad, in-batch negatives ({b - 1} a row), DeviceCachedLoader: {p['steps'] * b / med:,.0f} examples/s, {med / p['steps'] * 1e3:.3f} ms per step (host clock, "
+          f"median of {p['epochs']} epochs of {p['steps']} steps of {b}); train loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak allocated {peak:.3f} GB over the timed epochs")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"production training loss not finite: {losses}")
+
+    model.train()
+
+    def forward():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with record_rows(trainer.sparse_tables) as rec:
+            loss = trainer.loss_fn(dx, None, dw)
+        return loss, rec
+
+    def backward():
+        loss, rec = forward()
+        loss.backward()
+        return rec
+
+    def adam():
+        rec = backward()
+        trainer.optimizer.step()
+        return rec
+
+    stages = {
+        "forward": ("the forward and loss, the recorder open (user and item towers, the (B, B) scores, the sampler's sort, CE)", forward),
+        "backward": ("+ backward (the user table's dense gradient; the recorded rows' gradients)", backward),
+        "adam": ("+ Adam over the rest (the user table and the MLP)", adam),
+        "step": ("train_step (+ the row-wise Adagrad update of the item table)", lambda: trainer.train_step(dx, None, dw)),
+    }
+    walls = {key: wall_ms(fn, reps=10) for key, (_, fn) in stages.items()}
+    t = {}
+    for key, (stage, fn) in stages.items():
+        t[key] = sum(ms for ms, _ in profile_kernels(fn, steps=3).values())
+        print(f"  stage {stage}: device {t[key]:.4f} ms (kernels, torch.profiler, 3 calls), host clock {walls[key]:.4f} ms (median of 10), device idle {1 - t[key] / walls[key]:.0%}")
+    print(f"  by difference (device ms): forward {t['forward']:.4f}, backward {t['backward'] - t['forward']:.4f}, Adam over the rest {t['adam'] - t['backward']:.4f}, "
+          f"row-wise update {t['step'] - t['adam']:.4f}")
+    print(f"  sparse step: {sync_text(count_syncs(lambda: trainer.train_step(dx, None, dw)))}")
+    kernel_breakdown(f"YoutubeDNN production sparse B{b}", lambda: trainer.train_step(dx, None, dw), steps=3, classify=ctr_kernel_class, top=6)
+
+    t1 = time.perf_counter()
+    item_emb = trainer.inference_embedding(model, "item", ArrayLoader({"item_id": np.arange(p["items"], dtype=np.int32)}, batch_size=65536), None)
+    item_s = time.perf_counter() - t1
+    serve = prod_data(SERVE_TOPK["users"], seed=12)
+    user_emb = trainer.inference_embedding(model, "user", ArrayLoader({k: serve[k] for k in ("user_id", "hist_item_id")}, batch_size=b), None)
+    norms = np.linalg.norm(item_emb, axis=1)
+    print(f"  item tower inference_embedding over all {p['items']:,} items: {item_s:.2f} s ({p['items'] / item_s:,.0f} items/s, batches of 65,536, the (N, 64) result back on the host); "
+          f"norms {norms.min():.6f}-{norms.max():.6f}")
+    if item_emb.shape != (p["items"], p["dim"]) or not np.isfinite(item_emb).all() or np.abs(norms - 1).max() > 1e-5:
+        raise AssertionError("the item tower's embeddings are not unit vectors of the expected shape")
+    retrieval_phase(item_emb, user_emb, cycles_per_ms)
+    del item_emb, user_emb
+
+    dense = MatchTrainer(model, mode=2, in_batch_neg=True, optimizer_params=CTR_OPT)
+    dense.train_step(dx, None, dw)  # warm-up: Adam's moments over every table
+    wall = wall_ms(lambda: dense.train_step(dx, None, dw), reps=10)
+    device = sum(ms for ms, _ in profile_kernels(lambda: dense.train_step(dx, None, dw), steps=3).values())
+    _, _, states = optimizer_tensors(dense.optimizer)
+    print(f"  dense Adam step, the same geometry and batch: device {device:.4f} ms (kernels, torch.profiler, 3 calls), host clock {wall:.4f} ms (median of 10), "
+          f"device idle {1 - device / wall:.0%}; Adam state {sum(s.numel() * s.element_size() for s in states) / 1e9:.2f} GB; peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del dense, trainer, model, loader
+    print(f"  production phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1799,10 +2274,14 @@ def main():
     print(f"  DeepFM sparse training phase: {time.perf_counter() - t0:.1f} s")
     print("ranking zoo phase (10 Criteo-shaped and 3 sequence configurations through CTRTrainer; card against CPU; fit):")
     zoo_phase()
+    print("matching phase (the 13 classes at MovieLens-1M's widths through MatchTrainer; card against CPU; fit and match_evaluation):")
+    matching_phase()
+    print("production matching phase (YoutubeDNN, 8M items, in-batch negatives, sparse_embedding=\"adagrad\"; exact top-10 retrieval over 8M items):")
+    prod_phase(cycles_per_ms)
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
-    print("  the port's kernels launched by the DeepFM and ranking zoo phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
+    print("  the port's kernels launched by the DeepFM, ranking zoo and matching phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
-        raise AssertionError(f"the DeepFM or ranking zoo path launched an HSTU attention kernel: {ctr_launches}")
+        raise AssertionError(f"the DeepFM, ranking zoo or matching path launched an HSTU attention kernel: {ctr_launches}")
 
     reset_counts()
     print("HSTU sparse training phase (the full-width untied HSTU, sampled softmax, sparse_embedding=\"adagrad\", through K1 and K2):")

@@ -74,6 +74,24 @@ def test_ctr_trainer_and_device_cached_loader_without_a_card_raise():
     assert DeviceCachedLoader({"a": np.zeros(4, np.int32)}, batch_size=2, device="cpu")._xs["a"].device.type == "cpu"
 
 
+def test_match_trainer_and_retrieval_without_a_card_raise():
+    import numpy as np
+
+    from torch_rechub_tpu_torch.serving import brute_force_topk, builder_factory
+    from torch_rechub_tpu_torch.trainers import MatchTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MatchTrainer(torch.nn.Linear(2, 2))
+    emb = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        brute_force_topk(emb, emb, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        builder_factory("bruteforce").from_embeddings(emb).__enter__()
+    assert brute_force_topk(emb, emb, 1, device="cpu")[0].tolist() == [[0], [1], [2]]
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     import torch.utils.cpp_extension
 

@@ -1,10 +1,10 @@
 """The layer zoo: the prediction head, LR, MLP with flax-semantics BatchNorm,
 FM, CIN, the cross networks (v1, v2, the low-rank mixture), SENet, the
-bilinear interaction, AutoInt's interacting layer, FFM and CEN.
+bilinear interaction, AutoInt's interacting layer, FFM and CEN; the
+multi-interest layers of the matching models, ``MultiInterestSA`` and
+``CapsuleNetwork``.
 
-Counterpart of ``torch_rechub_tpu/basic/layers.py:36-416`` (the
-multi-interest layers, ``MultiInterestSA`` and ``CapsuleNetwork``, come with
-the matching models).  As there, loops over experts, pairs and fields are
+Counterpart of ``torch_rechub_tpu/basic/layers.py:36-416``.  As there, loops over experts, pairs and fields are
 einsums over stacked parameters and index vectors.  flax infers a
 ``Dense``'s input width at its first call; here every layer takes an
 explicit ``in_features``, which the models work out from the feature schema.
@@ -320,6 +320,100 @@ class InteractingLayer(nn.Module):
         if self.residual:
             out = out + self.W_Res(x)
         return F.relu(out)
+
+
+class MultiInterestSA(nn.Module):
+    """Self-attentive multi-interest extraction (Comirec-SA): ``(B, L, D)`` and a ``(B, L, 1)`` mask to ``(B, K, D)``.
+
+    ``W1 (D, hidden)``, ``W2 (hidden, K)`` drawn from U[0, 1) as flax's
+    ``uniform(1.0)``; masked positions take ``-1e9`` before the softmax over L.
+    """
+
+    def __init__(self, embedding_dim: int, interest_num: int, hidden_dim: Optional[int] = None, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        hidden = hidden_dim or embedding_dim * 4
+        self.W1 = param(uniform(1.0), (embedding_dim, hidden), generator, device)
+        self.W2 = param(uniform(1.0), (hidden, interest_num), generator, device)
+
+    def forward(self, seq_emb: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits = torch.einsum("bsd,dk->bsk", torch.tanh(torch.einsum("bse,ed->bsd", seq_emb, self.W1)), self.W2)
+        if mask is not None:
+            logits = logits + -1e9 * (1.0 - mask.to(logits.dtype))
+        attn = torch.softmax(logits.to(torch.float32), dim=1).to(seq_emb.dtype)  # over positions
+        return torch.einsum("bsk,bsd->bkd", attn, seq_emb)
+
+
+def _squash(caps: torch.Tensor) -> torch.Tensor:
+    """Capsule squash ``|v|²/(1+|v|²) · v/|v|``."""
+    norm_sq = (caps * caps).sum(-1, keepdim=True)
+    return (norm_sq / (1.0 + norm_sq)) * caps / torch.sqrt(norm_sq + 1e-9)
+
+
+def routing_start(shape, training: bool, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """MIND's random routing logits: N(0, 1) from ``generator`` in training; at inference a fixed draw
+    from a CPU generator seeded 0, where the JAX package draws from ``PRNGKey(0)`` (so the inference draw
+    is the same on every device, and different from JAX's)."""
+    if training:
+        return torch.randn(shape, generator=generator, device=device)
+    return torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(device)
+
+
+class CapsuleNetwork(nn.Module):
+    """Dynamic-routing capsule multi-interest extraction (MIND, Comirec-DR): ``(B, L, D)`` and a ``(B, L)``
+    mask to ``(B, K, D)``.
+
+    ``bilinear_type`` 0 maps every position by one shared ``Dense_0 (D, D)``
+    (MIND), 1 by ``Dense_0 (D, K·D)``, 2 by a per-position weight
+    ``w (1, L, K·D, D)`` (Comirec-DR).  Routing runs ``routing_times``
+    iterations; every iteration but the last reads the mapped inputs
+    detached (flax's ``stop_gradient``), so only the last carries gradients.
+    Types 1 and 2 start the routing logits at 0; type 0 at N(0, 1)
+    (:func:`routing_start`, or ``routing_weight (B, K, L)`` when given).
+    ``relu_layer`` adds ``relu(Dense(D, D))`` on the capsules.
+    """
+
+    def __init__(self, embedding_dim: int, seq_len: int, bilinear_type: int = 2, interest_num: int = 4, routing_times: int = 3, relu_layer: bool = False, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        d, k = embedding_dim, interest_num
+        self.embedding_dim, self.seq_len, self.bilinear_type = d, seq_len, bilinear_type
+        self.interest_num, self.routing_times, self.relu_layer = k, routing_times, relu_layer
+        if bilinear_type == 0:
+            self.Dense_0 = linear(d, d, generator, device, bias=False)
+        elif bilinear_type == 1:
+            self.Dense_0 = linear(d, d * k, generator, device, bias=False)
+        else:
+            self.w = param(uniform(1.0), (1, seq_len, k * d, d), generator, device)
+        if relu_layer:  # flax names Dense modules in call order
+            self.add_module(f"Dense_{0 if bilinear_type > 1 else 1}", linear(d, d, generator, device, bias=False))
+
+    def forward(self, item_eb: torch.Tensor, mask: torch.Tensor, generator: Optional[torch.Generator] = None, routing_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = item_eb.shape[0]
+        k, l, d = self.interest_num, self.seq_len, self.embedding_dim
+        if self.bilinear_type == 0:
+            hat = self.Dense_0(item_eb).repeat(1, 1, k)
+        elif self.bilinear_type == 1:
+            hat = self.Dense_0(item_eb)
+        else:
+            hat = torch.einsum("lod,bld->blo", self.w[0, :l], item_eb)
+        hat = hat.reshape(b, l, k, d).transpose(1, 2)  # (B, K, L, D)
+        hat_iter = hat.detach()
+        if self.bilinear_type > 0:
+            weight = hat.new_zeros(b, k, l)
+        elif routing_weight is not None:
+            weight = routing_weight.to(hat.dtype)
+        else:
+            weight = routing_start((b, k, l), self.training, generator, hat.device)
+        masked = (mask.reshape(b, 1, l) == 0).expand(b, k, l)
+        capsule = None
+        for i in range(self.routing_times):
+            soft = torch.softmax(weight, dim=-1).masked_fill(masked, 0.0)
+            last = i == self.routing_times - 1
+            capsule = _squash(torch.einsum("bkl,bkld->bkd", soft, hat if last else hat_iter))
+            if not last:
+                weight = weight + torch.einsum("bkld,bkd->bkl", hat_iter, capsule)
+        if self.relu_layer:
+            capsule = F.relu(getattr(self, f"Dense_{0 if self.bilinear_type > 1 else 1}")(capsule))
+        return capsule
 
 
 class FFM(nn.Module):

@@ -1,7 +1,8 @@
 """Losses and regularization.
 
-Counterpart of ``torch_rechub_tpu/basic/loss.py``: ``bce_with_logits`` and
-``mse_loss`` with a per-example weight (a padded batch's padding rows weigh
+Counterpart of ``torch_rechub_tpu/basic/loss.py``: ``bce_with_logits``,
+``mse_loss``, the list-wise ``softmax_cross_entropy`` and the pair-wise
+``bpr_loss`` with a per-example weight (a padded batch's padding rows weigh
 0), computed in float32; ``classify_param`` and ``RegularizationLoss``,
 which sort parameters by name into normalisation (exempt), embedding and
 dense.  The port's ``state_dict`` names keep the words that sort them
@@ -34,6 +35,39 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, weight: Optiona
 def mse_loss(preds: torch.Tensor, targets: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     preds = preds.reshape(targets.shape).to(torch.float32)
     return _weighted_mean((preds - targets.to(preds.dtype)) ** 2, weight)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the last axis with integer ``targets`` (the list-wise matching mode)."""
+    log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(log_probs, -1, targets[..., None].to(torch.int64))[..., 0]
+    return _weighted_mean(nll, weight)
+
+
+def bpr_loss(pos_score: torch.Tensor, neg_score: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bayesian personalised ranking, ``-log sigmoid(pos - neg)``, in three shape cases.
+
+    Equal shapes compare element by element (SASRec's per-position
+    logits); otherwise ``pos`` is flattened to ``(B,)`` and a 1-D ``neg``
+    compares element by element, a 2-D ``neg (B, K)`` against
+    ``pos[:, None]``.  ``weight`` is per sample (the leading axis) and is
+    broadcast over the other axes of the difference, so the mean counts
+    every position of a weighted sample, PAD positions of a sequence too.
+    """
+    pos_score, neg_score = pos_score.to(torch.float32), neg_score.to(torch.float32)
+    if pos_score.shape == neg_score.shape:
+        diff = pos_score - neg_score
+        if weight is not None and diff.ndim > 1:
+            weight = weight.reshape(weight.shape[0], *([1] * (diff.ndim - 1))).expand(diff.shape)
+    else:
+        pos_score = pos_score.reshape(-1)
+        if neg_score.ndim == 1:
+            diff = pos_score - neg_score
+        else:
+            diff = pos_score[:, None] - neg_score
+            if weight is not None:
+                weight = weight[:, None].expand(diff.shape)
+    return _weighted_mean(-torch.nn.functional.logsigmoid(diff), weight)
 
 
 _NORM_MARKERS = ("batchnorm", "layernorm", "groupnorm", "instancenorm", "_norm")

@@ -2,11 +2,15 @@
 
 Counterpart of ``torch_rechub_tpu/basic/metric.py``: the exact tie-aware
 AUC on the host (numpy), and the bucketed AUC whose per-batch score
-histograms add up on the device, so only one scalar reaches the host.
+histograms add up on the device, so only one scalar reaches the host; the
+retrieval metrics of per-user recommendation lists (``topk_metrics``:
+NDCG, MRR, recall, hit and precision at K; diversity, coverage, novelty),
+on the host.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,3 +56,127 @@ def log_loss(y_true, y_pred) -> float:
     y_true = np.asarray(y_true, dtype=np.float64).ravel()
     y_pred = np.clip(np.asarray(y_pred, dtype=np.float64).ravel(), 1e-15, 1 - 1e-15)
     return float(-np.mean(y_true * np.log(y_pred) + (1 - y_true) * np.log(1 - y_pred)))
+
+
+def topk_metrics(y_true, y_pred, topKs=None):
+    """NDCG / MRR / Recall / Hit / Precision at each K over ``{user: [items]}`` dicts.
+
+    Hit is normalised by the total ground-truth count, the others by the
+    number of users; the values are strings ``"Metric@K: value"``, rounded
+    to 4 places.
+    """
+    if topKs is None:
+        topKs = [5]
+    if not isinstance(topKs, (tuple, list)):
+        raise ValueError("topKs wrong, it should be tuple or list")
+    assert len(y_true) == len(y_pred)
+
+    users = list(y_true.keys())
+    n_users = len(users)
+    results = defaultdict(list)
+    for k in topKs:
+        ndcgs = mrrs = hits = precisions = recalls = 0.0
+        gts = 0
+        for u in users:
+            truth = y_true[u]
+            if len(truth) == 0:
+                continue
+            truth_set = set(truth)
+            rec = y_pred[u][:k]
+            rel = np.array([1.0 if it in truth_set else 0.0 for it in rec])
+            discounts = 1.0 / np.log2(np.arange(len(rec)) + 2.0)
+            hit_cnt = float(rel.sum())
+            dcg = float((rel * discounts).sum())
+            idcg = float(discounts[: min(k, len(truth))].sum())
+            first_hit = np.flatnonzero(rel)
+            gts += len(truth)
+            hits += hit_cnt
+            mrrs += 1.0 / (1.0 + first_hit[0]) if first_hit.size else 0.0
+            recalls += hit_cnt / len(truth)
+            precisions += hit_cnt / k
+            if idcg > 0:
+                ndcgs += dcg / idcg
+        results["NDCG"].append(f"NDCG@{k}: {round(ndcgs / n_users, 4)}")
+        results["MRR"].append(f"MRR@{k}: {round(mrrs / n_users, 4)}")
+        results["Recall"].append(f"Recall@{k}: {round(recalls / n_users, 4)}")
+        results["Hit"].append(f"Hit@{k}: {round(hits / gts, 4)}")
+        results["Precision"].append(f"Precision@{k}: {round(precisions / n_users, 4)}")
+    return results
+
+
+def ndcg_score(y_true, y_pred, topKs=None):
+    return topk_metrics(y_true, y_pred, topKs or [5])["NDCG"]
+
+
+def mrr_score(y_true, y_pred, topKs=None):
+    return topk_metrics(y_true, y_pred, topKs or [5])["MRR"]
+
+
+def recall_score(y_true, y_pred, topKs=None):
+    return topk_metrics(y_true, y_pred, topKs or [5])["Recall"]
+
+
+def hit_score(y_true, y_pred, topKs=None):
+    return topk_metrics(y_true, y_pred, topKs or [5])["Hit"]
+
+
+def precision_score(y_true, y_pred, topKs=None):
+    return topk_metrics(y_true, y_pred, topKs or [5])["Precision"]
+
+
+def diversity_score(y_pred, item_embeddings, topKs=None):
+    """Intra-list diversity: the mean pairwise cosine distance inside each list, averaged over users."""
+    if topKs is None:
+        topKs = [5]
+    results = defaultdict(list)
+    emb_is_dict = isinstance(item_embeddings, dict)
+    for k in topKs:
+        per_user = []
+        for u, rec in y_pred.items():
+            embs = []
+            for it in rec[:k]:
+                if emb_is_dict:
+                    if it in item_embeddings:
+                        embs.append(np.asarray(item_embeddings[it], dtype=np.float64))
+                elif it < len(item_embeddings):
+                    embs.append(np.asarray(item_embeddings[it], dtype=np.float64))
+            n = len(embs)
+            if n < 2:
+                continue
+            mat = np.stack(embs)
+            mat = mat / np.maximum(np.linalg.norm(mat, axis=1, keepdims=True), 1e-10)
+            dist_sum = float((1.0 - mat @ mat.T)[np.triu_indices(n, k=1)].sum())
+            per_user.append(dist_sum / (n * (n - 1) / 2))
+        score = round(float(np.mean(per_user)), 4) if per_user else 0.0
+        results["Diversity"].append(f"Diversity@{k}: {score}")
+    return results
+
+
+def coverage_score(y_pred, all_items, topKs=None):
+    """Catalogue coverage: the share of the catalogue that appears in any top-k list."""
+    if topKs is None:
+        topKs = [5]
+    results = defaultdict(list)
+    for k in topKs:
+        rec = set()
+        for items in y_pred.values():
+            rec.update(items[:k])
+        results["Coverage"].append(f"Coverage@{k}: {round(len(rec) / len(all_items), 4)}")
+    return results
+
+
+def novelty_score(y_pred, item_popularity, topKs=None):
+    """Mean self-information ``-log2(popularity)`` of the recommended items, averaged over users."""
+    if topKs is None:
+        topKs = [5]
+    results = defaultdict(list)
+    for k in topKs:
+        per_user = []
+        for items in y_pred.values():
+            rec = items[:k]
+            if len(rec) == 0:
+                continue
+            per_user.append(float(np.mean([-np.log2(max(item_popularity.get(it, 1e-10), 1e-10)) for it in rec])))
+        score = round(float(np.mean(per_user)), 4) if per_user else 0.0
+        results["Novelty"].append(f"Novelty@{k}: {score}")
+    return results

@@ -10,63 +10,23 @@ The encoder layer follows flax's modules, not ``nn.TransformerEncoderLayer``:
 ``MultiHeadDotProductAttention`` puts ``1/sqrt(head_dim)`` on the query and
 masks keys with ``finfo(float32).min``; its attention dropout is one mask
 shared by every row and head; ``LayerNorm`` normalises by
-``E[x²] − E[x]²``.  Their parameters keep flax's names: ``query``, ``key``,
-``value`` and ``out`` are ``nn.Linear``s over the flattened heads, which
-``utils/jax_weights.py`` fills from flax's ``DenseGeneral`` kernels.
+``E[x²] − E[x]²`` (both in ``basic/attention.py``, which SASRec shares).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...basic.attention import LayerNorm, MultiHeadDotProductAttention
 from ...basic.hstu import dropout
 from ...basic.initializers import linear, normal, param
 from ...basic.layers import MLP
 from ...ops.embedding import EmbeddingCollection, squeeze_width
 from .din import embedded_width
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the last axis: ``(x − E[x]) · rsqrt(max(E[x²] − E[x]², 0) + eps) · scale + bias``."""
-
-    def __init__(self, d: int, eps: float = 1e-5, device=None):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(d, device=device))
-        self.bias = nn.Parameter(torch.zeros(d, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-
-
-class MultiHeadDotProductAttention(nn.Module):
-    """flax's self-attention of ``(B, L, d)`` under a boolean ``mask`` broadcast to ``(B, H, L, L)`` (True attends)."""
-
-    def __init__(self, d: int, num_heads: int, dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None, device=None):
-        super().__init__()
-        self.num_heads, self.dropout_rate = num_heads, dropout_rate
-        for name in ("query", "key", "value", "out"):
-            self.add_module(name, linear(d, d, generator, device))
-
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, l, d = x.shape
-        head_dim = d // self.num_heads
-        q, k, v = (m(x).reshape(b, l, self.num_heads, head_dim) for m in (self.query, self.key, self.value))
-        weights = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(head_dim), k)
-        if mask is not None:
-            weights = weights.masked_fill(~mask, torch.finfo(weights.dtype).min)
-        weights = torch.softmax(weights, dim=-1)
-        if self.training and self.dropout_rate > 0.0:  # one (L, L) mask for every row and head
-            keep = torch.rand(weights.shape[-2:], generator=generator, device=x.device) >= self.dropout_rate
-            weights = weights * keep.to(weights.dtype) / (1.0 - self.dropout_rate)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, l, d))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -84,7 +44,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
         drop = lambda t: dropout(t, self.dropout, self.training, generator)  # noqa: E731
-        attn = self.MultiHeadDotProductAttention_0(x, mask, generator)
+        attn = self.MultiHeadDotProductAttention_0(x, mask=mask, generator=generator)
         x = self.LayerNorm_0(x + drop(attn))
         ff = self.Dense_1(drop(F.leaky_relu(self.Dense_0(x), negative_slope=0.01)))
         return self.LayerNorm_1(x + drop(ff))

@@ -10,13 +10,16 @@ optimizer's parameter groups (:func:`step_lr`).
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..basic.loss import classify_param
+from ..basic.tracking import iter_loggers
 from ..ops.sparse_update import record_rows
+from ..utils.data import pad_batch
 from .sparse import apply_sparse_table_updates, init_sparse_opt_state, validate_method
 
 
@@ -202,6 +205,90 @@ class TorchTrainer:
         check_table_rows(state, self.model.state_dict(), target)
         self.model.load_state_dict(state)
         return self.model
+
+
+class DictBatchTrainer(TorchTrainer):
+    """The loop of the trainers whose batches are dicts of arrays (``CTRTrainer``, ``MatchTrainer``): ``loss_fn(x,
+    y, w)`` of a padded batch, ``evaluate(model, loader)`` for early stopping, ``hyperparams`` for the loggers.
+
+    Host batches are padded to the loader's ``batch_size`` by cycling their
+    rows and weighed 0 there; ``steps_per_call`` of them stack into a group,
+    which runs as that many single steps (the JAX package's scan equals it).
+    A loader with ``device_groups`` (``DeviceCachedLoader``) hands its groups
+    over on the device.  Labels keep their dtype unless ``label_dtype``
+    says otherwise.
+    """
+
+    label_dtype = None
+
+    @property
+    def hyperparams(self) -> Dict:
+        return {}
+
+    def _to_device(self, x, *arrays):
+        put = lambda a: torch.as_tensor(np.asarray(a), device=self.device)  # noqa: E731
+        return ({k: put(v) for k, v in x.items()},) + tuple(put(a) for a in arrays)
+
+    def _iter_groups(self, data_loader):
+        """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` on the device."""
+        batch_size = data_loader.batch_size
+        pending = []
+
+        def stacked():
+            xs = {k: np.stack([b[0][k] for b in pending]) for k in pending[0][0]}
+            ys = np.stack([b[1] for b in pending])
+            ws = np.stack([b[2] for b in pending])
+            return self._to_device(xs, ys if self.label_dtype is None else ys.astype(self.label_dtype), ws)
+
+        for x, y in data_loader:
+            pending.append(pad_batch(x, y, batch_size))
+            if len(pending) >= max(1, self.steps_per_call):
+                yield stacked()
+                pending = []
+        if pending:
+            yield stacked()
+
+    def train_one_epoch(self, data_loader, log_interval: int = 10, lr: Optional[float] = None) -> float:
+        """One pass over ``data_loader``; returns the mean step loss (one host read at the end)."""
+        self.set_lr(self.lr0 if lr is None else lr)
+        losses = []
+        n_seen = 0
+        t0 = time.perf_counter()
+        groups = data_loader.device_groups() if hasattr(data_loader, "device_groups") else self._iter_groups(data_loader)
+        for gi, (xs, ys, ws) in enumerate(groups):
+            for s in range(ws.shape[0]):  # a group of n batches runs as n single steps
+                losses.append(self.train_step({k: v[s] for k, v in xs.items()}, None if ys is None else ys[s], ws[s]))
+            n_seen += int(ws.shape[0]) * int(ws.shape[1])
+            if log_interval and (gi + 1) % log_interval == 0:
+                print(f"  train {n_seen} examples, loss {float(torch.stack(losses[-ws.shape[0]:]).mean()):.5f}, {n_seen / (time.perf_counter() - t0):,.0f} ex/s")
+        return float(to_numpy(torch.stack(losses)).mean()) if losses else 0.0
+
+    def fit(self, train_dataloader, val_dataloader=None, log_interval: int = 10):
+        """Epochs under StepLR, early stopping on the validation AUC (the best weights restored), then a checkpoint."""
+        for logger in iter_loggers(self.loggers):
+            logger.log_hyperparams({"n_epoch": self.n_epoch, "learning_rate": self.lr0, **self.hyperparams})
+        for epoch_i in range(self.n_epoch):
+            lr = self.epoch_lr(epoch_i)
+            t0 = time.perf_counter()
+            train_loss = self.train_one_epoch(train_dataloader, log_interval, lr=lr)
+            print(f"epoch: {epoch_i} train loss: {train_loss:.5f} ({time.perf_counter() - t0:.2f}s, lr={lr:g})")
+            for logger in iter_loggers(self.loggers):
+                logger.log_metrics({"train/loss": train_loss, "learning_rate": lr}, step=epoch_i)
+            if val_dataloader:
+                auc = self.evaluate(self.model, val_dataloader)
+                print(f"epoch: {epoch_i} validation auc: {auc:.5f}")
+                for logger in iter_loggers(self.loggers):
+                    logger.log_metrics({"val/auc": auc}, step=epoch_i)
+                # the state_dict holds the BatchNorm running statistics too
+                weights = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+                if self.early_stopper.stop_training(auc, weights):
+                    print(f"validation: best auc: {self.early_stopper.best_auc}")
+                    break
+        if val_dataloader and self.early_stopper.best_weights is not None:
+            self.model.load_state_dict(self.early_stopper.best_weights)
+        self.save()
+        for logger in iter_loggers(self.loggers):
+            logger.finish()
 
 
 def check_table_rows(restored: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor], target: str) -> None:

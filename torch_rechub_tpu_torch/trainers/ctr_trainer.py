@@ -19,21 +19,17 @@ parameters only, the per-feature tables included.
 
 from __future__ import annotations
 
-import time
-from typing import Optional
-
 import numpy as np
 import torch
 
 from ..basic.callback import EarlyStopper
 from ..basic.loss import RegularizationLoss, bce_with_logits
 from ..basic.metric import auc_from_histogram, auc_histogram, auc_score
-from ..basic.tracking import iter_loggers
 from ..utils.data import pad_batch
-from .base import TorchTrainer, to_numpy
+from .base import DictBatchTrainer, to_numpy
 
 
-class CTRTrainer(TorchTrainer):
+class CTRTrainer(DictBatchTrainer):
     """Trains and evaluates a ranking model (dict input -> ``(B,)`` logits) on
     ``device``: the CUDA card unless the caller passes another
     (``device="cpu"``); with no card and no device it raises.
@@ -41,6 +37,8 @@ class CTRTrainer(TorchTrainer):
     ``mesh`` and ``precision="bf16"`` are not ported yet and raise;
     ``batch_size_hint`` is accepted and unused, as in the JAX package.
     """
+
+    label_dtype = np.float32
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
         if precision is not None and str(precision).lower() not in ("f32", "float32"):
@@ -53,9 +51,9 @@ class CTRTrainer(TorchTrainer):
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
         self.steps_per_call = int(steps_per_call)
 
-    def _to_device(self, x, *arrays):
-        put = lambda a: torch.as_tensor(np.asarray(a), device=self.device)  # noqa: E731
-        return ({k: put(v) for k, v in x.items()},) + tuple(put(a) for a in arrays)
+    @property
+    def hyperparams(self):
+        return {"loss_mode": self.loss_mode}
 
     # -- training ------------------------------------------------------------
     def loss_fn(self, x, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -68,70 +66,6 @@ class CTRTrainer(TorchTrainer):
         if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
             loss = loss + self.reg_loss_fn((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables)
         return loss
-
-    def _iter_groups(self, data_loader):
-        """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` on the device."""
-        batch_size = data_loader.batch_size
-        pending = []
-
-        def stacked():
-            xs = {k: np.stack([b[0][k] for b in pending]) for k in pending[0][0]}
-            ys = np.stack([b[1] for b in pending]).astype(np.float32)
-            ws = np.stack([b[2] for b in pending])
-            return self._to_device(xs, ys, ws)
-
-        for x, y in data_loader:
-            pending.append(pad_batch(x, y, batch_size))
-            if len(pending) >= max(1, self.steps_per_call):
-                yield stacked()
-                pending = []
-        if pending:
-            yield stacked()
-
-    def train_one_epoch(self, data_loader, log_interval: int = 10, lr: Optional[float] = None) -> float:
-        """One pass over ``data_loader``; returns the mean step loss (one host read at the end).
-
-        A loader with ``device_groups`` (``DeviceCachedLoader``) hands its
-        groups over on the device; any other is padded and staged here.
-        """
-        self.set_lr(self.lr0 if lr is None else lr)
-        losses = []
-        n_seen = 0
-        t0 = time.perf_counter()
-        groups = data_loader.device_groups() if hasattr(data_loader, "device_groups") else self._iter_groups(data_loader)
-        for gi, (xs, ys, ws) in enumerate(groups):
-            for s in range(ys.shape[0]):  # a group of n batches runs as n single steps
-                losses.append(self.train_step({k: v[s] for k, v in xs.items()}, ys[s], ws[s]))
-            n_seen += int(ys.shape[0]) * int(ys.shape[1])
-            if log_interval and (gi + 1) % log_interval == 0:
-                print(f"  train {n_seen} examples, loss {float(torch.stack(losses[-ys.shape[0]:]).mean()):.5f}, {n_seen / (time.perf_counter() - t0):,.0f} ex/s")
-        return float(to_numpy(torch.stack(losses)).mean()) if losses else 0.0
-
-    def fit(self, train_dataloader, val_dataloader=None, log_interval: int = 10):
-        for logger in iter_loggers(self.loggers):
-            logger.log_hyperparams({"n_epoch": self.n_epoch, "learning_rate": self.lr0, "loss_mode": self.loss_mode})
-        for epoch_i in range(self.n_epoch):
-            lr = self.epoch_lr(epoch_i)
-            t0 = time.perf_counter()
-            train_loss = self.train_one_epoch(train_dataloader, log_interval, lr=lr)
-            print(f"epoch: {epoch_i} train loss: {train_loss:.5f} ({time.perf_counter() - t0:.2f}s, lr={lr:g})")
-            for logger in iter_loggers(self.loggers):
-                logger.log_metrics({"train/loss": train_loss, "learning_rate": lr}, step=epoch_i)
-            if val_dataloader:
-                auc = self.evaluate(self.model, val_dataloader)
-                print(f"epoch: {epoch_i} validation auc: {auc:.5f}")
-                for logger in iter_loggers(self.loggers):
-                    logger.log_metrics({"val/auc": auc}, step=epoch_i)
-                # the state_dict holds the BatchNorm running statistics too
-                weights = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-                if self.early_stopper.stop_training(auc, weights):
-                    print(f"validation: best auc: {self.early_stopper.best_auc}")
-                    break
-        if val_dataloader and self.early_stopper.best_weights is not None:
-            self.model.load_state_dict(self.early_stopper.best_weights)
-        self.save()
-        for logger in iter_loggers(self.loggers):
-            logger.finish()
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()

@@ -1,4 +1,4 @@
-"""Minibatch iterators, as in ``torch_rechub_tpu/utils/data.py``.
+"""Minibatch iterators and data helpers, as in ``torch_rechub_tpu/utils/data.py``.
 
 Batches are dicts of numpy arrays (``ArrayLoader``, ``SeqLoader``), which
 the trainers move to their device, or stacked tensors already on the card
@@ -12,6 +12,11 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def df_to_dict(df) -> Dict[str, np.ndarray]:
+    """A DataFrame as ``{column: np.ndarray}``."""
+    return {col: df[col].to_numpy() for col in df.columns}
 
 
 def _check_lengths(x: Dict[str, np.ndarray], y: Optional[np.ndarray]) -> int:
@@ -193,6 +198,45 @@ class DataGenerator:
         val_loader = ArrayLoader(x_val, y_val, batch_size=batch_size) if x_val is not None else None
         test_loader = ArrayLoader(x_test, y_test, batch_size=batch_size) if x_test is not None else None
         return train_loader, val_loader, test_loader
+
+
+class MatchDataGenerator:
+    """The loaders of retrieval training: train ``(x, y)``, the test users and all items (``x`` only)."""
+
+    def __init__(self, x: Dict[str, np.ndarray], y=None):
+        self.x = {k: np.asarray(v) for k, v in x.items()}
+        self.y = None if y is None else np.asarray(y)
+
+    def generate_dataloader(self, x_test_user: Dict[str, np.ndarray], x_all_item: Dict[str, np.ndarray], batch_size: int = 16, num_workers: int = 0):
+        train_loader = ArrayLoader(self.x, self.y, batch_size=batch_size, shuffle=True)
+        test_loader = ArrayLoader(x_test_user, batch_size=batch_size)
+        item_loader = ArrayLoader(x_all_item, batch_size=batch_size)
+        return train_loader, test_loader, item_loader
+
+
+def pad_sequences(sequences, maxlen=None, dtype="int32", padding="post", truncating="pre", value=0) -> np.ndarray:
+    """Keras-style pad / truncate of ragged sequences to ``(n, maxlen)``."""
+    lengths = [len(s) for s in sequences]
+    if maxlen is None:
+        maxlen = max(lengths) if lengths else 0
+    out = np.full((len(sequences), maxlen), value, dtype=dtype)
+    for i, seq in enumerate(sequences):
+        seq = list(seq)
+        if not seq:
+            continue
+        if truncating == "pre":
+            trunc = seq[-maxlen:]
+        elif truncating == "post":
+            trunc = seq[:maxlen]
+        else:
+            raise ValueError(f"truncating must be pre/post, got {truncating!r}")
+        if padding == "post":
+            out[i, : len(trunc)] = trunc
+        elif padding == "pre":
+            out[i, -len(trunc):] = trunc
+        else:
+            raise ValueError(f"padding must be pre/post, got {padding!r}")
+    return out
 
 
 class SeqLoader:

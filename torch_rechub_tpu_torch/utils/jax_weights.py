@@ -5,7 +5,7 @@ Takes a flax ``params`` tree as nested dicts of numpy arrays (no JAX needed:
 into the port's counterpart module.  The mapping:
 
 - ``Dense.kernel (in, out)`` -> ``Linear.weight (out, in)``; ``Dense.bias`` as is
-- ``MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels (BST): ``query``,
+- ``MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels (BST, SASRec's ``attns_{i}``): ``query``,
   ``key``, ``value`` ``(in, heads, head_dim)`` -> ``Linear.weight (heads·head_dim,
   in)`` with their biases ``(heads, head_dim)`` flattened; ``out`` ``(heads,
   head_dim, out)`` -> ``Linear.weight (out, heads·head_dim)``.  Any other kernel
@@ -20,7 +20,12 @@ into the port's counterpart module.  The mapping:
   ``{feature}_table`` and ``fused_d{dim}_table``, ``Dice``'s ``alpha``,
   ``PReLU``'s ``slope``, the zoo's raw parameters such as ``w_{i}``'s ``b_{i}``,
   ``conv_w_{i}``, ``gate_w``, ``u_{i}``, the bilinear ``w``, the GRU's and
-  AUGRU's matrices, BST's ``pos_embedding``) is copied as is.
+  AUGRU's matrices, BST's ``pos_embedding``; matching's ``convert_user_weight``,
+  the capsule's ``w (1, L, K·D, D)``, ``MultiInterestSA``'s ``W1`` / ``W2``,
+  SINE's nine tables and matrices, NARM's ``a_1``, ``a_2``, ``v``, ``b`` and
+  ``item_embedding``, STAMP's, SASRec's ``position_emb``) is copied as is.
+  flax names a list of submodules ``{attr}_{i}`` (``gru_layers_0``,
+  ``attns_1``), and so do the port's models.
 
 The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
 ``MLP_0/Dense_0``, ``MLP_0/BatchNorm_0``, ...), so no other renaming is needed.
