@@ -91,10 +91,31 @@
    ``inference_embedding`` over all 8M items; exact top-10 retrieval of 8,192
    users over them (``brute_force_topk``, 128 users a batch; the product and
    the top-k timed apart beside their bounds; 256 users against the CPU);
-   one dense-Adam step beside it.  The DeepFM, zoo and matching phases check
-   that none of the port's kernels was launched: no TPU kernel lies on these
-   paths.
-11. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+   one dense-Adam step beside it.
+11. Multi-task through ``MTLTrainer``: SharedBottom, ESMM, MMOE, PLE and AITM
+   at the repo's multi-task widths (``benchmarks/models.py:56-70``) over
+   Ali-CCP's schema (the 23 sparse fields of the committed sample at d16,
+   the sample's vocabularies, and its 8 dense fields), seeded rows with
+   ``_aliccp_frame``'s synthetic click / purchase rule, B4096.  Per class:
+   examples/s on ``DeviceCachedLoader``, a step's device time, host clock,
+   idle share and launches, ``predict``, and one step card against CPU
+   (outputs, task losses, gradients, every parameter's step, BatchNorm
+   statistics).  MMOE under UWL, GradNorm and MetaBalance card against CPU
+   (the loss weights, GradNorm's leaf, MetaBalance's norms); MMOE under UWL
+   with every table fused and ``sparse_embedding="adagrad"`` (the table's
+   step against a dense-gradient reference, host synchronisations); ``fit``
+   of MMOE and PLE to a click AUC above 0.6.
+12. RQ-VAE through ``RQVAETrainer`` at the JAX package's default widths
+   (768-d input, three codebooks of 256, e_dim 64, layers (512, 256, 128),
+   Sinkhorn at 0.003 on the last stage) on 12,101 seeded clustered items:
+   one step card against CPU (loss, every parameter's step, the codes),
+   ``fit`` ms per epoch, a step's device time and idle share,
+   ``generate_semantic_ids`` over every item (ms, the collision rate before
+   and after the retries), the stage-1 and stage-2 codes card against CPU
+   (argmin ties counted).  The DeepFM, zoo, matching, multi-task and RQ-VAE
+   phases check that none of the port's kernels was launched: no TPU kernel
+   lies on these paths.
+13. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -104,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import gc
 import importlib
 import json
@@ -123,8 +145,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_rechub_tpu_torch.basic import layers  # noqa: E402
 from torch_rechub_tpu_torch.basic.features import DenseFeature, SequenceFeature, SparseFeature  # noqa: E402
-from torch_rechub_tpu_torch.models import matching, ranking  # noqa: E402
+from torch_rechub_tpu_torch.models import matching, multi_task, ranking  # noqa: E402
 from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
+from torch_rechub_tpu_torch.models.generative.rqvae import RQVAEModel  # noqa: E402
 from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
@@ -132,10 +155,11 @@ from torch_rechub_tpu_torch.ops.embedding import set_fused_default  # noqa: E402
 from torch_rechub_tpu_torch.ops.sparse_update import pair_sparse_grads, record_rows, rowwise_adagrad_update, sparse_sgd_update  # noqa: E402
 from torch_rechub_tpu_torch.serving import brute_force_topk, match_evaluation  # noqa: E402
 from torch_rechub_tpu_torch.serving.retrieval import topk_scores  # noqa: E402
-from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, SeqTrainer  # noqa: E402
+from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, MTLTrainer, RQVAETrainer, SeqTrainer, mtl_trainer  # noqa: E402
 from torch_rechub_tpu_torch.trainers.sparse import apply_sparse_table_updates  # noqa: E402
 from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, pad_batch  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
+from torch_rechub_tpu_torch.utils import mtl as mtl_utils  # noqa: E402
 from torch_rechub_tpu_torch.utils.match import get_item_sample_weight  # noqa: E402
 
 # the module of the op K3: the package binds the name hstu_attention to the op itself
@@ -2221,6 +2245,382 @@ def prod_phase(cycles_per_ms):
     print(f"  production phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 11. multi-task through MTLTrainer
+# ---------------------------------------------------------------------------
+
+# Ali-CCP's schema, read from the committed sample (benchmarks/data/ali_ccp/ali_ccp_sample.csv, 200 rows): 23 sparse
+# fields at d16 (build_aliccp_multitask_dataset's embed_dim) and the 8 D* dense fields; each vocabulary the
+# sample's largest id + 1, as benchmarks/datasets.py:230-258 (_aliccp_frame) computes it
+ALICCP_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "ali_ccp", "ali_ccp_sample.csv")
+ALICCP_DENSE = ("D109_14", "D110_14", "D127_14", "D150_14", "D508", "D509", "D702", "D853")
+MTL = dict(dim=16, batch=4096, steps=8, epochs=3)
+MTL_TASKS = ("classification", "classification")  # [cvr, ctr], the reference's task order
+# the repo's multi-task defaults (benchmarks/models.py:56-70): bottoms and experts of 64, towers of 32; MMOE 4 experts;
+# PLE one level of 2 specific experts a task and 1 shared; ESMM's two towers of 32
+MTL_CONFIGS = ("SharedBottom", "ESMM", "MMOE", "PLE", "AITM")
+MTL_ADAPTIVE = ("uwl", "gradnorm", "metabalance")
+MTL_FIT = dict(rows=20_000, batch=256, epochs=2, auc=0.6)
+MTL_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_mtl")
+
+
+def aliccp_schema():
+    """``(sparse columns, dense columns, {column: vocabulary})`` of the Ali-CCP sample, read with the csv module."""
+    with open(ALICCP_CSV, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    dense = [c for c in header if c in ALICCP_DENSE]
+    sparse = [c for c in header if c not in dense and c not in ("click", "purchase")]
+    vocab = {c: max(int(r[header.index(c)]) for r in body) + 1 for c in sparse}
+    return sparse, dense, vocab
+
+
+def mtl_features():
+    sparse, dense, vocab = aliccp_schema()
+    return tuple(SparseFeature(c, vocab_size=vocab[c], embed_dim=MTL["dim"]) for c in sparse), tuple(DenseFeature(c) for c in dense)
+
+
+def mtl_model(name, seed, device, fused=False):
+    """One of the five classes at the repo's multi-task widths over Ali-CCP's schema, random weights from a seed
+    (``fused``: every table in one fused parameter).  ESMM takes the features split in half as
+    benchmarks/models.py splits them (its towers read the sparse ones)."""
+    sparse, dense = mtl_features()
+    feats = sparse + dense
+    towers = ({"dims": (32,)}, {"dims": (32,)})
+    kw = dict(generator=torch.Generator().manual_seed(seed), device=device)
+    old = set_fused_default(True) if fused else None
+    try:
+        if name == "SharedBottom":
+            return multi_task.SharedBottom(features=feats, task_types=MTL_TASKS, bottom_params={"dims": (64,)}, tower_params_list=towers, **kw)
+        if name == "MMOE":
+            return multi_task.MMOE(features=feats, task_types=MTL_TASKS, n_expert=4, expert_params={"dims": (64,)}, tower_params_list=towers, **kw)
+        if name == "PLE":
+            return multi_task.PLE(features=feats, task_types=MTL_TASKS, n_level=1, n_expert_specific=2, n_expert_shared=1, expert_params={"dims": (64,)}, tower_params_list=towers, **kw)
+        if name == "AITM":
+            return multi_task.AITM(features=feats, n_task=2, bottom_params={"dims": (64,)}, tower_params_list=towers, **kw)
+        half = len(feats) // 2
+        return multi_task.ESMM(user_features=feats[:half], item_features=feats[half:], cvr_params={"dims": (32,)}, ctr_params={"dims": (32,)}, **kw)
+    finally:
+        if fused:
+            set_fused_default(old)
+
+
+def mtl_data(n, seed, esmm=False):
+    """Seeded rows of Ali-CCP's schema: uniform ids below each vocabulary, normal dense values, and the labels of
+    _aliccp_frame's synthetic rule (benchmarks/datasets.py:252-255): a click from field 101 and D508, then a
+    purchase given the click from the next sparse field of the sample's header (121, where the synthetic schema
+    has 102) and D509.  ``[cvr, ctr]``; ESMM ``[cvr, ctr, ctcvr]`` (examples/ranking/mtl_common.py:36-39)."""
+    sparse, dense, vocab = aliccp_schema()
+    rng = np.random.default_rng(seed)
+    x = {c: rng.integers(0, vocab[c], n).astype(np.int32) for c in sparse}
+    x.update({c: rng.normal(size=n).astype(np.float32) for c in dense})
+    l_click = (x["101"] % 3 == 0) * 1.4 + x["D508"] * 0.5 - 0.6
+    click = (rng.random(n) < 1 / (1 + np.exp(-l_click))).astype(np.float32)
+    l_buy = (x[sparse[1]] % 2) * 1.1 + x["D509"] * 0.4 - 1.2
+    purchase = (click * (rng.random(n) < 1 / (1 + np.exp(-l_buy)))).astype(np.float32)
+    ys = np.stack([purchase, click], axis=1)
+    return x, (np.concatenate([ys, ys[:, :1] * ys[:, 1:2]], axis=1) if esmm else ys)
+
+
+def mtl_tasks(name):
+    return ("classification",) * 3 if name == "ESMM" else MTL_TASKS
+
+
+def mtl_against_cpu(name, b, adaptive=None):
+    """A fresh model from a seed with its tables redrawn, on the CPU and a copy on the card (``against_cpu``): the
+    eval probabilities on ``b`` rows, then one step of a fresh MTLTrainer (``adaptive``) on a partial batch
+    padded to ``b``: the task losses, gradients, every parameter's step, the BatchNorm statistics (one update
+    under every method); the loss weights and MetaBalance's norms.  Returns ``(against_cpu's result,
+    {"card": trainer, "cpu": trainer})``."""
+    cpu = mtl_model(name, seed=2, device="cpu")
+    redraw_tables(cpu, seed=4)
+    x, ys = mtl_data(b, seed=3, esmm=name == "ESMM")
+    xs, yss = {k: v[: b - 96] for k, v in x.items()}, ys[: b - 96]
+    trainers, task_losses = {}, {}
+
+    def outputs(m, d):
+        return {"probabilities": m({k: torch.from_numpy(v).to(d) for k, v in x.items()})}
+
+    def train_step(m, d):  # against_cpu steps the card's copy first
+        key = ("card", "cpu")[len(trainers)]
+        trainers[key] = MTLTrainer(m, mtl_tasks(name), optimizer_params=CTR_OPT, adaptive_params={"method": adaptive} if adaptive else None, device=d)
+        task_losses[key] = trainers[key].train_one_epoch(ArrayLoader(xs, yss, batch_size=b), log_interval=0)
+        return float(np.sum(task_losses[key]))
+
+    result = against_cpu(name + (f" ({adaptive})" if adaptive else ""), cpu, outputs, train_step, b)
+    np.testing.assert_allclose(task_losses["card"], task_losses["cpu"], rtol=CTR_LOSS_RTOL, atol=CTR_LOSS_ATOL)
+    if result[4]:
+        raise AssertionError(f"{name}: {result[4]} kept their values in a step")
+    card, ref = trainers["card"], trainers["cpu"]
+    if adaptive in ("uwl", "gradnorm"):
+        np.testing.assert_allclose(card.loss_weight.detach().cpu().numpy(), ref.loss_weight.detach().numpy(), rtol=0, atol=1e-6)
+    if adaptive == "metabalance":
+        largest = max(float(v.max()) for v in ref.mb_norms.values())
+        for key, v in ref.mb_norms.items():
+            np.testing.assert_allclose(card.mb_norms[key].cpu().numpy(), v.numpy(), rtol=2 * CTR_GRAD_RTOL, atol=CTR_GRAD_ATOL_REL * largest, err_msg=key)
+    return result, trainers
+
+
+def mtl_config(name):
+    """One class: MTLTrainer.train_one_epoch on DeviceCachedLoader (examples/s, ms per step, every parameter moved), a
+    step's device time, host clock, idle share and launches, predict, and the card against the CPU."""
+    b = MTL["batch"]
+    model = mtl_model(name, seed=0, device=CARD)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = MTLTrainer(model, mtl_tasks(name), optimizer_params=CTR_OPT)
+    x, ys = mtl_data(MTL["steps"] * b, seed=1, esmm=name == "ESMM")
+    loader = DeviceCachedLoader(x, ys, batch_size=b, group_size=MTL["steps"])
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    trainer.train_one_epoch(loader, log_interval=0)  # warm-up
+    seconds, losses = [], []
+    for _ in range(MTL["epochs"]):
+        t0 = time.perf_counter()
+        losses.append(trainer.train_one_epoch(loader, log_interval=0))  # ends in a host read of the losses
+        seconds.append(time.perf_counter() - t0)
+    med = float(np.median(seconds))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: training loss not finite: {losses}")
+    unmoved = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+    if unmoved:
+        raise AssertionError(f"{name}: {unmoved} did not move")
+    xs, yss, ws = next(loader.device_groups())
+    dx, dy, dw = {k: v[0] for k, v in xs.items()}, yss[0], ws[0]
+    step = lambda: trainer.train_step(dx, dy, dw)  # noqa: E731
+    wall = wall_ms(step, reps=10)
+    kernels = profile_kernels(step, steps=3)
+    device, launches = sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values())
+    predict_loader = ArrayLoader(x, ys, batch_size=b)
+    trainer.predict(model, predict_loader)  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds = trainer.predict(model, predict_loader)
+        walls.append(time.perf_counter() - t0)
+    pred_s = float(np.median(walls))
+    if preds.shape != (MTL["steps"] * b, len(mtl_tasks(name))) or not (np.isfinite(preds).all() and ((preds >= 0) & (preds <= 1)).all()):
+        raise AssertionError(f"{name}: predict gave {preds.shape}, or probabilities out of [0, 1]")
+    (worst, where, max_abs, step_losses, _, kinks), _ = mtl_against_cpu(name, b)
+    row = dict(name=name, params=n_params, ms_step=med / MTL["steps"] * 1e3, ex_s=MTL["steps"] * b / med, device_ms=device, host_ms=wall, idle=1 - device / wall,
+               launches=launches, predict_ms=pred_s / MTL["steps"] * 1e3, worst=worst)
+    print(f"  {name} ({n_params:,} parameters): train {row['ex_s']:,.0f} examples/s, {row['ms_step']:.3f} ms per step (host clock, median of {MTL['epochs']} epochs of "
+          f"{MTL['steps']} steps of {b}), task losses {np.round(losses[0], 5).tolist()} -> {np.round(losses[-1], 5).tolist()}; a step: device {device:.4f} ms (torch.profiler kernels, 3 steps), "
+          f"host clock {wall:.4f} ms (median of 10), device idle {row['idle']:.0%}, {launches:.1f} launches; predict {row['predict_ms']:.3f} ms per batch")
+    print(f"    card vs CPU, same weights, B{b}: eval probabilities max abs err {max_abs:.3e}, worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f" (probabilities rtol {CTR_LOGIT_RTOL} atol {CTR_LOGIT_ATOL}; gradients rtol {CTR_GRAD_RTOL} atol {CTR_GRAD_ATOL_REL} x the model's largest; steps rtol {CTR_GRAD_RTOL} atol {CTR_ADAM_UPDATE_TOL} x"
+          f" the largest step, beyond Adam's share); one step's summed task losses {step_losses[0]:.7f} vs {step_losses[1]:.7f}; the CPU step took the card's ReLU branches, {kinks[0]} of {kinks[1]:,} inputs on the other side of 0 there")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{name}: the card disagrees with the CPU: {worst}")
+    return row
+
+
+def mtl_adaptive_check(method):
+    """MMOE under UWL, GradNorm or MetaBalance: one step card against CPU, the loss weights and norms."""
+    (worst, where, _, step_losses, _, _), trainers = mtl_against_cpu("MMOE", MTL["batch"], adaptive=method)
+    card = trainers["card"]
+    if method in ("uwl", "gradnorm"):
+        lw = card.loss_weight.detach().cpu().numpy()
+        extra = f"loss weights {lw.tolist()} (CPU {trainers['cpu'].loss_weight.detach().numpy().tolist()}, atol 1e-6)"
+        if method == "gradnorm":
+            leaf = dict(card.model.named_parameters())[card.gradnorm_leaf]
+            extra += f", summing to {float(lw.sum()):.7f}; GradNorm's leaf {card.gradnorm_leaf}, flax {mtl_utils.flax_keystr(card.gradnorm_leaf, leaf.ndim)}"
+            if abs(float(lw.sum()) - 2.0) > 1e-5:
+                raise AssertionError(f"GradNorm's weights sum to {lw.sum()}, not 2")
+    else:
+        norms = {k: v.cpu() for k, v in card.mb_norms.items()}
+        extra = f"MetaBalance's norms of {len(norms)} parameters, largest {max(float(v.max()) for v in norms.values()):.4e}, against the CPU's (rtol {2 * CTR_GRAD_RTOL}, atol {CTR_GRAD_ATOL_REL} x the largest)"
+    print(f"  MMOE {method}: one step card vs CPU, worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f"; summed task losses {step_losses[0]:.7f} vs {step_losses[1]:.7f}; {extra}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"MMOE {method}: the card disagrees with the CPU: {worst}")
+
+
+def mtl_sparse_check():
+    """MMOE under UWL with every table fused and sparse_embedding="adagrad": one step card against CPU from the same
+    weights (the task losses and loss weights; the table's step against a dense-gradient reference, the row-wise
+    Adagrad step of the CPU's dense table gradient of the same loss), 0 host synchronisations a step."""
+    b, lr = MTL["batch"], CTR_OPT["lr"]
+    card = mtl_model("MMOE", seed=7, device=CARD, fused=True)
+    cpu = mtl_model("MMOE", seed=7, device="cpu", fused=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    dense_ref = copy.deepcopy(cpu)
+    x, ys = mtl_data(b - 96, seed=8)
+    trainers = [MTLTrainer(m, MTL_TASKS, optimizer_params=CTR_OPT, adaptive_params={"method": "uwl"}, sparse_embedding="adagrad", device=d) for m, d in ((card, CARD), (cpu, "cpu"))]
+    (name,) = trainers[0].sparse_tables
+    t0 = trainers[1].sparse_tables[name].detach().clone()
+    losses = [t.train_one_epoch(ArrayLoader(x, ys, batch_size=b), log_interval=0) for t in trainers]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=CTR_LOSS_RTOL, atol=CTR_LOSS_ATOL)
+    check_sparse_tables_left_out(trainers[0])
+    lw = [t.loss_weight.detach().cpu().numpy().copy() for t in trainers]
+    np.testing.assert_allclose(lw[0], lw[1], rtol=0, atol=1e-6)
+    # the reference: the dense table gradient of the same loss on the CPU, deduplicated into the row-wise Adagrad update
+    ref_trainer = MTLTrainer(dense_ref, MTL_TASKS, optimizer_params=CTR_OPT, adaptive_params={"method": "uwl"}, device="cpu")
+    dense_ref.train()
+    xp, yp, wp = pad_batch(x, ys, b)
+    dx, dy, dw = ref_trainer._to_device(xp, yp.astype(np.float32), wp)
+    mtl_trainer._aggregate_losses(ref_trainer.task_losses(dense_ref(dx), dy, dw), ref_trainer.loss_weight, "uwl", False).backward()
+    table_grad = dict(dense_ref.named_parameters())[name].grad
+    rows = torch.nonzero(table_grad.abs().amax(1) > 0).reshape(-1)
+    ref_table = t0.clone()
+    rowwise_adagrad_update(ref_table, torch.zeros(t0.shape[0]), rows, table_grad[rows], lr)
+    table_card = trainers[0].sparse_tables[name].detach().cpu()
+    # a row whose exact gradient is 0 (field 126's one id: a constant input, which the BatchNorm after the first
+    # Dense takes out) holds rounding noise, and Adagrad scales any nonzero row to a step of about lr: such a row
+    # is held only to Adagrad's largest step, lr sqrt(D), on both sides
+    noise = table_grad.abs().amax(1) < b * torch.finfo(torch.float32).eps * float(table_grad.abs().max())
+    for t in (table_card, ref_table):
+        if float((t - t0).abs().amax(1)[noise].max()) > lr * math.sqrt(t0.shape[1]) * (1 + 1e-5):
+            raise AssertionError("a sparse table row with a zero gradient took more than Adagrad's largest step")
+    r, moved = step_ratio(table_card[~noise], t0[~noise], ref_table[~noise].double() - t0[~noise].double(), CTR_STEP_RTOL["adagrad"], CTR_GRAD_ATOL_REL)
+    gx, gy, gw = next(DeviceCachedLoader(x, ys, batch_size=b, group_size=1).device_groups())
+    syncs = count_syncs(lambda: trainers[0].train_step({k: v[0] for k, v in gx.items()}, gy[0], gw[0]), steps=2)
+    print(f"  MMOE, UWL, every table fused {tuple(table_card.shape)}, sparse_embedding=\"adagrad\": one step card vs CPU, task losses {np.round(losses[0], 7).tolist()} vs {np.round(losses[1], 7).tolist()}, "
+          f"loss weights {lw[0].tolist()}; the table's step against the row-wise Adagrad step of the CPU's dense table gradient ({len(rows)} rows; {int(noise[rows].sum())} with an exact gradient of 0, held to lr sqrt(D)): max |d|/tol {r:.3f} (largest step {moved:.3e}; "
+          f"rtol {CTR_STEP_RTOL['adagrad']}, atol {CTR_GRAD_ATOL_REL} x the largest step); a train_step: {sync_text(syncs)}")
+    if r > 1.0:
+        raise AssertionError(f"the sparse MTL step's table disagrees with the dense-gradient reference: {r}")
+    if syncs[0]:
+        raise AssertionError(f"a sparse MTL step synchronised with the host {syncs[0]} times")
+
+
+def mtl_fit_check(name):
+    """fit on the learnable rows for MTL_FIT epochs at B256 (early stopping on the click task), then the test AUC of
+    the click task above MTL_FIT["auc"]."""
+    x, ys = mtl_data(MTL_FIT["rows"], seed=5)
+    n_train, n_val = int(0.8 * MTL_FIT["rows"]), int(0.9 * MTL_FIT["rows"])
+
+    def part(lo, hi):
+        return {k: v[lo:hi] for k, v in x.items()}, ys[lo:hi]
+
+    b = MTL_FIT["batch"]
+    trainer = MTLTrainer(mtl_model(name, seed=5, device=CARD), MTL_TASKS, optimizer_params=CTR_OPT, n_epoch=MTL_FIT["epochs"], earlystop_taskid=1, model_path=MTL_MODEL_PATH)
+    t0 = time.perf_counter()
+    log = trainer.fit(ArrayLoader(*part(0, n_train), batch_size=b, shuffle=True), ArrayLoader(*part(n_train, n_val), batch_size=b))
+    fit_s = time.perf_counter() - t0
+    scores = trainer.evaluate(trainer.model, ArrayLoader(*part(n_val, MTL_FIT["rows"]), batch_size=b))
+    print(f"  {name} fit, {MTL_FIT['epochs']} epochs of {n_train} rows at B{b} ({fit_s:.2f} s with validation; validation AUCs [cvr, ctr] {[np.round(s, 5).tolist() for s in log]}): "
+          f"test AUC cvr {scores[0]:.5f}, ctr {scores[1]:.5f}")
+    if not scores[1] > MTL_FIT["auc"]:
+        raise AssertionError(f"{name}: fit reached a click AUC of {scores[1]}, not above {MTL_FIT['auc']}")
+
+
+def mtl_phase():
+    t0 = time.perf_counter()
+    sparse, dense = mtl_features()
+    print(f"  Ali-CCP schema of {os.path.relpath(ALICCP_CSV, os.path.dirname(os.path.abspath(__file__)))}: {len(sparse)} sparse fields at d{MTL['dim']} "
+          f"(vocabularies of {sum(f.vocab_size for f in sparse)} rows in all, the largest {max(f.vocab_size for f in sparse)}), {len(dense)} dense fields")
+    rows = [mtl_config(name) for name in MTL_CONFIGS]
+    print(f"  summary (ms per step / examples/s host clock; device ms, host ms, idle and launches of one step; predict ms per batch of {MTL['batch']}):")
+    for r in rows:
+        print(f"    {r['name']:12s} {r['ms_step']:8.3f} ms {r['ex_s']:11,.0f} ex/s | device {r['device_ms']:7.4f} host {r['host_ms']:8.4f} idle {r['idle']:4.0%} launches {r['launches']:7.1f} | predict {r['predict_ms']:7.3f} ms")
+    for method in MTL_ADAPTIVE:
+        mtl_adaptive_check(method)
+    mtl_sparse_check()
+    for name in ("MMOE", "PLE"):
+        mtl_fit_check(name)
+    print(f"  multi-task phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 12. RQ-VAE through RQVAETrainer
+# ---------------------------------------------------------------------------
+
+# the JAX package's defaults (models/generative/rqvae.py:111-123): in_dim 768, three codebooks of 256, e_dim 64, layers
+# (512, 256, 128); Sinkhorn at 0.003 on the last stage, no k-means init (numpy k-means on 8,192 x 256 clusters is host
+# work, covered by the CPU tests); 12,101 items, the Amazon-Beauty item count TIGER trains RQ-VAE on, as seeded
+# Gaussian clusters in 768-d (the repo holds no item text embeddings); B1024, fit's default
+RQ = dict(items=12_101, clusters=1_000, in_dim=768, batch=1024, epochs=3, sk_epsilons=(0.0, 0.0, 0.003))
+RQ_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_rqvae")
+
+
+def rq_model(seed, device):
+    return RQVAEModel(in_dim=RQ["in_dim"], sk_epsilons=RQ["sk_epsilons"], generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def rq_data(seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(RQ["clusters"], RQ["in_dim"]))
+    return (centers[rng.integers(0, RQ["clusters"], RQ["items"])] + rng.normal(size=(RQ["items"], RQ["in_dim"])) * 0.3).astype(np.float32)
+
+
+def rq_codes_against_cpu(card_model, data):
+    """The nearest codes of stages 1 and 2 of every item on the card against the CPU's from the same weights; a
+    differing code is an argmin tie when the CPU's distances to the two codes lie within fp32 rounding of each
+    other (1e-5 of the distance plus 1e-6), and fails the run otherwise.  Returns ``(stage-1 differences,
+    stage-2 differences, ties)``."""
+    cpu = copy.deepcopy(card_model).cpu().eval()
+    with torch.inference_mode():
+        got = torch.cat([card_model.get_indices(torch.from_numpy(data[s:s + RQ["batch"]]).to(CARD)) for s in range(0, len(data), RQ["batch"])]).cpu()
+        residual = cpu.encode(torch.from_numpy(data))
+        ref = cpu.get_indices(torch.from_numpy(data))
+        ties, diffs = 0, []
+        for i in range(2):
+            emb = getattr(cpu.rq, f"vq_layers_{i}").embedding
+            d = (residual**2).sum(1, keepdim=True) + (emb**2).sum(1)[None, :] - 2 * residual @ emb.T
+            bad = torch.nonzero(got[:, i] != ref[:, i]).reshape(-1)
+            diffs.append(int(bad.numel()))
+            tie = (d[bad, got[bad, i]] - d[bad, ref[bad, i]]).abs() <= 1e-5 * d[bad, ref[bad, i]].abs() + 1e-6
+            ties += int(tie.sum())
+            if not tie.all():
+                raise AssertionError(f"stage {i + 1}: {int((~tie).sum())} codes differ between the card and the CPU beyond an argmin tie")
+            residual = residual - emb[ref[:, i]]
+    return diffs[0], diffs[1], ties
+
+
+def rqvae_phase():
+    """RQVAEModel at the JAX package's default widths through RQVAETrainer: one step card against CPU (loss, every
+    parameter's step, the codes), fit ms per epoch, a step's device time and idle share, generate_semantic_ids over
+    every item (ms, the collision rate before and after the retries), the stage-1 and stage-2 codes card against CPU."""
+    t0 = time.perf_counter()
+    b = RQ["batch"]
+    data = rq_data(seed=0)
+    cpu = rq_model(seed=2, device="cpu")
+    d1, d2, ties = rq_codes_against_cpu(copy.deepcopy(cpu).to(CARD).eval(), data[:b])
+
+    def outputs(m, d):
+        out, rq_loss, idx = m(torch.from_numpy(data[:b]).to(d), use_sk=True)
+        if (idx[:, 2] != 0).any():
+            raise AssertionError("the third stage's Sinkhorn at 0.003 gave a code other than 0: it did not overflow to NaN")
+        return {"reconstruction": out, "rq_loss": rq_loss.reshape(1)}
+
+    def train_step(m, d):
+        return RQVAETrainer(m, optimizer_params=CTR_OPT, device=d, model_path=RQ_MODEL_PATH).train_one_epoch(data[:b], b)
+
+    worst, where, max_abs, losses, still, kinks = against_cpu("RQ-VAE", cpu, outputs, train_step, b)
+    print(f"  one step card vs CPU, B{b}, same weights: eval reconstruction max abs err {max_abs:.3e}; worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f"; loss {losses[0]:.7f} vs {losses[1]:.7f}; ReLU inputs on the other side of 0 there: {kinks[0]} of {kinks[1]:,}" + (f"; unmoved: {still}" if still else "")
+          + f"; stage-1 / stage-2 codes {d1} / {d2} differ ({ties} argmin ties), stage 3 code 0 on both (Sinkhorn at 0.003 overflows)")
+    if max(worst.values()) > 1.0 or still:
+        raise AssertionError(f"RQ-VAE: the card disagrees with the CPU: {worst}, unmoved {still}")
+
+    model = rq_model(seed=0, device=CARD)
+    trainer = RQVAETrainer(model, optimizer_params=CTR_OPT, n_epoch=RQ["epochs"], eval_step=RQ["epochs"], model_path=RQ_MODEL_PATH)
+    t1 = time.perf_counter()
+    best_loss, best_rate = trainer.fit(data, batch_size=b)
+    fit_s = time.perf_counter() - t1
+    xb = torch.from_numpy(data[:b]).to(CARD)
+    step = lambda: trainer.train_step(xb)  # noqa: E731
+    wall = wall_ms(step, reps=10)
+    kernels = profile_kernels(step, steps=3)
+    device, launches = sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values())
+    before = trainer.evaluate(data, b)
+    t1 = time.perf_counter()
+    sids = trainer.generate_semantic_ids(data, batch_size=b)
+    gen_s = time.perf_counter() - t1
+    strs = [str(v) for v in sids.values()]
+    after = (len(strs) - len(set(strs))) / len(strs)
+    print(f"  fit: {RQ['epochs']} epochs of {RQ['items'] // b} steps of {b} ({RQ['items']} items, {RQ['clusters']} clusters in {RQ['in_dim']}-d), {fit_s / RQ['epochs'] * 1e3:.1f} ms per epoch "
+          f"(host clock; the collision rate of the last epoch and the checkpoints included), best loss {best_loss:.5f}, collision rate {best_rate:.5f}; a step: device {device:.4f} ms "
+          f"(torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, {launches:.1f} launches")
+    print(f"  generate_semantic_ids of {RQ['items']} items: {gen_s * 1e3:.1f} ms, {trainer.retry_passes} retry passes (Sinkhorn at 0.003 on the colliding groups' last stage), "
+          f"collision rate {before:.5f} before the retries, {after:.5f} after")
+    d1, d2, ties = rq_codes_against_cpu(model.eval(), data)
+    print(f"  stage-1 and stage-2 codes of every item, card vs CPU from the trained weights: {d1} and {d2} differ, {ties} of them argmin ties (within fp32 rounding)")
+    if not (np.isfinite(best_loss) and len(sids) == RQ["items"]):
+        raise AssertionError("RQ-VAE: fit or generate_semantic_ids failed")
+    print(f"  RQ-VAE phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2278,10 +2678,14 @@ def main():
     matching_phase()
     print("production matching phase (YoutubeDNN, 8M items, in-batch negatives, sparse_embedding=\"adagrad\"; exact top-10 retrieval over 8M items):")
     prod_phase(cycles_per_ms)
+    print("multi-task phase (the 5 classes over Ali-CCP's schema through MTLTrainer; UWL, GradNorm, MetaBalance; sparse tables; card against CPU; fit):")
+    mtl_phase()
+    print("RQ-VAE phase (RQVAEModel at the default widths through RQVAETrainer; generate_semantic_ids; card against CPU):")
+    rqvae_phase()
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
-    print("  the port's kernels launched by the DeepFM, ranking zoo and matching phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
+    print("  the port's kernels launched by the DeepFM, ranking zoo, matching, multi-task and RQ-VAE phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
-        raise AssertionError(f"the DeepFM, ranking zoo or matching path launched an HSTU attention kernel: {ctr_launches}")
+        raise AssertionError(f"the DeepFM, ranking zoo, matching, multi-task or RQ-VAE path launched an HSTU attention kernel: {ctr_launches}")
 
     reset_counts()
     print("HSTU sparse training phase (the full-width untied HSTU, sampled softmax, sparse_embedding=\"adagrad\", through K1 and K2):")

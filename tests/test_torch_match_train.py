@@ -27,7 +27,7 @@ import torch
 
 from test_torch_ctr_model import np_tree
 from test_torch_ctr_train import REG
-from test_torch_cuda_matching import BATCH, D, LOSS_ATOL, LOSS_RTOL, N_ITEMS, N_USERS, SEQ_LEN, build_match, given_routing_start, labels, match_frame
+from test_torch_cuda_matching import BATCH, D, LOSS_ATOL, LOSS_RTOL, N_ITEMS, N_USERS, OUT_ATOL, OUT_RTOL, SEQ_LEN, build_match, given_routing_start, labels, match_frame, mode_of
 from test_torch_cuda_ranking import LR, WD, check_step
 from test_torch_cuda_sparse import step_ratio
 from test_torch_match_models import jax_batch, jax_routing, redrawn
@@ -82,14 +82,8 @@ def step_pair(tmp_path, monkeypatch, name, kw, sparse=None):
     start = given_routing_start(monkeypatch, seed=9)
     jax_routing(monkeypatch, start.numpy())
     model_name = name.partition(":")[0]
-    x, y = match_frame(BATCH - 14, seed=1)
+    jtrainer, trainer, variables, x, y = carried_pair(tmp_path, model_name, kw, sparse)
     y = labels(model_name, x, y)
-    jtrainer = JMatchTrainer(build_match(jmatching, jfeat, model_name), optimizer_params=OPT, model_path=str(tmp_path / "jax"), sparse_embedding=sparse, **kw)
-    jtrainer._ensure_ready(jdata.ArrayLoader(x, y, batch_size=BATCH))
-    variables = redrawn({"params": np_tree(jtrainer.state.params), "batch_stats": np_tree(jtrainer.state.batch_stats)}, seed=3)
-    jtrainer.state = jtrainer.state.replace(params=jax.tree_util.tree_map(jnp.asarray, variables["params"]), batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
-    model = load_flax_params(build_match(tmatching, tfeat, model_name), variables["params"], variables["batch_stats"])
-    trainer = MatchTrainer(model, optimizer_params=OPT, model_path=str(tmp_path / "torch"), sparse_embedding=sparse, device="cpu", **kw)
 
     xp, yp, w = jdata.pad_batch(x, y, BATCH)
     key = jax.random.PRNGKey(0)
@@ -281,3 +275,89 @@ def test_e2e_steps_per_call_trajectory():
         return [trainer.train_one_epoch(ArrayLoader(x_train, y, batch_size=64), log_interval=0) for _ in range(2)]
 
     np.testing.assert_allclose(run(1), run(3), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# evaluate / predict / fit(train, val) in each mode, and sparse tables read outside the gather hooks
+# ---------------------------------------------------------------------------
+
+def carried_pair(tmp_path, name, kw, sparse=None, opt=OPT):
+    """A JAX MatchTrainer and the port's from the same redrawn weights (``name`` as ``build_match`` takes it)."""
+    x, y = match_frame(BATCH - 14, seed=1)
+    jtrainer = JMatchTrainer(build_match(jmatching, jfeat, name), optimizer_params=opt, model_path=str(tmp_path / "jax"), sparse_embedding=sparse, **kw)
+    jtrainer._ensure_ready(jdata.ArrayLoader(x, labels(name, x, y), batch_size=BATCH))
+    variables = redrawn({"params": np_tree(jtrainer.state.params), "batch_stats": np_tree(jtrainer.state.batch_stats)}, seed=3)
+    jtrainer.state = jtrainer.state.replace(params=jax.tree_util.tree_map(jnp.asarray, variables["params"]), batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]))
+    model = load_flax_params(build_match(tmatching, tfeat, name), variables["params"], variables["batch_stats"])
+    trainer = MatchTrainer(model, optimizer_params=opt, model_path=str(tmp_path / "torch"), sparse_embedding=sparse, device="cpu", **kw)
+    return jtrainer, trainer, variables, x, y
+
+
+@pytest.mark.parametrize("name", ("DSSM", "FaceBookDSSM", "YoutubeDNN"))
+def test_evaluate_predict_and_fit_match_jax_in_each_mode(tmp_path, name):
+    """One class per mode (0 DSSM, 1 FaceBookDSSM, 2 YoutubeDNN) on carried weights and 50 rows, padded to 64
+    where a batch is partial: ``predict`` stacks a pair-wise model's ``(pos, neg)`` into ``(2, B)`` per batch and
+    cuts each batch's output to its first ``n`` entries on the first axis; ``evaluate`` scores the first ``n``
+    values of each flattened batch output against the 0/1 labels (a list-wise model's columns mixed, as in
+    JAX).  Outputs within the matching tests' OUT_RTOL / OUT_ATOL, the AUC equal (no pair of scores is
+    that close); then ``fit(train, val)`` runs in the port, evaluating each epoch."""
+    jtrainer, trainer, _, x, y = carried_pair(tmp_path, name, dict(mode=mode_of(name)))
+    for batch_size in (BATCH, 32):  # one padded batch; a full and a padded one
+        jpred = np.asarray(jtrainer.predict(jtrainer.model, jdata.ArrayLoader(x, y, batch_size=batch_size)))
+        pred = trainer.predict(trainer.model, tdata.ArrayLoader(x, y, batch_size=batch_size))
+        assert pred.shape == jpred.shape and pred.dtype == np.float32
+        np.testing.assert_allclose(pred, jpred, rtol=OUT_RTOL, atol=OUT_ATOL)
+        jauc = jtrainer.evaluate(jtrainer.model, jdata.ArrayLoader(x, y, batch_size=batch_size))
+        auc = trainer.evaluate(trainer.model, tdata.ArrayLoader(x, y, batch_size=batch_size))
+        assert 0.0 < auc < 1.0
+        np.testing.assert_allclose(auc, jauc, rtol=0, atol=1e-12)
+    if name == "FaceBookDSSM":
+        assert pred.shape == (4, 32)  # (pos, neg) of 32 rows, then of 18 rows padded to 32
+    trainer.n_epoch = 2
+    trainer.fit(tdata.ArrayLoader(x, labels(name, x, y), batch_size=16), tdata.ArrayLoader(x, y, batch_size=16))
+    assert trainer.early_stopper.best_weights is not None and os.path.exists(tmp_path / "torch" / "model.pt")
+
+
+def test_sparse_table_read_outside_the_hooks_moves_as_in_jax(tmp_path, all_fused):
+    """SASRec's item tower reads the fused table directly (``EmbeddingCollection.table``), outside the gather
+    hooks.  One sparse SGD step (mode 0, user · item scores): the table takes no dense gradient
+    (``.grad is None``), and its rows move by the hooks' gradients alone, as JAX's sparse step moves them,
+    not by the full table gradient (which has the item tower's part too).  SGD at lr 0.05, so that part's
+    step stands far above the tolerance."""
+    lr = 0.05
+    jtrainer, trainer, variables, x, y = carried_pair(tmp_path, "SASRec:towers", dict(mode=0), sparse="sgd", opt={"lr": lr, "weight_decay": WD})
+    (table_name,) = trainer.sparse_tables
+    assert table_name == "item_emb.fused_d8_table"
+    before = flax_to_state_dict(variables["params"])[table_name]
+    xp, yp, w = jdata.pad_batch(x, y, BATCH)
+
+    def jloss(p):  # the dense loss: the item tower's read of the table takes its gradient here
+        out, _ = jtrainer.model.apply({"params": p, "batch_stats": variables["batch_stats"]}, jax_batch(xp), training=True, mutable=["batch_stats"])
+        from torch_rechub_tpu.basic.loss import bce_with_logits as jbce
+        return jbce(out, jnp.asarray(yp), jnp.asarray(w))
+
+    dense_grad = flax_to_state_dict(np_tree(jax.jit(jax.grad(jloss))(variables["params"])))[table_name]
+    jloss_step = jtrainer.train_one_epoch(jdata.ArrayLoader(x, y, batch_size=BATCH), log_interval=0)
+    loss = trainer.train_one_epoch(tdata.ArrayLoader(x, y, batch_size=BATCH), log_interval=0)
+    np.testing.assert_allclose(loss, jloss_step, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    table = trainer.sparse_tables[table_name]
+    assert table.grad is None
+    after = flax_to_state_dict(np_tree(jtrainer.state.params))[table_name]
+    np.testing.assert_allclose(table.detach().numpy(), after.numpy(), rtol=TABLE_RTOL, atol=TABLE_ATOL)
+    items = np.unique(x["item_id"])
+    dense_step = before.numpy() - lr * dense_grad.numpy()
+    assert np.abs(after.numpy()[items] - dense_step[items]).max() > 100 * TABLE_ATOL  # the item tower's gradient is dropped
+
+
+@pytest.mark.parametrize("name", ("NARM", "STAMP", "SINE"))
+def test_raw_item_tables_are_dense_in_both_packages(tmp_path, all_fused, name):
+    """NARM, STAMP and SINE read their items from a raw ``item_embedding`` parameter, not an
+    ``EmbeddingCollection`` table: neither package has a sparse table to update, and both refuse
+    ``sparse_embedding``; their towers' reads stay dense."""
+    x, y = match_frame(16, seed=1)
+    with pytest.raises(ValueError, match="fused"):
+        JMatchTrainer(build_match(jmatching, jfeat, name), mode=2, sparse_embedding="sgd", model_path=str(tmp_path))._ensure_ready(jdata.ArrayLoader(x, labels(name, x, y), batch_size=16))
+    model = build_match(tmatching, tfeat, name)
+    assert "item_embedding" in dict(model.named_parameters())
+    with pytest.raises(ValueError, match="no sparse-capable tables"):
+        MatchTrainer(model, mode=2, sparse_embedding="sgd", device="cpu")

@@ -92,6 +92,22 @@ def test_match_trainer_and_retrieval_without_a_card_raise():
     assert brute_force_topk(emb, emb, 1, device="cpu")[0].tolist() == [[0], [1], [2]]
 
 
+def test_mtl_and_rqvae_trainers_without_a_card_raise():
+    from torch_rechub_tpu_torch.models.generative.rqvae import RQVAEModel
+    from torch_rechub_tpu_torch.trainers import MTLTrainer, RQVAETrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MTLTrainer(torch.nn.Linear(2, 2), ("classification",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MTLTrainer(torch.nn.Linear(2, 2), ("classification", "classification"), adaptive_params={"method": "uwl"})
+    model = RQVAEModel(in_dim=4, num_emb_list=(2,), e_dim=2, layers=(3,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RQVAETrainer(model)
+    assert RQVAETrainer(model, device="cpu").device.type == "cpu"
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     import torch.utils.cpp_extension
 

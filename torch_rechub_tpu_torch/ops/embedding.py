@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..basic.features import DenseFeature, Feature, SequenceFeature, SparseFeature, table_name
-from .sparse_update import gather_rows
+from .sparse_update import gather_rows, outside_hooks
 
 # The process-wide default of EmbeddingCollection.fused.
 _FUSED_DEFAULT = ["auto"]
@@ -189,12 +189,17 @@ class EmbeddingCollection(nn.Module):
             self.register_parameter(f"fused_d{dim}_table", nn.Parameter(w.to(device)))
 
     def table(self, name: str) -> torch.Tensor:
-        """The ``(V, D)`` table of one owner feature (a slice if fused or row-padded)."""
+        """The ``(V, D)`` table of one owner feature (a slice if fused or row-padded).
+
+        Inside a sparse step that owns the table, the slice is of the
+        detached table (``ops.sparse_update.outside_hooks``): a direct read
+        takes no gradient there, as in the JAX package's sparse step.
+        """
         v = self.layout.specs[name].vocab_size
         if name in self.layout.offsets:
             dim, off = self.layout.offsets[name]
-            return getattr(self, f"fused_d{dim}_table")[off: off + v]
-        return getattr(self, f"{name}_table")[:v]
+            return outside_hooks(getattr(self, f"fused_d{dim}_table"))[off: off + v]
+        return outside_hooks(getattr(self, f"{name}_table"))[:v]
 
     def lookup(self, x: Mapping[str, torch.Tensor], feature) -> torch.Tensor:
         """Gather the rows of one sparse or sequence feature; the padding_idx row reads as 0."""

@@ -17,7 +17,8 @@ gather, HSTU's untied token table, the sampled softmax's candidate rows)
 reads the rows of the detached table into a leaf that requires grad and
 records ``(table name, ids, leaf)``.  After ``backward`` each leaf holds
 ``d loss / d rows``; the table itself takes no gradient, so no dense
-``(V, D)`` gradient is formed.
+``(V, D)`` gradient is formed.  A read of an owned table outside the hooks
+(:func:`outside_hooks`) takes no gradient, as in the JAX package.
 
 Ids are recorded as the JAX package sows them: unwrapped (``ids + offset``
 in a fused table, possibly negative).  The dedup runs on those, and they
@@ -172,6 +173,18 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, gather=None) -> torch.Te
     if rec is not None and rec.owns(table):
         return rec.gather(table, ids)
     return table[ids] if gather is None else gather(table, ids)
+
+
+def outside_hooks(table: torch.Tensor) -> torch.Tensor:
+    """``table`` for a read outside the gather hooks (a tower that indexes it directly).
+
+    Inside a :func:`record_rows` of this thread that owns ``table``, the
+    detached table: the JAX package's sparse step takes the table's
+    gradient from the hooks only and drops such a read's, and no dense
+    ``(V, D)`` gradient forms.  Else ``table`` as it is.
+    """
+    rec = getattr(_STATE, "recorder", None)
+    return table.detach() if rec is not None and rec.owns(table) else table
 
 
 @contextlib.contextmanager

@@ -146,7 +146,9 @@ class TorchTrainer:
     the per-epoch learning rate, the training step over the subclass's
     ``loss_fn`` and the ``state_dict`` checkpoint."""
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = ()):
+        # extra_params: ``(name, tensor)`` pairs outside the model that the dense optimizer steps too
+        # (MTLTrainer's loss weights)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         # sparse_embedding: the tables the row-wise updates own, their
@@ -159,7 +161,7 @@ class TorchTrainer:
         dense = list(self.model.named_parameters())
         if self.sparse_embedding:
             self.sparse_tables, self.sparse_accums, dense = init_sparse_opt_state(self.model, sparse_names)
-        self.optimizer, self.lr0 = make_optimizer(dense, optimizer_params)
+        self.optimizer, self.lr0 = make_optimizer(dense + list(extra_params), optimizer_params)
         self.lr = self.lr0  # the learning rate of the epoch (set_lr); the sparse table updates read it
         self.scheduler_params = scheduler_params
         self.n_epoch = n_epoch

@@ -101,9 +101,11 @@ class MatchTrainer(DictBatchTrainer):
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
-    def _outputs(self, data_loader, mode=None):
-        """``(fp32 outputs, labels)``: the model's outputs in eval mode on every real row of ``data_loader``
-        (one tensor on the device) and the loader's labels (numpy, or None), in one pass."""
+    def _outputs(self, data_loader, take, mode=None):
+        """``(fp32 outputs, labels)`` of ``data_loader``, the model in eval mode, read as the
+        JAX package reads them: a ``(pos, neg)`` pair stacked (its ``to_numpy``), then ``take(out, n)`` of each
+        padded batch's output (``n`` its real rows), concatenated on the device; the loader's labels (numpy,
+        or None), in one pass."""
         self.model.eval()
         out, targets = [], []
         for batch in data_loader:
@@ -111,19 +113,31 @@ class MatchTrainer(DictBatchTrainer):
             n = len(next(iter(x.values())))
             x, _, _ = pad_batch(x, None, data_loader.batch_size)
             (x,) = self._to_device(x)
-            out.append(self.model(x, mode=mode).to(torch.float32)[:n])
+            scores = self.model(x, mode=mode)
+            scores = torch.stack(scores) if isinstance(scores, tuple) else scores
+            out.append(take(scores.to(torch.float32), n))
             if y is not None:
                 targets.append(np.asarray(y).reshape(-1)[:n])
         return torch.cat(out), (np.concatenate(targets) if targets else None)
 
     def evaluate(self, model, data_loader) -> float:
-        """The validation AUC of the raw scores (mode 0's labelled data; ``model`` is taken for the JAX package's API)."""
-        preds, targets = self._outputs(data_loader)
-        return auc_score(targets, to_numpy(preds.reshape(-1)))
+        """The validation AUC (``model`` is taken for the JAX package's API).
+
+        As in the JAX package, each padded batch's output is flattened and
+        its first ``n`` values are scored against the ``n`` labels: mode 0's
+        one score per row; a pair-wise model's positive scores (the pair is
+        stacked ``(2, B, ...)``); a list-wise model's ``(B, 1 + n_neg)``
+        scores row after row, so the positive column mixes with the others
+        (a mirrored quirk, ``ROADMAP.md`` queue 3).
+        """
+        preds, targets = self._outputs(data_loader, lambda out, n: out.reshape(-1)[:n])
+        return auc_score(targets, to_numpy(preds))
 
     def predict(self, model, data_loader) -> np.ndarray:
-        """The model's fp32 training output on every row of ``data_loader`` (one host read at the end)."""
-        return to_numpy(self._outputs(data_loader)[0])
+        """The model's fp32 output on every batch of ``data_loader`` (one host read at the end): each padded
+        batch's output cut to its first ``n`` entries on the first axis, as the JAX package cuts it, so a
+        ``(pos, neg)`` pair comes back stacked ``(2, B, ...)`` per batch."""
+        return to_numpy(self._outputs(data_loader, lambda out, n: out[:n])[0])
 
     def inference_embedding(self, model, mode: str, data_loader, model_path) -> np.ndarray:
         """One tower's embeddings of every row of ``data_loader`` (``mode="user" | "item"``), from the
@@ -134,4 +148,4 @@ class MatchTrainer(DictBatchTrainer):
             state = torch.load(target, map_location=self.device, weights_only=True)
             check_table_rows(state, self.model.state_dict(), target)
             self.model.load_state_dict(state)
-        return to_numpy(self._outputs(data_loader, mode=mode)[0])
+        return to_numpy(self._outputs(data_loader, lambda out, n: out[:n], mode=mode)[0])

@@ -30,6 +30,15 @@ into the port's counterpart module.  The mapping:
 The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
 ``MLP_0/Dense_0``, ``MLP_0/BatchNorm_0``, ...), so no other renaming is needed.
 
+RQ-VAE's codebooks ``rq/vq_layers_{i}/embedding`` are raw ``(n_e, e_dim)``
+parameters, copied as they are (not transposed as a Dense kernel).
+
+A dense JAX ``MTLTrainer``'s state loads by :func:`load_mtl_state`:
+``params``, ``batch_stats``, the Adam moments of the model and of UWL's or
+GradNorm's ``loss_weight``, the weights themselves, MetaBalance's
+``mb_norms`` (in ``tree_leaves`` order, :func:`tree_leaf_names`),
+``initial_task_loss`` and the step count.
+
 ``proj1``'s output columns keep the reference's q | k | u | v order, which
 ``HSTULayer`` splits the same way.
 
@@ -49,7 +58,7 @@ takes nested or flat trees, and its accumulators into the trainer's
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,3 +152,55 @@ def load_sparse_accumulators(accumulators: Dict[str, torch.Tensor], accums: Mapp
     for name, acc in accumulators.items():
         acc.copy_(src[name].to(device=acc.device, dtype=acc.dtype))
     return accumulators
+
+
+def tree_leaf_names(params: Mapping[str, Any]) -> List[str]:
+    """The port's names of a flax ``params`` tree's leaves (nested, or flat with path-tuple keys) in
+    ``jax.tree_util.tree_leaves`` order: dict keys sorted at every level."""
+    names: List[str] = []
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                walk(node[key], path + (key,))
+        else:
+            names.extend(flax_to_state_dict({path: node}))
+
+    walk(nest(params), ())
+    return names
+
+
+def load_mtl_state(trainer, params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None, mu: Optional[Mapping[str, Any]] = None, nu: Optional[Mapping[str, Any]] = None, count=None,
+                   loss_weight=None, mb_norms: Optional[Sequence[Any]] = None, initial_task_loss=None, step=None):
+    """Carry a dense JAX ``MTLTrainer``'s state into the port's ``MTLTrainer``, in place: ``params`` and
+    ``batch_stats``; optax's Adam moments ``mu`` / ``nu`` of its trainable tree ``{"model": ..., "loss_weight":
+    ...}`` and their ``count``; ``loss_weight``; ``mb_norms``, a tuple of ``(n_task,)`` arrays in ``tree_leaves``
+    order of ``params``; ``initial_task_loss``; the step count.  What is not given is left as it is."""
+    load_flax_params(trainer.model, params, batch_stats)
+    if mu is not None:
+        load_optax_adam_state(trainer.optimizer, trainer.model, mu["model"], nu["model"], count)
+        if "loss_weight" in mu:
+            lw = trainer.loss_weight
+            trainer.optimizer.state[lw] = {
+                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+                "exp_avg": torch.tensor(np.asarray(mu["loss_weight"]), dtype=lw.dtype, device=lw.device),
+                "exp_avg_sq": torch.tensor(np.asarray(nu["loss_weight"]), dtype=lw.dtype, device=lw.device),
+            }
+
+    def put(dst, src):
+        dst.copy_(torch.tensor(np.asarray(src), dtype=dst.dtype, device=dst.device))
+
+    with torch.no_grad():
+        if loss_weight is not None:
+            put(trainer.loss_weight, loss_weight)
+        if mb_norms is not None:
+            names = tree_leaf_names(params)
+            if set(names) != set(trainer.mb_norms) or len(names) != len(mb_norms):
+                raise ValueError(f"mb_norms do not cover the model's parameters: {sorted(set(names) ^ set(trainer.mb_norms))}")
+            for name, norms in zip(names, mb_norms):
+                put(trainer.mb_norms[name], norms)
+        if initial_task_loss is not None:
+            put(trainer.initial_task_loss, initial_task_loss)
+    if step is not None:
+        trainer.n_steps = int(np.asarray(step))
+    return trainer
