@@ -112,10 +112,32 @@
    ``fit`` ms per epoch, a step's device time and idle share,
    ``generate_semantic_ids`` over every item (ms, the collision rate before
    and after the retries), the stage-1 and stage-2 codes card against CPU
-   (argmin ties counted).  The DeepFM, zoo, matching, multi-task and RQ-VAE
-   phases check that none of the port's kernels was launched: no TPU kernel
-   lies on these paths.
-13. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+   (argmin ties counted).
+13. HLLM and TIGER.  (a) ``HLLMModel`` at the JAX package's defaults (d 512,
+   8 heads, 4 layers, L256, 2048 sqrt time buckets, temperature 0.07, the
+   relative bias) on the HSTU cell's geometry (V40,000, B8), with seeded
+   clustered stand-ins for the frozen LLM item table and histories that
+   stay in one cluster: the card against the CPU at B2 (logits; one
+   ``SeqTrainer`` step of the dense, chunked 8192 and sampled (1024 given
+   negatives) losses: loss, gradients, every parameter's step; the frozen
+   table unmoved); ``evaluate`` ms per request, tokens/s, ``predict_logits``
+   ms per batch; a step's host clock, device time, idle share and launches
+   (chunked, dense, sampled); ``fit`` on ``SequenceDataGenerator``'s split to
+   a held-out top-1 above ten times chance.  (b) ``TIGERModel`` at the
+   paper's widths (d 128, 4 + 4 layers of 4 heads of 32, d_ff 1024, dropout
+   0.1, B256) on semantic ids from ``RQVAETrainer``'s k-means init (no
+   epoch) over the RQ-VAE phase's items, samples from ``build_tiger_samples`` over seeded
+   histories at Amazon-Beauty's counts (repeat purchases inside one
+   cluster): the card against the CPU (loss, logits, one
+   ``torch.optim.AdamW`` step); a step's host clock, device time, idle
+   share and launches; 900 steps; ``generate`` with a trie, 10 beams, 3 new
+   tokens (ms per batch of 256 users, users/s) to a recall@10 over the
+   semantic ids above ten times chance and a recall@1 above three times
+   that of knowing the target's cluster; the card's beams against the CPU's
+   up to near-ties.  The DeepFM, zoo, matching,
+   multi-task, RQ-VAE, HLLM and TIGER phases check that none of the port's
+   kernels was launched: no TPU kernel lies on these paths.
+14. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 throughout, TF32 off.
@@ -146,9 +168,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_rechub_tpu_torch.basic import layers  # noqa: E402
 from torch_rechub_tpu_torch.basic.features import DenseFeature, SequenceFeature, SparseFeature  # noqa: E402
 from torch_rechub_tpu_torch.models import matching, multi_task, ranking  # noqa: E402
-from torch_rechub_tpu_torch.models.generative import HSTUModel  # noqa: E402
+from torch_rechub_tpu_torch.models.generative import HLLMModel, HSTUModel, TIGERModel  # noqa: E402
 from torch_rechub_tpu_torch.models.generative.rqvae import RQVAEModel  # noqa: E402
+from torch_rechub_tpu_torch.models.generative.tiger import generate  # noqa: E402
 from torch_rechub_tpu_torch.models.ranking import DeepFM  # noqa: E402
+from torch_rechub_tpu_torch.ops import chunked_ce  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import _build, hstu_attention  # noqa: E402
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab  # noqa: E402
 from torch_rechub_tpu_torch.ops.embedding import set_fused_default  # noqa: E402
@@ -157,10 +181,11 @@ from torch_rechub_tpu_torch.serving import brute_force_topk, match_evaluation  #
 from torch_rechub_tpu_torch.serving.retrieval import topk_scores  # noqa: E402
 from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, MTLTrainer, RQVAETrainer, SeqTrainer, mtl_trainer  # noqa: E402
 from torch_rechub_tpu_torch.trainers.sparse import apply_sparse_table_updates  # noqa: E402
-from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, pad_batch  # noqa: E402
+from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, SequenceDataGenerator, pad_batch, pad_sequences  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
 from torch_rechub_tpu_torch.utils import mtl as mtl_utils  # noqa: E402
 from torch_rechub_tpu_torch.utils.match import get_item_sample_weight  # noqa: E402
+from torch_rechub_tpu_torch.utils.tiger import Trie, build_tiger_samples, semantic_id_vocab  # noqa: E402
 
 # the module of the op K3: the package binds the name hstu_attention to the op itself
 attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
@@ -769,7 +794,11 @@ def profile_kernels(fn, steps=3):
 
 def kernel_breakdown(name, fn, steps=3, classify=kernel_class, top=0):
     """Device time per call of ``fn`` by kernel class, and its ``top`` kernels by name; returns the kernels' total ms per call."""
-    kernels = profile_kernels(fn, steps)
+    return print_breakdown(name, profile_kernels(fn, steps), steps, classify, top)
+
+
+def print_breakdown(name, kernels, steps, classify=kernel_class, top=0):
+    """Print ``profile_kernels``' ``kernels`` by class, and the ``top`` kernels by name; returns their total ms per call."""
     classes = {}
     for key, (ms, n) in kernels.items():
         total_ms, total_n = classes.get(classify(key), (0.0, 0))
@@ -1637,12 +1666,13 @@ def kink_branches(masks, replay):
         torch.relu, F.leaky_relu = relu, leaky
 
 
-def against_cpu(label, cpu, outputs, train_step, b, atol_rel=0.0):
+def against_cpu(label, cpu, outputs, train_step, b, atol_rel=0.0, first_update=adam_update):
     """A model on the CPU against a copy on the card: ``outputs(model, device)``, a dict of output tensors in
     eval mode (max abs err of the first; the absolute tolerance ``CTR_LOGIT_ATOL`` plus ``atol_rel`` times the
     output's largest magnitude), then ``train_step(model, device)``, one step of a fresh trainer on a
     partial batch padded to ``b`` returning its loss: the loss, every gradient, every parameter's step (after
-    minus before, ``step_ratio``, less what Adam's first update makes of the gradients' difference) and the
+    minus before, ``step_ratio``, less what the first update ``first_update(g, p0)`` (Adam's, with weight decay in
+    the gradient, unless given) makes of the gradients' difference) and the
     BatchNorm statistics.  A gradient is a sum over the rows that may cancel, so its error scales with the
     terms and not with the sum: the absolute part of its tolerance is relative to the model's largest gradient.
     The CPU's step takes the branches the card's ReLUs took (``kink_branches``).  The Dense biases in front of a
@@ -1685,7 +1715,7 @@ def against_cpu(label, cpu, outputs, train_step, b, atol_rel=0.0):
                 raise AssertionError(f"{label} {pname} moved on the card and not on the CPU")
             still.append(pname)
             continue
-        carried = lr * (adam_update(g, p0[pname]) - adam_update(r, p0[pname])).abs()
+        carried = lr * (first_update(g, p0[pname]) - first_update(r, p0[pname])).abs()
         step = step_ratio(a, p0[pname], d_ref, CTR_GRAD_RTOL, CTR_ADAM_UPDATE_TOL, carried=carried)[0]
         if step > worst["step"]:
             worst["step"], where["step"] = step, pname
@@ -2538,9 +2568,11 @@ def rq_model(seed, device):
 
 
 def rq_data(seed):
+    """``(items (12,101, 768) fp32, each item's cluster)``."""
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(RQ["clusters"], RQ["in_dim"]))
-    return (centers[rng.integers(0, RQ["clusters"], RQ["items"])] + rng.normal(size=(RQ["items"], RQ["in_dim"])) * 0.3).astype(np.float32)
+    cluster = rng.integers(0, RQ["clusters"], RQ["items"])
+    return (centers[cluster] + rng.normal(size=(RQ["items"], RQ["in_dim"])) * 0.3).astype(np.float32), cluster
 
 
 def rq_codes_against_cpu(card_model, data):
@@ -2573,7 +2605,7 @@ def rqvae_phase():
     every item (ms, the collision rate before and after the retries), the stage-1 and stage-2 codes card against CPU."""
     t0 = time.perf_counter()
     b = RQ["batch"]
-    data = rq_data(seed=0)
+    data, _ = rq_data(seed=0)
     cpu = rq_model(seed=2, device="cpu")
     d1, d2, ties = rq_codes_against_cpu(copy.deepcopy(cpu).to(CARD).eval(), data[:b])
 
@@ -2619,6 +2651,347 @@ def rqvae_phase():
     if not (np.isfinite(best_loss) and len(sids) == RQ["items"]):
         raise AssertionError("RQ-VAE: fit or generate_semantic_ids failed")
     print(f"  RQ-VAE phase: {time.perf_counter() - t0:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# 13. HLLM through SeqTrainer; TIGER with trie-constrained beam search
+# ---------------------------------------------------------------------------
+
+# HLLM at the JAX package's defaults (models/generative/hllm.py:66-76): d 512, 8 heads, 4 layers, max_seq_len 256, 2048 sqrt
+# time buckets, temperature 0.07, the relative bias; on the HSTU cell's geometry (hstu_train_bench.py:57-58,95): V40,000, B8,
+# L256.  The frozen table: seeded clustered stand-ins for LLM item encodings (vocab // 16 clusters), and left-padded histories
+# of L/2..L items that stay in one cluster, as examples/generative/run_hllm.py:24-48 makes them (the repo holds no LLM
+# encodings).  The card against the CPU at B2; fit on 1,024 users split 0.8 / 0.1 / 0.1 by SequenceDataGenerator
+HLLM = dict(vocab=40_000, d_model=512, n_heads=8, n_layers=4, max_seq_len=256, batch=8, check_batch=2, chunk=8192, negatives=1024, serve_batches=8, fit_users=1024, fit_epochs=2, chance_times=10)
+HLLM_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_hllm")
+# cosine logits of up to 1/0.07: an absolute tolerance of 1e-5 of the largest beside CTR_LOGIT_ATOL (the 512-term dot
+# products of 4 layers, rounded in another order on each device, scaled by 14.3)
+HLLM_LOGIT_ATOL_REL = 1e-5
+# TIGER at the paper's widths (arXiv:2305.05065 §4): d 128, 4 encoder and 4 decoder layers, d_ff 1024, dropout 0.1, B256,
+# optax.adamw(1e-3)'s update (examples/generative/run_rqvae_tiger.py:57: weight decay 1e-4); 4 heads of 32, since the repo's
+# _MHA splits d_model (tiger.py:32-33) and cannot hold the paper's 6 heads of 64.  Semantic ids: RQVAETrainer with k-means
+# init (10 iterations a stage) on the RQ-VAE phase's 12,101 seeded items, the codebooks as the init leaves them: Adam at
+# 1e-3 collapses them on these clusters (three epochs left 222 distinct ids of 12,101 on an H100), which would leave
+# TIGER's trie next to trivial, where the init gives about 9,600.  Histories at Amazon-Beauty's counts
+# (22,363 users, 12,101 items, 5 + Poisson(3.9) interactions a user, about 8.9), each within one of the items' 1,000
+# clusters, with repeat purchases: each item is the user's favourite of that cluster with probability 0.5, else any item
+# of the cluster (the repo holds no Amazon-Beauty interactions), up to 20 items (60 tokens) of input.  Two gates: recall@10
+# above ten times uniform chance over the ids, and recall@1 (the best beam) above three times that of a ranker that
+# knows the target's cluster and nothing else (1 / the cluster's distinct ids, averaged over the test users); only the
+# favourite, read from the history, beats that, so a search that ranks badly inside a trie branch fails.  900 steps:
+# after 300 the model has not learned the favourite yet, and recall@1 stays below the gate
+TIGER = dict(d_model=128, n_heads=4, n_layers=4, d_ff=1024, dropout=0.1, batch=256, users=22_363, extra_len=3.9, repeat=0.5, max_his_len=20, steps=900, beams=10,
+             new_tokens=3, test_users=1024, check_batch=64, check_users=32, kmeans_iters=10, chance_times=10, cluster_times=3)
+TIGER_MODEL_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tiger")
+TIGER_OPT = dict(lr=1e-3, weight_decay=1e-4)
+# a beam's score is a sum of 3 log-probabilities of 8 layers' outputs, rounded in another order on each device
+TIGER_SCORE_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def given_negatives(negs):
+    """The sampled softmax's negatives given: the same ids on both devices, whose generators would draw their own."""
+    draw = chunked_ce.sampled_candidates
+    chunked_ce.sampled_candidates = lambda toks, tgts, gen, v, s, ignore: (chunked_ce.shifted_labels(toks, tgts, ignore), torch.from_numpy(negs).to(toks.device))
+    try:
+        yield
+    finally:
+        chunked_ce.sampled_candidates = draw
+
+
+def hllm_items(seed):
+    """``(V, d)`` fp32 clustered item encodings, PAD row 0 (examples/generative/run_hllm.py:24-31)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = HLLM["vocab"] // 16
+    centers = rng.normal(size=(n_clusters, HLLM["d_model"]))
+    emb = centers[np.arange(HLLM["vocab"]) % n_clusters] + 0.15 * rng.normal(size=(HLLM["vocab"], HLLM["d_model"]))
+    emb[0] = 0.0
+    return emb.astype(np.float32)
+
+
+def hllm_data(n, seed):
+    """``(tokens, positions, targets, time_diffs)``: each user's L/2..L items and target from one cluster (the ids
+    ``c + k · V // 16``), left-padded, an hour between interactions (examples/generative/run_hllm.py:34-48)."""
+    v, l = HLLM["vocab"], HLLM["max_seq_len"]
+    n_clusters = v // 16
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, n_clusters, n)
+    lengths = rng.integers(l // 2, l + 1, n)
+    k_lo, k_hi = (c == 0).astype(np.int64), (v - 1 - c) // n_clusters
+    seq = c[:, None] + n_clusters * (k_lo[:, None] + (rng.random((n, l + 1)) * (k_hi - k_lo + 1)[:, None]).astype(np.int64))
+    valid = np.arange(l)[None, :] >= (l - lengths)[:, None]
+    toks = np.where(valid, seq[:, :l], 0).astype(np.int32)
+    tds = np.where(valid, (l - 1 - np.arange(l))[None, :] * 3600, 0).astype(np.int32)
+    return toks, np.broadcast_to(np.arange(l, dtype=np.int32), (n, l)).copy(), seq[:, l].astype(np.int32), tds
+
+
+def hllm_model(items, seed, device, dropout=0.0):
+    h = HLLM
+    return HLLMModel(items, h["vocab"], d_model=h["d_model"], n_heads=h["n_heads"], n_layers=h["n_layers"], max_seq_len=h["max_seq_len"], dropout=dropout,
+                     generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def step_stats(name, step, steps=3):
+    """``(device ms, host-clock ms, launches)`` of one call of ``step``: torch.profiler's kernel sums (printed by class,
+    the top 5 by name), the median host clock of 10."""
+    wall = wall_ms(step, reps=10)
+    kernels = profile_kernels(step, steps)
+    return print_breakdown(name, kernels, steps, ctr_kernel_class, top=5), wall, sum(n for _, n in kernels.values())
+
+
+def hllm_phase(cycles_per_ms):
+    """HLLMModel at the JAX package's defaults through SeqTrainer: the card against the CPU (logits; one step of the
+    dense, chunked and sampled losses), serving (evaluate, predict_logits), a chunked step's device time, host clock,
+    idle share and launches, and fit to a top-1 hit above ten times chance; the frozen table never moves."""
+    t0 = time.perf_counter()
+    h = HLLM
+    l, b = h["max_seq_len"], h["check_batch"]
+    items = hllm_items(seed=0)
+    table = torch.from_numpy(items / np.maximum(np.linalg.norm(items, axis=-1, keepdims=True), 1e-8))
+    toks, pos, tgts, tds = hllm_data(b, seed=2)
+    negs = np.random.default_rng(3).integers(1, h["vocab"], h["negatives"])
+    cpu = hllm_model(items, seed=1, device="cpu")
+
+    def outputs(m, d):
+        return {"logits": m(torch.from_numpy(toks).to(d), torch.from_numpy(tds).to(d))}
+
+    for name, kw in (("dense", {}), (f"chunked {h['chunk']}", {"vocab_chunk_size": h["chunk"]}), (f"sampled softmax, {h['negatives']} given negatives", {"loss_type": "sampled_softmax", "loss_params": {"num_negatives": h["negatives"]}})):
+        def train_step(m, d, kw=kw):
+            with given_negatives(negs):
+                return SeqTrainer(m, optimizer_params=CTR_OPT, model_path=HLLM_MODEL_PATH, device=d, **kw).train_one_epoch(SeqLoader(toks, pos, tgts, tds, batch_size=b), log_interval=0)
+
+        model = copy.deepcopy(cpu)
+        worst, where, max_abs, losses, still, kinks = against_cpu(f"HLLM {name}", model, outputs, train_step, b * l, atol_rel=HLLM_LOGIT_ATOL_REL)
+        print(f"  {name}: one step card vs CPU, B{b} x L{l}, same weights: eval logits max abs err {max_abs:.3e}; worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+              + f"; loss {losses[0]:.7f} vs {losses[1]:.7f}; ReLU inputs on the other side of 0 there: {kinks[0]} of {kinks[1]:,}" + (f"; unmoved: {still}" if still else ""))
+        if max(worst.values()) > 1.0 or still or not torch.equal(model.item_embeddings, table):
+            raise AssertionError(f"HLLM {name}: the card disagrees with the CPU: {worst}, unmoved {still}")
+    del cpu, model
+
+    # serving: evaluate and predict_logits over B8 x L256 requests
+    model = hllm_model(items, seed=4, device=CARD)
+    data = hllm_data(h["batch"] * h["serve_batches"], seed=5)
+    loader = SeqLoader(*data, batch_size=h["batch"])
+    trainers = {"dense": SeqTrainer(model, model_path=HLLM_MODEL_PATH), f"chunked {h['chunk']}": SeqTrainer(model, vocab_chunk_size=h["chunk"], model_path=HLLM_MODEL_PATH)}
+    for tr in trainers.values():  # warm-up
+        tr.evaluate(loader)
+        tr.predict_logits(loader)
+    torch.cuda.synchronize()
+    tokens = h["batch"] * h["serve_batches"] * l
+    losses = []
+    for name, tr in trainers.items():
+        t1 = time.perf_counter()
+        loss, top1 = tr.evaluate(loader)
+        t_eval = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        logits = tr.predict_logits(loader)
+        t_pred = time.perf_counter() - t1
+        losses.append(loss)
+        print(f"  serving {name}: eval loss {loss:.6f}, top-1 {top1:.4f}, {tokens / t_eval:,.0f} tokens/s, {t_eval / h['serve_batches'] * 1e3:.3f} ms per request of {h['batch']} x L{l}; "
+              f"predict_logits {t_pred / h['serve_batches'] * 1e3:.3f} ms per batch (host clock, {h['serve_batches']} requests)")
+        if not (math.isfinite(loss) and 0 < loss < 2 * math.log(h["vocab"]) / 0.07) or logits.shape != (len(data[0]), h["vocab"]) or not np.isfinite(logits).all():
+            raise AssertionError(f"HLLM serving output out of range ({name})")
+    if not math.isclose(losses[0], losses[1], rel_tol=1e-5):
+        raise AssertionError(f"HLLM dense and chunked eval losses differ: {losses}")
+    toks_d, _, tds_d, tgts_d = (torch.from_numpy(a).to(CARD) for a in next(iter(loader)))
+    with torch.inference_mode():
+        for name, tr in trainers.items():
+            device, wall = timed(lambda tr=tr: tr.eval_step(toks_d, tds_d, tgts_d), cycles_per_ms)
+            print(f"  serving {name} eval_step of one request: device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
+
+    # training: the chunked step (the HSTU cell's path), dense and the sampled softmax beside it
+    for name, kw in ((f"chunked {h['chunk']}", {"vocab_chunk_size": h["chunk"]}), ("dense", {}), (f"sampled softmax {h['negatives']}", {"loss_type": "sampled_softmax", "loss_params": {"num_negatives": h["negatives"]}})):
+        tr = SeqTrainer(hllm_model(items, seed=6, device=CARD, dropout=0.1), model_path=HLLM_MODEL_PATH, **kw)
+        tr.train_one_epoch(SeqLoader(*(a[:h["batch"]] for a in data), batch_size=h["batch"]), log_interval=0)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = tr.train_one_epoch(loader, log_interval=0)
+        seconds = time.perf_counter() - t1
+        device, wall, launches = step_stats(f"HLLM {name}", lambda tr=tr: tr.train_step(toks_d, tds_d, tgts_d))
+        print(f"  training {name}: loss {loss:.6f}, {tokens / seconds:,.0f} tokens/s, {seconds / h['serve_batches'] * 1e3:.3f} ms per step of {h['batch']} x L{l} (host clock, {h['serve_batches']} steps); "
+              f"a step: device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, {launches:.1f} launches")
+        if not math.isfinite(loss) or not torch.equal(tr.model.item_embeddings.cpu(), table):
+            raise AssertionError(f"HLLM training {name}: loss {loss} or the frozen table moved")
+    del trainers, model, tr
+
+    # fit on users whose histories and targets stay in one cluster; evaluate on held-out users
+    train, val, test = SequenceDataGenerator(*hllm_data(h["fit_users"], seed=7), seed=0).generate_dataloader(batch_size=h["batch"], split_ratio=(0.8, 0.1, 0.1))
+    tr = SeqTrainer(hllm_model(items, seed=8, device=CARD, dropout=0.1), vocab_chunk_size=h["chunk"], n_epoch=h["fit_epochs"], model_path=HLLM_MODEL_PATH)
+    _, before = tr.evaluate(test)
+    t1 = time.perf_counter()
+    tr.fit(train, val)
+    fit_s = time.perf_counter() - t1
+    loss, after = tr.evaluate(test)
+    chance = 1 / (h["vocab"] - 1)
+    print(f"  fit: {h['fit_epochs']} epochs of {len(train)} chunked steps ({fit_s:.1f} s with validation); held-out top-1 {after:.4f} "
+          f"(before fit {before:.4f}; chance {chance:.2e}, {h['chance_times']}x chance {h['chance_times'] * chance:.2e}), loss {loss:.4f}")
+    if not after > h["chance_times"] * chance or not torch.equal(tr.model.item_embeddings.cpu(), table):
+        raise AssertionError(f"HLLM fit: top-1 {after} not above {h['chance_times']}x chance, or the frozen table moved")
+    print(f"  HLLM phase: {time.perf_counter() - t0:.1f} s")
+
+
+def tiger_model(vocab, seed, device, dropout=TIGER["dropout"]):
+    t = TIGER
+    return TIGERModel(vocab, d_model=t["d_model"], n_heads=t["n_heads"], n_enc_layers=t["n_layers"], n_dec_layers=t["n_layers"], d_ff=t["d_ff"], dropout=dropout,
+                      max_len=3 * t["max_his_len"], generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def tiger_samples(item_tokens, cluster, seed):
+    """build_tiger_samples over seeded histories: per user 5 + Poisson(3.9) items of one of the items' clusters of at
+    least two distinct semantic ids, each the user's favourite item of it with probability ``repeat``, else drawn
+    from the cluster.  Returns post-padded ``(train x, train labels, test x, test labels)``, the mean history length
+    and, per test sample, the number of distinct semantic ids in its cluster."""
+    t = TIGER
+    rng = np.random.default_rng(seed)
+    members = [np.nonzero(cluster == c)[0] for c in range(cluster.max() + 1)]
+    n_ids = [len({tuple(item_tokens[int(i)]) for i in m}) for m in members]
+    members, n_ids = zip(*[(m, n) for m, n in zip(members, n_ids) if n >= 2])
+    lengths = 5 + rng.poisson(t["extra_len"], t["users"])
+    histories, user_ids = {}, []
+    for u in range(t["users"]):
+        c = rng.integers(len(members))
+        drawn = rng.choice(members[c], lengths[u])
+        histories[u] = np.where(rng.random(lengths[u]) < t["repeat"], rng.choice(members[c]), drawn).tolist()
+        user_ids.append(n_ids[c])
+    tx, ty, vx, vy = build_tiger_samples(histories, item_tokens, max_his_len=t["max_his_len"], eos_token_id=1)
+    pad = lambda seqs, n, value=0: pad_sequences(seqs, maxlen=n, padding="post", value=value)  # noqa: E731
+    width = 3 * t["max_his_len"]
+    return pad(tx, width), pad(ty, 4, -100), pad(vx, width), pad(vy, 4, -100), float(np.mean(lengths)), np.asarray(user_ids)
+
+
+def adamw_first_update(g, p0):
+    """AdamW's first update in float64 (the decoupled decay is the same on both sides): m_hat = g, v_hat = g²."""
+    g = g.double()
+    return g / (g.abs() + 1e-8)
+
+
+def beam_scores(model, x, beams):
+    """The teacher-forced sum of log-probabilities of each beam under ``model`` (on the CPU, in eval mode)."""
+    model.eval()
+    with torch.inference_mode():
+        enc, mask = model.encode(torch.from_numpy(x))
+        out = []
+        for i, seqs in enumerate(beams):
+            dec = torch.tensor([[model.pad_token_id] + s[:-1] for s in seqs])
+            logp = torch.log_softmax(model.decode(dec, enc[i:i + 1].expand(len(seqs), -1, -1), mask[i:i + 1].expand(len(seqs), -1)), -1)
+            out.append(logp.gather(-1, torch.tensor(seqs)[..., None])[..., 0].sum(-1).tolist())
+    return out
+
+
+def tiger_phase():
+    """TIGER at the paper's widths: semantic ids from RQVAETrainer with k-means init, samples from seeded histories,
+    the card against the CPU (loss, logits, one AdamW step; generate's beams up to near-ties), a step's device time,
+    host clock, idle share and launches, a few hundred steps, then trie-constrained generate (10 beams, 3 new tokens)
+    to a recall@10 over the semantic ids above ten times chance and a recall@1 above three times that of knowing the
+    target's cluster."""
+    t0 = time.perf_counter()
+    t = TIGER
+    data, cluster = rq_data(seed=0)
+    rq_trainer = RQVAETrainer(RQVAEModel(in_dim=RQ["in_dim"], sk_epsilons=RQ["sk_epsilons"], kmeans_init=True, kmeans_iters=t["kmeans_iters"], generator=torch.Generator().manual_seed(3), device=CARD),
+                              n_epoch=0, model_path=TIGER_MODEL_PATH)
+    t1 = time.perf_counter()
+    rq_trainer.fit(data, batch_size=RQ["batch"])  # the k-means init of the three codebooks, no epoch
+    sids = rq_trainer.generate_semantic_ids(data, batch_size=RQ["batch"])
+    vocab, item_tokens = semantic_id_vocab(sids)
+    codes = {tuple(v) for v in item_tokens.values()}
+    print(f"  semantic ids (RQVAETrainer's k-means init, {t['kmeans_iters']} iterations a stage; generate_semantic_ids): {time.perf_counter() - t1:.1f} s; {len(vocab)} code tokens, "
+          f"{len(codes):,} distinct ids over {len(item_tokens):,} items (collision rate {1 - len(codes) / len(item_tokens):.4f})")
+    x, y, test_x, test_y, mean_len, cluster_ids = tiger_samples(item_tokens, cluster, seed=4)
+    n_vocab = len(vocab) + 2  # PAD 0, EOS 1
+    print(f"  samples: {t['users']:,} users, {mean_len:.2f} interactions a user, {len(x):,} train and {len(test_x):,} test samples, inputs of up to {x.shape[1]} tokens, vocab {n_vocab}")
+
+    # the card against the CPU, dropout 0 (the devices' generators draw their own masks)
+    b = t["check_batch"]
+    cpu = tiger_model(n_vocab, seed=5, device="cpu", dropout=0.0)
+    xb, yb = torch.from_numpy(x[:b]), torch.from_numpy(y[:b])
+
+    def outputs(m, d):
+        loss, logits = m(xb.to(d), labels=yb.to(d))
+        return {"logits": logits, "loss": loss.reshape(1)}
+
+    def train_step(m, d):
+        opt = torch.optim.AdamW(m.parameters(), **TIGER_OPT)
+        m.train()
+        loss, _ = m(xb.to(d), labels=yb.to(d))
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    worst, where, max_abs, losses, still, kinks = against_cpu("TIGER", cpu, outputs, train_step, b * 4, first_update=adamw_first_update)
+    print(f"  one AdamW step card vs CPU, B{b}, same weights: eval logits max abs err {max_abs:.3e}; worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f"; loss {losses[0]:.7f} vs {losses[1]:.7f}; ReLU inputs on the other side of 0 there: {kinks[0]} of {kinks[1]:,}" + (f"; unmoved: {still}" if still else ""))
+    if max(worst.values()) > 1.0 or still:
+        raise AssertionError(f"TIGER: the card disagrees with the CPU: {worst}, unmoved {still}")
+
+    # training at B256 with dropout 0.1, then trie-constrained generate
+    model = tiger_model(n_vocab, seed=6, device=CARD)
+    opt = torch.optim.AdamW(model.parameters(), **TIGER_OPT)
+    gen = torch.Generator(device=CARD).manual_seed(7)
+    rng = np.random.default_rng(8)
+    xd, yd = torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD)
+
+    def step(idx):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = model(xd[idx], labels=yd[idx], generator=gen)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    batches = [torch.from_numpy(rng.integers(0, len(x), t["batch"])).to(CARD) for _ in range(t["steps"])]
+    first = float(step(batches[0]))
+    t1 = time.perf_counter()
+    losses = torch.stack([step(idx) for idx in batches[1:]])
+    last = float(losses[-20:].mean())
+    train_s = time.perf_counter() - t1
+    device, wall, launches = step_stats(f"TIGER B{t['batch']}", lambda: step(batches[0]))
+    print(f"  training: {t['steps']} AdamW steps of {t['batch']}, loss {first:.4f} -> {last:.4f} (mean of the last 20), {(t['steps'] - 1) * t['batch'] / train_s:,.0f} samples/s, "
+          f"{train_s / (t['steps'] - 1) * 1e3:.3f} ms per step (host clock); a step: device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), "
+          f"device idle {1 - device / wall:.0%}, {launches:.1f} launches")
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"TIGER training did not lower the loss: {first} -> {last}")
+
+    trie = Trie([toks + [1] for toks in item_tokens.values()])
+    n_test = t["test_users"]
+    hits, firsts, gen_s = 0, 0, []
+    for s in range(0, n_test, t["batch"]):
+        t1 = time.perf_counter()
+        out = generate(model, test_x[s:s + t["batch"]], t["new_tokens"], t["beams"], trie, eos_token_id=1)
+        gen_s.append(time.perf_counter() - t1)
+        for beams, lab in zip(out, test_y[s:s + t["batch"]]):
+            target = tuple(int(v) for v in lab[:3])
+            hits += int(target in {tuple(bm[:3]) for bm in beams})
+            firsts += int(bool(beams) and tuple(beams[0][:3]) == target)
+    recall, recall1, chance = hits / n_test, firsts / n_test, t["beams"] / len(codes)
+    # a ranker that knows the target's cluster and draws k of its distinct ids
+    cluster10, cluster1 = float(np.mean(np.minimum(1.0, t["beams"] / cluster_ids[:n_test]))), float(np.mean(1.0 / cluster_ids[:n_test]))
+    print(f"  generate (trie, {t['beams']} beams, {t['new_tokens']} new tokens): {np.median(gen_s) * 1e3:.1f} ms per batch of {t['batch']} users (median of {len(gen_s)}), "
+          f"{t['batch'] / np.median(gen_s):,.0f} users/s; over the semantic ids of {n_test} held-out users: recall@{t['beams']} {recall:.4f} "
+          f"(uniform chance {chance:.2e}, {t['chance_times']}x {t['chance_times'] * chance:.2e}; knowing the cluster {cluster10:.4f}), "
+          f"recall@1 {recall1:.4f} (knowing the cluster {cluster1:.4f}, {t['cluster_times']}x {t['cluster_times'] * cluster1:.4f})")
+    if not recall > t["chance_times"] * chance:
+        raise AssertionError(f"TIGER recall@{t['beams']} {recall} not above {t['chance_times']}x chance")
+    if not recall1 > t["cluster_times"] * cluster1:
+        raise AssertionError(f"TIGER recall@1 {recall1} not above {t['cluster_times']}x that of knowing the cluster ({cluster1})")
+
+    # generate on the card against the CPU from the trained weights: the same beams but at a near-tie
+    cpu = copy.deepcopy(model).cpu()
+    xs = test_x[: t["check_users"]]
+    got, ref = generate(model, xs, t["new_tokens"], t["beams"], trie, eos_token_id=1), generate(cpu, xs, t["new_tokens"], t["beams"], trie, eos_token_id=1, device="cpu")
+    got_s, ref_s = beam_scores(cpu, xs, got), beam_scores(cpu, xs, ref)
+    ties, worst = 0, 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        # the first beam where the two lists part, if any: it and every beam before it must score alike
+        k = next((j for j, (a, c) in enumerate(zip(g, r)) if a != c), len(g) if len(g) == len(r) else min(len(g), len(r)))
+        gaps = [abs(a - c) for a, c in zip(got_s[i][:k + 1], ref_s[i][:k + 1])]
+        worst = max([worst] + gaps)
+        if max(gaps, default=0.0) > TIGER_SCORE_ATOL:
+            raise AssertionError(f"TIGER generate, user {i}: the card's beams {g} (scores {got_s[i]}) differ from the CPU's {r} ({ref_s[i]}) beyond a near-tie")
+        ties += int(g != r)
+    print(f"  generate card vs CPU, {len(xs)} users x {t['beams']} beams: {len(xs) - ties} users' beams equal, {ties} differ from a near-tie on "
+          f"(beam scores within {TIGER_SCORE_ATOL} there); largest score difference over the compared beams {worst:.2e}")
+    print(f"  TIGER phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2682,10 +3055,14 @@ def main():
     mtl_phase()
     print("RQ-VAE phase (RQVAEModel at the default widths through RQVAETrainer; generate_semantic_ids; card against CPU):")
     rqvae_phase()
+    print("HLLM phase (HLLMModel at the default widths through SeqTrainer on the HSTU cell's geometry; card against CPU; serving, training, fit):")
+    hllm_phase(cycles_per_ms)
+    print("TIGER phase (TIGERModel at the paper's widths on RQ-VAE semantic ids; card against CPU; AdamW steps; trie-constrained generate, recall@10 and @1):")
+    tiger_phase()
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
-    print("  the port's kernels launched by the DeepFM, ranking zoo, matching, multi-task and RQ-VAE phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
+    print("  the port's kernels launched by the DeepFM, ranking zoo, matching, multi-task, RQ-VAE, HLLM and TIGER phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
-        raise AssertionError(f"the DeepFM, ranking zoo, matching, multi-task or RQ-VAE path launched an HSTU attention kernel: {ctr_launches}")
+        raise AssertionError(f"the DeepFM, ranking zoo, matching, multi-task, RQ-VAE, HLLM or TIGER path launched an HSTU attention kernel: {ctr_launches}")
 
     reset_counts()
     print("HSTU sparse training phase (the full-width untied HSTU, sampled softmax, sparse_embedding=\"adagrad\", through K1 and K2):")

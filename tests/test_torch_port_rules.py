@@ -108,6 +108,21 @@ def test_mtl_and_rqvae_trainers_without_a_card_raise():
     assert RQVAETrainer(model, device="cpu").device.type == "cpu"
 
 
+def test_tiger_generate_without_a_card_raises():
+    from torch_rechub_tpu_torch.models.generative import TIGERModel
+    from torch_rechub_tpu_torch.models.generative.tiger import generate
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    model = TIGERModel(8, d_model=8, n_heads=2, n_enc_layers=1, n_dec_layers=1, d_ff=16, max_len=4, generator=torch.Generator().manual_seed(0))
+    x = [[2, 3, 0, 0]]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(model, x, 2)
+    with pytest.raises(ValueError, match="move it with model.to"):
+        generate(model, x, 2, device="meta")
+    assert [len(beams[0]) for beams in generate(model, x, 2, device="cpu")] == [2]
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     import torch.utils.cpp_extension
 

@@ -71,6 +71,25 @@ def test_kmeans_centres_equal_jax_s():
             kmeans(x[:4], 6, num_iters=2)
 
 
+def test_nearest_decides_near_ties_as_the_direct_form():
+    """Rows equidistant from centres 0 and 1 (the same coordinates but the first, which lies halfway between them):
+    the expanded ``|x|² − 2 x·c + |c|²`` rounds some of them to centre 1, and ``_nearest``'s direct fallback gives
+    centre 0, the first of an exact tie, as the JAX package's ``((x - c) ** 2).sum(-1)`` argmin does."""
+    rng = np.random.default_rng(0)
+    p = rng.normal(size=16) * 30
+    centers = np.concatenate([np.stack([p, p]), p + rng.normal(size=(6, 16)) * 50])
+    centers[0, 0] -= 0.7
+    centers[1, 0] += 0.7
+    x = p + rng.normal(size=(256, 16)) * 3
+    x[:, 0] = p[0]
+    d2 = ((x[:, None, :] - centers[None]) ** 2).sum(-1)
+    assert (d2[:, 0] == d2[:, 1]).all()  # exact ties in the direct form
+    expanded = np.argmin((x * x).sum(-1)[:, None] - 2.0 * (x @ centers.T) + (centers * centers).sum(-1)[None, :], axis=1)
+    assert (expanded == 1).sum() > 50  # the matrix product alone would take centre 1 for many of them
+    np.testing.assert_array_equal(trq._nearest(x, centers), np.argmin(d2, axis=1))
+    assert (trq._nearest(x, centers) == 0).all()
+
+
 def carried(seed=0, **kw):
     """A flax RQVAEModel, its variables, and the port's model carrying them."""
     jmodel = build_rqvae(jrq, **kw)

@@ -1,4 +1,4 @@
-"""flax's ``LayerNorm`` and ``MultiHeadDotProductAttention``, which BST and SASRec share.
+"""flax's ``LayerNorm`` and ``MultiHeadDotProductAttention``, which BST and SASRec share (HLLM and TIGER the ``LayerNorm``).
 
 Counterparts of ``flax.linen.LayerNorm`` and
 ``flax.linen.MultiHeadDotProductAttention`` as the JAX package's models use
@@ -30,18 +30,22 @@ from .initializers import linear
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the last axis: ``(x − E[x]) · rsqrt(max(E[x²] − E[x]², 0) + eps) · scale + bias``."""
+    """flax ``nn.LayerNorm`` over the last axis: ``(x − E[x]) · rsqrt(max(E[x²] − E[x]², 0) + eps) · scale + bias``.
 
-    def __init__(self, d: int, eps: float = 1e-5, device=None):
+    ``use_bias=False`` (TIGER's, flax ``LayerNorm(use_bias=False)``) has no
+    ``bias`` parameter."""
+
+    def __init__(self, d: int, eps: float = 1e-5, use_bias: bool = True, device=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(d, device=device))
-        self.bias = nn.Parameter(torch.zeros(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean = x.mean(-1, keepdim=True)
         var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return y if self.bias is None else y + self.bias
 
 
 class MultiHeadDotProductAttention(nn.Module):

@@ -150,12 +150,32 @@ class RQVAEModel(nn.Module):
 
 
 def _kmeans_pp(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray:
+    """k-means++ seeding.  Each row's squared distance to its nearest centre is kept and lowered by each new
+    centre's: the same values, by the same per-centre sums, as the minimum over every centre drawn so far that
+    the JAX package takes at each draw, at O(k·n·d) instead of O(k²·n·d)."""
     centers = [x[rng.integers(len(x))]]
+    d2 = ((x - centers[0]) ** 2).sum(-1)
     for _ in range(1, k):
-        d2 = np.min(((x[:, None, :] - np.stack(centers)[None]) ** 2).sum(-1), axis=1)
         probs = d2 / max(d2.sum(), 1e-12)
         centers.append(x[rng.choice(len(x), p=probs)])
+        d2 = np.minimum(d2, ((x - centers[-1]) ** 2).sum(-1))
     return np.stack(centers)
+
+
+def _nearest(x: np.ndarray, centers: np.ndarray) -> np.ndarray:
+    """The index of each float64 row's nearest centre by ``((x - c) ** 2).sum(-1)``, the first on a tie, as the JAX
+    package takes it.  The distances are expanded as ``|x|² − 2 x·c + |c|²`` (one matrix product); a row whose two
+    nearest centres lie within 1e-9 of its scale of each other, far above the two forms' rounding (about 1e-15 of
+    it), is decided by the direct form."""
+    xx, cc = (x * x).sum(-1), (centers * centers).sum(-1)
+    d = xx[:, None] - 2.0 * (x @ centers.T) + cc[None, :]
+    nearest = np.argmin(d, axis=1)
+    if centers.shape[0] > 1:
+        two = np.partition(d, 1, axis=1)
+        close = np.nonzero(two[:, 1] - two[:, 0] <= 1e-9 * (xx + cc.max()))[0]
+        if close.size:
+            nearest[close] = np.argmin(((x[close, None, :] - centers[None]) ** 2).sum(-1), axis=1)
+    return nearest
 
 
 def kmeans(samples: np.ndarray, num_clusters: int, num_iters: int = 10, seed: int = 0) -> np.ndarray:
@@ -167,8 +187,7 @@ def kmeans(samples: np.ndarray, num_clusters: int, num_iters: int = 10, seed: in
     rng = np.random.default_rng(seed)
     centers = _kmeans_pp(x, num_clusters, rng)
     for _ in range(num_iters):
-        d2 = ((x[:, None, :] - centers[None]) ** 2).sum(-1)
-        assign = np.argmin(d2, axis=1)
+        assign = _nearest(x, centers)
         for c in range(num_clusters):
             pts = x[assign == c]
             if len(pts):
@@ -186,6 +205,5 @@ def kmeans_init_codebooks(model: RQVAEModel, data: np.ndarray, num_iters: int = 
     for i, n_e in enumerate(model.num_emb_list):
         centers = kmeans(residual, n_e, num_iters=num_iters, seed=seed + i)
         getattr(model.rq, f"vq_layers_{i}").embedding.copy_(torch.from_numpy(centers))
-        d2 = ((residual[:, None, :] - centers[None]) ** 2).sum(-1)
-        residual = residual - centers[np.argmin(d2, axis=1)]
+        residual = residual - centers[_nearest(residual, centers)]
     return model

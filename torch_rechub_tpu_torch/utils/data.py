@@ -4,10 +4,20 @@ Batches are dicts of numpy arrays (``ArrayLoader``, ``SeqLoader``), which
 the trainers move to their device, or stacked tensors already on the card
 (``DeviceCachedLoader``).  A trainer pads a partial batch to the loader's
 ``batch_size`` with ``pad_batch`` and weighs the padding rows 0.
+
+The sequence and session sample functions (``neg_sample``, ``generate_seq_feature``,
+``create_seq_features``, ``generate_session_features``,
+``session_model_input``) are numpy / pandas code that feeds the sequence
+models.  Where the JAX package draws from Python's global ``random``, the
+port takes an explicit ``random.Random``: one seeded as the global stream
+was gives the same frames.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import random
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -17,6 +27,29 @@ import torch
 def df_to_dict(df) -> Dict[str, np.ndarray]:
     """A DataFrame as ``{column: np.ndarray}``."""
     return {col: df[col].to_numpy() for col in df.columns}
+
+
+def get_auto_embedding_dim(num_classes: int) -> int:
+    """``floor(6 * num_classes**0.25)``."""
+    return int(math.floor(6 * num_classes**0.25))
+
+
+def get_loss_func(task_type: str = "classification") -> str:
+    """The default loss name of a task type."""
+    if task_type == "classification":
+        return "bce"
+    if task_type == "regression":
+        return "mse"
+    raise ValueError("task_type must be classification or regression")
+
+
+def get_metric_func(task_type: str = "classification") -> str:
+    """The default metric name of a task type."""
+    if task_type == "classification":
+        return "auc"
+    if task_type == "regression":
+        return "mse"
+    raise ValueError("task_type must be classification or regression")
 
 
 def _check_lengths(x: Dict[str, np.ndarray], y: Optional[np.ndarray]) -> int:
@@ -273,3 +306,210 @@ class SeqLoader:
         for start in range(0, self.n, self.batch_size):
             idx = order[start:start + self.batch_size]
             yield (self.seq_tokens[idx], self.seq_positions[idx], self.seq_time_diffs[idx], self.targets[idx])
+
+
+class SequenceDataGenerator:
+    """The loaders of HSTU / HLLM sequence data: one shuffled :class:`SeqLoader`, or a random ``(train, val, test)``
+    split by ``split_ratio`` from ``seed`` (only the train loader shuffles)."""
+
+    def __init__(self, seq_tokens, seq_positions, targets, seq_time_diffs, seed: int = 42):
+        self.seq_tokens = np.asarray(seq_tokens)
+        self.seq_positions = np.asarray(seq_positions)
+        self.targets = np.asarray(targets).reshape(-1)
+        self.seq_time_diffs = np.asarray(seq_time_diffs)
+        self.seed = seed
+
+    def generate_dataloader(self, batch_size=32, num_workers=0, split_ratio=None, shuffle=True):
+        if split_ratio is None:
+            return (SeqLoader(self.seq_tokens, self.seq_positions, self.targets, self.seq_time_diffs, batch_size=batch_size, shuffle=shuffle, seed=self.seed),)
+        if abs(sum(split_ratio) - 1.0) >= 1e-6:
+            raise ValueError("split_ratio must sum to 1.0")
+        n = len(self.targets)
+        order = np.random.default_rng(self.seed).permutation(n)
+        n_train = int(n * split_ratio[0])
+        n_val = int(n * split_ratio[1])
+        parts = (order[:n_train], order[n_train:n_train + n_val], order[n_train + n_val:])
+        return tuple(SeqLoader(self.seq_tokens[idx], self.seq_positions[idx], self.targets[idx], self.seq_time_diffs[idx], batch_size=batch_size, shuffle=(i == 0), seed=self.seed)
+                     for i, idx in enumerate(parts))
+
+
+def neg_sample(click_hist, item_size: int, rng: random.Random) -> int:
+    """Rejection-sample one negative item id in ``[1, item_size]`` not in ``click_hist``."""
+    neg = rng.randint(1, item_size)
+    while neg in click_hist:
+        neg = rng.randint(1, item_size)
+    return neg
+
+
+def _label_encode(data):
+    """Every column label-encoded 1-based in sorted order (0 is PAD), as int32."""
+    import pandas as pd
+
+    data = data.copy()
+    for feat in data:
+        mapping = {v: i + 1 for i, v in enumerate(sorted(pd.unique(data[feat])))}
+        data[feat] = data[feat].map(mapping)
+    return data.astype("int32")
+
+
+def generate_seq_feature(data, user_col, item_col, time_col, item_attribute_cols=None, min_item=0, shuffle=True, max_len=50, *, rng: random.Random):
+    """Sliding-window sequence samples with 1:1 negatives for ranking.
+
+    Every column is label-encoded 1-based (0 is PAD); per user, in time
+    order, position ``i`` gives a positive row (the item at ``i``) and a
+    negative row (a sampled item) over the zero-post-padded history before
+    ``i``; the last position goes to test, the one before to validation.
+    Returns ``(train, val, test)`` frames with the columns ``[label,
+    target_item_id, <user_col>, hist_item_id, (hist_<attr>, target_<attr>)...]``.
+    The negatives and the shuffles draw from ``rng``.
+    """
+    import pandas as pd
+
+    item_attribute_cols = item_attribute_cols or []
+    data = _label_encode(data)
+    n_items = data[item_col].max()
+    item2attr = {col: data[[item_col, col]].set_index(item_col)[col].to_dict() for col in item_attribute_cols}
+
+    train_data, val_data, test_data = [], [], []
+    data = data.sort_values(time_col)
+    for uid, hist in data.groupby(user_col):
+        pos_list = hist[item_col].tolist()
+        if len(pos_list) < min_item:
+            continue
+        neg_list = [neg_sample(pos_list, n_items, rng) for _ in pos_list]
+        for i in range(1, min(len(pos_list), max_len)):
+            hist_item = pos_list[:i] + [0] * (max_len - i)
+            pos_seq = [1, pos_list[i], uid, hist_item]
+            neg_seq = [0, neg_list[i], uid, hist_item]
+            for attr_col in item_attribute_cols:
+                hist_attr = hist[attr_col].tolist()[:i] + [0] * (max_len - i)
+                pos_seq += [hist_attr, item2attr[attr_col][pos_list[i]]]
+                neg_seq += [hist_attr, item2attr[attr_col][neg_list[i]]]
+            bucket = test_data if i == len(pos_list) - 1 else val_data if i == len(pos_list) - 2 else train_data
+            bucket.append(pos_seq)
+            bucket.append(neg_seq)
+
+    col_name = ["label", "target_item_id", user_col, "hist_item_id"]
+    for attr_col in item_attribute_cols:
+        col_name += ["hist_" + attr_col, "target_" + attr_col]
+    if shuffle:
+        for bucket in (train_data, val_data, test_data):
+            rng.shuffle(bucket)
+    return tuple(pd.DataFrame(bucket, columns=col_name) for bucket in (train_data, val_data, test_data))
+
+
+def array_replace_with_dict(array, dic):
+    """Replace every value of ``array`` by ``dic[value]``, vectorised (every value must be a key)."""
+    k = np.array(list(dic.keys()))
+    v = np.array(list(dic.values()))
+    idx = k.argsort()
+    return v[idx[np.searchsorted(k, array, sorter=idx)]]
+
+
+def create_seq_features(data, seq_feature_col=("item_id", "cate_id"), max_len=50, drop_short=3, shuffle=True, *, rng: random.Random):
+    """DIN-style sequence samples from the columns ``user_id, item_id, cate_id, time``.
+
+    Every column label-encoded 1-based; per user, the first ``max_len``
+    clicks in time order (users with fewer than ``drop_short`` dropped);
+    each click after the first gives a positive and a negative row over the
+    zero-post-padded item and category histories; the last click goes to
+    test, the one before to validation.  Returns ``(train, val, test)``
+    frames with ``user_id, history_item, history_cate, target_item,
+    target_cate, label``.  The negatives and the shuffles draw from ``rng``.
+    """
+    import pandas as pd
+
+    data = _label_encode(data)
+    n_items = data["item_id"].max()
+    item2cate = data[["item_id", "cate_id"]].set_index("item_id")["cate_id"].to_dict()
+    grouped = data.sort_values(["user_id", "time"]).groupby("user_id").agg(click=("item_id", list), cate=("cate_id", list)).reset_index()
+
+    train_data, val_data, test_data = [], [], []
+    for row in grouped.itertuples():
+        clicks, cates = row.click[:max_len], row.cate[:max_len]
+        if len(clicks) < drop_short:
+            continue
+        neg_list = [neg_sample(clicks, n_items, rng) for _ in clicks]
+        hist, chist = [], []
+        for i in range(1, len(clicks)):
+            hist.append(clicks[i - 1])
+            chist.append(cates[i - 1])
+            hist_pad = hist + [0] * (max_len - len(hist))
+            chist_pad = chist + [0] * (max_len - len(chist))
+            pos = [row.user_id, hist_pad, chist_pad, clicks[i], cates[i], 1]
+            neg = [row.user_id, hist_pad, chist_pad, neg_list[i], item2cate[neg_list[i]], 0]
+            if i == len(clicks) - 1:
+                test_data += [pos, neg]
+            elif i == len(clicks) - 2:
+                val_data += [pos, neg]
+            else:
+                train_data += [pos, neg]
+    if shuffle:
+        for bucket in (train_data, val_data, test_data):
+            rng.shuffle(bucket)
+    cols = ["user_id", "history_item", "history_cate", "target_item", "target_cate", "label"]
+    return tuple(pd.DataFrame(bucket, columns=cols) for bucket in (train_data, val_data, test_data))
+
+
+def generate_session_features(data, session_col="session_id", item_col="item_id", time_col="time", min_session_len=2, min_item_freq=5, test_days=7, time_format=None, order_cols=None):
+    """Session-based preprocessing for NARM / STAMP-style recommenders.
+
+    Drops sessions shorter than ``min_session_len`` and items seen fewer
+    than ``min_item_freq`` times (then short sessions again), holds out the
+    last ``test_days`` days as the test split, encodes items 1-based on the
+    TRAIN rows only (0 is PAD; test events of unseen items are dropped, then
+    short test sessions again), and groups each session into its
+    time-ordered item list.  Returns ``(train_sessions, test_sessions,
+    n_items)``, ``n_items`` the vocab size with PAD (max id + 1).
+    """
+    import pandas as pd
+
+    df = data[[session_col, item_col, time_col] + list(order_cols or [])].copy()
+    df[time_col] = pd.to_datetime(df[time_col], format=time_format)
+
+    def _filter_session_len(frame, lo):
+        sizes = frame.groupby(session_col)[item_col].transform("size")
+        return frame[sizes >= lo]
+
+    df = _filter_session_len(df, min_session_len)
+    freq = df[item_col].map(df[item_col].value_counts())
+    df = df[freq >= min_item_freq]
+    df = _filter_session_len(df, min_session_len)
+
+    cutoff = df[time_col].max() - pd.Timedelta(days=test_days)
+    train_df, test_df = df[df[time_col] <= cutoff], df[df[time_col] > cutoff]
+
+    encoding = {raw: i + 1 for i, raw in enumerate(sorted(train_df[item_col].unique()))}
+    train_df = train_df.assign(**{item_col: train_df[item_col].map(encoding)})
+    test_df = test_df.assign(**{item_col: test_df[item_col].map(encoding)}).dropna(subset=[item_col])
+    test_df = _filter_session_len(test_df, min_session_len)
+
+    def _sessions(frame):
+        frame = frame.sort_values([session_col, time_col] + list(order_cols or []))
+        return [list(map(int, items)) for items in frame.groupby(session_col)[item_col].agg(list)]
+
+    n_items = int(train_df[item_col].max()) + 1 if len(train_df) else 1
+    return _sessions(train_df), _sessions(test_df), n_items
+
+
+def session_model_input(sessions, max_seq_len=19, hist_col="hist_item_id"):
+    """Prefix-expand sessions into fixed-shape next-item arrays: ``[a, b, c]`` gives the histories ``[a]`` and
+    ``[a, b]`` with the targets ``b`` and ``c``; a history keeps its FIRST ``max_seq_len`` items, zero-post-padded.
+    Returns ``({hist_col: (N, max_seq_len) int32}, targets (N,) int64)``."""
+    histories, targets = [], []
+    for sess in sessions:
+        for t in range(1, len(sess)):
+            histories.append(sess[:t][:max_seq_len])
+            targets.append(sess[t])
+    x = pad_sequences(histories, maxlen=max_seq_len, padding="post", truncating="post")
+    return {hist_col: np.asarray(x, np.int32)}, np.asarray(targets, np.int64)
+
+
+def load_embeddings(data_path: str) -> np.ndarray:
+    """Pre-computed embeddings as float32 numpy, from a ``.npy`` or a ``.pt`` (a saved tensor) file."""
+    suffix = os.path.splitext(data_path)[-1]
+    if suffix == ".npy":
+        return np.asarray(np.load(data_path), dtype=np.float32)
+    if suffix == ".pt":
+        return torch.load(data_path, map_location="cpu", weights_only=True).cpu().numpy().astype(np.float32)
+    raise ValueError(f"Unsupported embedding format: {suffix}")

@@ -1,6 +1,7 @@
-"""HSTU utilities: time bucketization, the ``rab^{p,t}`` bias and vocab masking.
+"""HSTU / HLLM utilities: relative biases, time bucketization and vocab masking.
 
-Counterpart of ``torch_rechub_tpu/utils/hstu_utils.py``: ``bucketize_time``,
+Counterpart of ``torch_rechub_tpu/utils/hstu_utils.py``: ``RelPosBias``
+(the bucketed |i-j| bias of HLLM's blocks), ``bucketize_time``,
 ``RelativeBucketedTimeAndPositionBias`` (HSTU Eq.3 position table of
 ``2*maxL-1`` slots + time-difference bucket table) and ``apply_vocab_mask``.
 """
@@ -14,6 +15,27 @@ import torch
 from torch import nn
 
 from ..basic.initializers import uniform_
+
+
+class RelPosBias(nn.Module):
+    """Bucketed |i-j| relative-position bias -> ``(1, H, L, L)``.
+
+    The table ``rel_pos_bias_table (num_buckets, H)`` is U(±sqrt(1/num_buckets));
+    the bucket of a pair is ``min(|i-j|, max_seq_len) * (num_buckets-1) //
+    max_seq_len`` in integer arithmetic.
+    """
+
+    def __init__(self, n_heads: int, max_seq_len: int, num_buckets: int = 32, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.max_seq_len, self.num_buckets = max_seq_len, num_buckets
+        self.rel_pos_bias_table = nn.Parameter(torch.empty(num_buckets, n_heads, device=device))
+        uniform_(self.rel_pos_bias_table, math.sqrt(1.0 / num_buckets), generator)
+
+    def forward(self, seq_len: int) -> torch.Tensor:
+        pos = torch.arange(seq_len, device=self.rel_pos_bias_table.device)
+        rel = torch.clamp_max((pos[None, :] - pos[:, None]).abs(), self.max_seq_len)
+        buckets = rel * (self.num_buckets - 1) // self.max_seq_len
+        return self.rel_pos_bias_table[buckets].permute(2, 0, 1)[None]  # (1, H, L, L)
 
 
 def bucketize_time(dt: torch.Tensor, num_buckets: int, fn: str = "sqrt", divisor: float = 1.0, unit: str = "minutes", max_bucket: Optional[int] = None) -> torch.Tensor:

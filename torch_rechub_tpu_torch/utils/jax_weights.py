@@ -33,6 +33,17 @@ The port's modules keep flax's names (``EmbeddingCollection_0``, ``LR_0``,
 RQ-VAE's codebooks ``rq/vq_layers_{i}/embedding`` are raw ``(n_e, e_dim)``
 parameters, copied as they are (not transposed as a Dense kernel).
 
+HLLM: ``block_{i}/{W_Q,W_K,W_V,W_O}``, ``block_{i}/Dense_{0,1}`` (Dense
+kernels and biases), ``block_{i}/{norm1,norm2}/{scale,bias}``, and the raw
+``position_embedding``, ``time_embedding`` and
+``rel_pos_bias/rel_pos_bias_table``; its frozen table is the ``constants``
+collection's ``item_embeddings`` (``load_flax_params(..., constants=)``).
+TIGER: the raw ``shared_embedding``, ``enc_pos``, ``dec_pos``;
+``enc_layers_{i}/{LayerNorm_0, _MHA_0/{q,k,v,o}, LayerNorm_1,
+_FFN_0/Dense_{0,1}}``, ``dec_layers_{i}/{LayerNorm_0, self_attn,
+LayerNorm_1, cross_attn, LayerNorm_2, _FFN_0}`` (kernels only, LayerNorms
+with a ``scale`` only) and ``enc_final_ln`` / ``dec_final_ln``.
+
 A dense JAX ``MTLTrainer``'s state loads by :func:`load_mtl_state`:
 ``params``, ``batch_stats``, the Adam moments of the model and of UWL's or
 GradNorm's ``loss_weight``, the weights themselves, MetaBalance's
@@ -113,11 +124,14 @@ def flax_to_state_dict(params: Mapping[str, Any], prefix: str = "") -> Dict[str,
     return out
 
 
-def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None) -> torch.nn.Module:
-    """Copy a flax ``params`` tree, and its ``batch_stats`` where the module
-    has BatchNorm buffers, into ``module`` (every entry, strictly)."""
+def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None, constants: Optional[Mapping[str, Any]] = None) -> torch.nn.Module:
+    """Copy a flax ``params`` tree, its ``batch_stats`` where the module has
+    BatchNorm buffers, and its ``constants`` collection where the module
+    keeps one as buffers (HLLM's ``item_embeddings``), into ``module``
+    (every entry, strictly)."""
     state = flax_to_state_dict(params)
     state.update(flax_to_state_dict(batch_stats or {}))
+    state.update(flax_to_state_dict(constants or {}))
     module.load_state_dict(state, strict=True)
     return module
 
