@@ -137,10 +137,31 @@
    up to near-ties.  The DeepFM, zoo, matching,
    multi-task, RQ-VAE, HLLM and TIGER phases check that none of the port's
    kernels was launched: no TPU kernel lies on these paths.
-14. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+14. bf16 mixed precision (``basic/precision.py``).  (a) The bf16 K1 and K2
+   (``csrc/hstu_rab_fwd_bf16.cu``, ``csrc/hstu_rab_bwd_bf16.cu``) on the
+   kernel phase's six cases and the bucket sweep, against their plain bf16
+   versions (one bf16 ulp of the largest element; dpos and dts as fp32
+   sums) and nearer to them than a quarter of their distance to the fp32
+   kernels; device and host-clock ms at the serving shape and at L1024
+   beside the plain bf16 version and the fp32 kernels, with bounds from bf16
+   bytes and 989 TFLOP/s of bf16 tensor cores.  (b) The full-width HSTU
+   under ``SeqTrainer(precision="bf16")``: ``evaluate`` / ``predict_logits``
+   (ms per request, tokens/s), training with the chunked 8192, dense and
+   sampled (1024) losses (tokens/s, a step's device time, host clock, idle
+   share and launches), the bf16 K1 and K2 launched once per layer per
+   forward and step, one step of each loss card against CPU, parameters and
+   optimizer state f32, ``fit`` on successor histories to a top-1 above ten
+   times chance.  (c) DeepFM at bench.py's small config under
+   ``CTRTrainer(precision="bf16")``: examples/s, a step's device time, host
+   clock, idle share, one step card against CPU, ``fit`` above a test AUC of
+   0.65; DSSM with in-batch negatives and MMOE under UWL and MetaBalance: one
+   step each card against CPU (inside the block that checks that no HSTU
+   kernel was launched).
+15. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
-Float32 throughout, TF32 off.
+Float32 outside the bf16 phases, TF32 off, and cuBLAS's bf16 GEMMs without
+reduced-precision reductions.
 """
 
 from __future__ import annotations
@@ -166,6 +187,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_rechub_tpu_torch.basic import layers  # noqa: E402
+from torch_rechub_tpu_torch.basic.precision import precision_scope  # noqa: E402
 from torch_rechub_tpu_torch.basic.features import DenseFeature, SequenceFeature, SparseFeature  # noqa: E402
 from torch_rechub_tpu_torch.models import matching, multi_task, ranking  # noqa: E402
 from torch_rechub_tpu_torch.models.generative import HLLMModel, HSTUModel, TIGERModel  # noqa: E402
@@ -269,7 +291,8 @@ ZOO_CHECK_BATCH = 1024  # card against CPU
 ZOO_UNMOVED = {"AFM": ("Dense_0.weight", "Dense_0.bias", "h")}
 ZOO_FIT_BATCHES = 32
 CARD = torch.device("cuda")
-COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv"}
+COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv",
+            "hstu_rab_fwd_bf16": "launches_bf16", "hstu_rab_bwd_bf16": "launches_bwd_bf16"}
 
 
 def reset_counts():
@@ -758,12 +781,12 @@ def serving_phase(cycles_per_ms):
 
 
 def kernel_class(name):
-    for key, label in (("hstu_rab_fwd_kernel", "K1 hstu_rab_fwd"), ("bwd_fused_kernel<", "K2 hstu_rab_bwd"), ("bwd_kv_kernel<", "K2b hstu_rab_bwd_dkv"), ("bwd_q_kernel<", "K2a hstu_rab_bwd_dq")):
+    for key, label in (("hstu_rab_fwd_bf16_kernel", "K1 hstu_rab_fwd_bf16"), ("hstu_rab_bwd_bf16_kernel", "K2 hstu_rab_bwd_bf16"), ("hstu_rab_fwd_kernel", "K1 hstu_rab_fwd"), ("bwd_fused_kernel<", "K2 hstu_rab_bwd"), ("bwd_kv_kernel<", "K2b hstu_rab_bwd_dkv"), ("bwd_q_kernel<", "K2a hstu_rab_bwd_dq")):
         if key in name:
             return label
     lowered = name.lower()
-    if "gemm" in lowered:
-        return "matrix products (cuBLAS / CUTLASS, fp32)"
+    if any(k in lowered for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matrix products (cuBLAS / CUTLASS)"
     if "multi_tensor_apply" in lowered or "adam" in lowered:
         return "Adam (foreach kernels)"
     if lowered.startswith("memcpy") or lowered.startswith("memset"):
@@ -845,7 +868,8 @@ def training_phase(cycles_per_ms):
 
     fused_steps = len(trainers) * TRAIN_BATCHES
     print(f"  launches over {fused_steps} steps + 1 split step, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    expected = {"hstu_rab_fwd": n_layers * (fused_steps + 1), "hstu_rab_bwd": n_layers * fused_steps, "hstu_rab_bwd_dq": n_layers, "hstu_rab_bwd_dkv": n_layers}
+    expected = {"hstu_rab_fwd": n_layers * (fused_steps + 1), "hstu_rab_bwd": n_layers * fused_steps, "hstu_rab_bwd_dq": n_layers, "hstu_rab_bwd_dkv": n_layers,
+                "hstu_rab_fwd_bf16": 0, "hstu_rab_bwd_bf16": 0}
     if counts != expected:
         raise AssertionError(f"the training path did not run each kernel once per layer per step: {counts}, expected {expected}")
     tokens = BATCH * TRAIN_BATCHES * l
@@ -992,7 +1016,7 @@ def ctr_kernel_class(name):
     for keys, label in ((("indexselect", "index_select"), "gathers (embedding lookups)"),
                         (("radix", "sort"), "sorts (embedding backward)"),
                         (("segment", "compute_grad_weight", "sum_and_scatter", "embedding_backward"), "segment sums (embedding backward)"),
-                        (("gemv",), "matrix products (cuBLAS / CUTLASS, fp32)"),
+                        (("gemv",), "matrix products (cuBLAS / CUTLASS)"),
                         (("reduce_kernel",), "reductions (BatchNorm statistics, loss, sums)")):
         if any(k in lowered for k in keys):
             return label
@@ -1516,7 +1540,7 @@ def hstu_sparse_phase():
     loss = trainer.train_one_epoch(loader, log_interval=0)
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    expected = {"hstu_rab_fwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd_dq": 0, "hstu_rab_bwd_dkv": 0}
+    expected = {"hstu_rab_fwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd_dq": 0, "hstu_rab_bwd_dkv": 0, "hstu_rab_fwd_bf16": 0, "hstu_rab_bwd_bf16": 0}
     print(f"  launches over {TRAIN_BATCHES} sparse steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if counts != expected:
         raise AssertionError(f"the sparse HSTU step did not run K1 and K2 once per layer: {counts}, expected {expected}")
@@ -2994,6 +3018,352 @@ def tiger_phase():
     print(f"  TIGER phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 14. bf16 mixed precision (basic/precision.py): the bf16 K1 and K2, and bf16
+#     HSTU, DeepFM, DSSM and MMOE through their trainers
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
+BF16_KERNELS = {"hstu_rab_fwd_bf16": ("hstu_rab_fwd_bf16.cu", "hstu_rab_attention.py:267"), "hstu_rab_bwd_bf16": ("hstu_rab_bwd_bf16.cu", "hstu_rab_attention.py:459")}
+# a bf16 kernel against its plain bf16 version (out, dq, dk, dv): one bf16 ulp of the largest element, since a
+# rounding of attn or ds, or of an f32 sum taken in another order, may flip; dpos, dts (f32 sums of up to
+# B*L^2/2 terms): as the fp32 tables, at twice the absolute part
+BF16_ULP_REL = 2**-7
+BF16_TABLE_RTOL, BF16_TABLE_ATOL_REL = 1e-4, 2e-4
+# and the kernel rounds as the plain bf16 version: its distance to it is at most this share of the plain
+# version's distance to the fp32 kernel's result (a kernel that computed in fp32 fails)
+BF16_SHARE = 0.25
+# a model's bf16 step on the card against the CPU's: cuBLAS and the kernels sum in other orders than the CPU,
+# so a rounding to bf16 may flip anywhere and carry through the layers: the loss to 1e-2 relative, each
+# output and gradient to 2**-4 of its tensor's largest element
+BF16_LOSS_RTOL, BF16_ATOL_REL = 1e-2, 2**-4
+BF16_HSTU_FIT = dict(users=1024, epochs=2, window=2048, chance_times=10)
+
+
+def bf16_case(c):
+    """A kernel case with q, k and v rounded to bf16."""
+    return {**c, **{n: c[n].to(torch.bfloat16) for n in ("q", "k", "v")}}
+
+
+def bf16_bounds(flops, nbytes):
+    """(bound ms, what bounds it, ms from bytes, ms from FLOPs): bytes at their dtypes against the HBM rate,
+    FLOPs against the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), t_bytes, t_ops
+
+
+def bf16_compare(name, got, plain, f32):
+    """max abs err of ``got`` against ``plain`` within the bf16 tolerances, and nearer to it than BF16_SHARE of
+    the plain version's distance to the fp32 result; returns (max abs err, the share)."""
+    got, plain, f32 = got.float().cpu(), plain.float().cpu(), f32.float().cpu()
+    scale = float(plain.abs().max())
+    tables = name.split()[-1] in ("dpos", "dts")
+    rtol, atol = (BF16_TABLE_RTOL, BF16_TABLE_ATOL_REL * scale + 1e-12) if tables else (0.0, BF16_ULP_REL * scale + 1e-12)
+    diff = (got - plain).abs()
+    err = float(diff.max())
+    if not (torch.isfinite(got).all() and bool((diff <= atol + rtol * plain.abs()).all())):
+        raise AssertionError(f"{name}: the bf16 kernel disagrees with its plain bf16 version: max abs err {err:.3e} (atol {atol:.3e}, rtol {rtol})")
+    gap = float((plain - f32).norm())
+    share = float(diff.norm()) / gap if gap > 0 else 0.0
+    if not tables and share > BF16_SHARE:
+        raise AssertionError(f"{name}: the bf16 kernel is {share:.3f} of the way from its plain bf16 version to fp32")
+    return err, share
+
+
+def bf16_kernel_phase(cases, cycles_per_ms):
+    """The bf16 K1 and K2 on the kernel phase's cases and the bucket sweep, against the plain bf16 versions and
+    the fp32 kernels; timed (device and host clock) at the serving shape and at L1024 beside the plain bf16 version
+    and the fp32 kernels, with bounds from bf16 bytes and bf16 tensor-core FLOPs."""
+    worst = {k: 0.0 for k in BF16_KERNELS}
+    timings = {}
+    for name, c32 in cases.items():
+        c = bf16_case(c32)
+        has_time = c["ts"] is not None
+        g32 = torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+        g = g32.to(torch.bfloat16)
+        args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
+        got = {"out": run_kernel(c), **dict(zip(GRAD_NAMES, rab.rab_backward_fused(*args, c["thr"])))}
+        plain = {"out": rab.plain_forward_bf16(*args[:3], *args[4:], has_time), **dict(zip(GRAD_NAMES, rab.plain_backward_bf16(*args, has_time)))}
+        cf = {**c, **{n: c[n].float() for n in ("q", "k", "v")}}  # the same bf16 values in fp32
+        f32 = {"out": run_kernel(cf), **dict(zip(GRAD_NAMES, rab.rab_backward_fused(cf["q"], cf["k"], cf["v"], g.float(), *args[4:], c["thr"])))}
+        torch.cuda.synchronize()
+        if got["out"].dtype != torch.bfloat16 or got["dq"].dtype != torch.bfloat16 or got["dpos"].dtype != torch.float32:
+            raise AssertionError(f"bf16 kernels' output dtypes: {[(k, v.dtype) for k, v in got.items()]}")
+        parts = []
+        for key in ("out",) + GRAD_NAMES:
+            err, share = bf16_compare(f"{name} {key}", got[key], plain[key], f32[key])
+            worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"] = max(worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"], err)
+            gap = float((plain[key].float() - f32[key].float()).abs().max())
+            parts.append(f"{key} {err:.2e} (share {share:.3f}; plain bf16 vs fp32 kernel {gap:.2e})")
+        print(f"  {name}: max abs err against the plain bf16 version " + ", ".join(parts))
+        if c["mask"] is not None and not bool(c["mask"][0].any()) and not bool((got["out"][0] == 0).all()):
+            raise AssertionError("bf16: a fully masked row must give zeros")
+        if name.startswith("serve") or "L1024" in name:
+            dqk, dv, pairs = c["q"].shape[-1], c["v"].shape[-1], valid_pairs(c)
+            fwd = lambda: run_kernel(c)  # noqa: E731
+            bwd = lambda: rab.rab_backward_fused(*args, c["thr"])  # noqa: E731
+            (f_ms, f_wall), (fp_ms, fp_wall) = timed(fwd, cycles_per_ms), timed(lambda: rab.plain_forward_bf16(*args[:3], *args[4:], has_time), cycles_per_ms)
+            (b_ms, b_wall), (bp_ms, bp_wall) = timed(bwd, cycles_per_ms), timed(lambda: rab.plain_backward_bf16(*args, has_time), cycles_per_ms)
+            (f32_ms, _), (b32_ms, _) = timed(lambda: run_kernel(cf), cycles_per_ms), timed(lambda: rab.rab_backward_fused(cf["q"], cf["k"], cf["v"], g32, *args[4:], c["thr"]), cycles_per_ms)
+            fb = bf16_bounds(2 * pairs * (dqk + dv), input_bytes(c) + got["out"].numel() * 2)  # inputs read, the bf16 output written
+            out_bytes = sum(t.numel() * t.element_size() for t in got.values()) - got["out"].numel() * 2
+            bb = bf16_bounds(2 * pairs * (3 * dqk + 2 * dv), input_bytes(c) + g.numel() * 2 + out_bytes)
+            timings.setdefault("hstu_rab_fwd_bf16", {})[name] = dict(ms=f_ms, plain_ms=fp_ms, bound_ms=fb[0], bound_by=fb[1])
+            timings.setdefault("hstu_rab_bwd_bf16", {})[name] = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=bb[0], bound_by=bb[1])
+            print(f"    hstu_rab_fwd_bf16 device {f_ms:.4f} ms (fp32 kernel {f32_ms:.4f} ms), plain bf16 {fp_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}: bf16 bytes {fb[2]:.4f} ms, "
+                  f"bf16 FLOPs at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s {fb[3]:.4f} ms); host clock kernel {f_wall:.4f} ms, plain {fp_wall:.4f} ms")
+            print(f"    hstu_rab_bwd_bf16 device {b_ms:.4f} ms (fp32 kernel {b32_ms:.4f} ms), plain bf16 {bp_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}: bytes {bb[2]:.4f} ms, FLOPs {bb[3]:.4f} ms); "
+                  f"host clock kernel {b_wall:.4f} ms, plain {bp_wall:.4f} ms; {pairs:,} valid pairs; medians of {REPS}")
+    for cfg in rab.SWEEP_CFGS:  # every bucket edge and |dt| = 2**31, the plain bf16 version on the CPU
+        c = bf16_case(sweep_case(cfg))
+        g = torch.from_numpy(np.random.default_rng(31).normal(size=tuple(c["v"].shape)).astype(np.float32)).to(torch.bfloat16)
+        args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
+        dev = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+        got = [rab.hstu_attention_rab(*dev[:3], *dev[4:], c["thr"].cuda())] + list(rab.rab_backward_fused(*dev, c["thr"].cuda()))
+        plain = [rab.plain_forward_bf16(*args[:3], *args[4:], True)] + list(rab.plain_backward_bf16(*args, True))
+        errs = []
+        for key, a, p in zip(("out",) + GRAD_NAMES, got, plain):
+            err, _ = bf16_compare(f"bucket sweep {tuple(cfg)} {key}", a, p, p)
+            worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"] = max(worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"], err)
+            errs.append(f"{key} {err:.2e}")
+        print(f"  bf16 bucket sweep {tuple(cfg)}, L{c['max_seq_len']}: max abs err " + ", ".join(errs))
+    print(f"  tolerances: out, dq, dk, dv {BF16_ULP_REL} x the tensor's max |plain| (one bf16 ulp), and at most {BF16_SHARE} of the plain bf16 version's distance to the fp32 kernel (L2); "
+          f"dpos, dts rtol {BF16_TABLE_RTOL}, atol {BF16_TABLE_ATOL_REL} x the table's max")
+    return {k: dict(max_abs_err=worst[k], **next(iter(timings[k].values()))) for k in BF16_KERNELS}
+
+
+def check_f32_state(label, trainer):
+    """Parameters, buffers and optimizer state in f32 under the bf16 policy."""
+    opts = trainer.optimizer.optimizers if hasattr(trainer.optimizer, "optimizers") else (trainer.optimizer,)
+    dtypes = {p.dtype for p in trainer.model.parameters()} | {b.dtype for b in trainer.model.buffers() if b.is_floating_point()}
+    dtypes |= {v.dtype for o in opts for s in o.state.values() for v in s.values() if torch.is_tensor(v) and v.is_floating_point() and v.ndim > 0}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{label}: parameters, buffers or optimizer state not float32 under bf16: {dtypes}")
+
+
+def bn_biases(model):
+    """The biases of the Dense layers in front of an MLP's BatchNorm: their exact gradient is 0 (the batch mean
+    removes them), so their values are rounding noise of a size that says nothing."""
+    return {f"{name}.Dense_{i}.bias" for name, m in model.named_modules() if isinstance(m, layers.MLP) for i in range(len(m.dims))}
+
+
+def bf16_against_cpu(label, build, loss_fn):
+    """One bf16 step of ``build(device) -> trainer`` (a fresh model from a seed) on the CPU and on the card:
+    ``loss_fn(trainer, device)`` in train mode under the trainer's bf16 policy, its gradients, then the optimizer's
+    step; the loss to BF16_LOSS_RTOL; each gradient to BF16_ATOL_REL of its largest CPU element plus twice the CPU's
+    own bf16 rounding error (its largest distance to the same step in f32): two bf16 computations of one function
+    in other summation orders each lie within their rounding error of it, and a gradient that is exactly 0 in f32
+    (a constant input that a BatchNorm removes) is rounding noise on both sides.  The ``bn_biases`` are not
+    compared.  Parameters and optimizer state f32 on both."""
+    ref = build("cpu")
+    ref.model.train()
+    with precision_scope("f32"):
+        loss_fn(ref, "cpu").backward()
+    g32 = {n: p.grad.detach().clone() for n, p in ref.model.named_parameters() if p.grad is not None}
+    del ref
+    res, skip = [], ()
+    for device in ("cpu", CARD):
+        trainer = build(device)
+        trainer.model.train()
+        skip = bn_biases(trainer.model)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with precision_scope(trainer.precision):
+            loss = loss_fn(trainer, device)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters() if p.grad is not None}
+        trainer.optimizer.step()
+        check_f32_state(f"{label} on {device}", trainer)
+        res.append((float(loss), grads))
+    (l_cpu, g_cpu), (l_card, g_card) = res
+    worst, where = 0.0, ""
+    for name, r in g_cpu.items():
+        if name in skip:
+            continue
+        ratio = float((g_card[name] - r).abs().max()) / (BF16_ATOL_REL * float(r.abs().max()) + 2 * float((r - g32[name]).abs().max()) + 1e-12)
+        if ratio > worst:
+            worst, where = ratio, name
+    print(f"  {label}: one bf16 step card vs CPU, loss {l_card:.6f} vs {l_cpu:.6f}; worst gradient max |d| / ({BF16_ATOL_REL} x the tensor's max + 2 x the CPU's bf16-f32 distance) "
+          f"{worst:.3f} ({where}; {len(skip & set(g_cpu))} BatchNorm-removed biases of {len(g_cpu)} not compared); parameters and optimizer state float32")
+    if not (math.isfinite(l_card) and math.isclose(l_card, l_cpu, rel_tol=BF16_LOSS_RTOL)) or worst > 1.0:
+        raise AssertionError(f"{label}: the card's bf16 step disagrees with the CPU's: loss {l_card} vs {l_cpu}, gradient ratio {worst} ({where})")
+
+
+def bf16_hstu_phase(cycles_per_ms):
+    """The full-width HSTU under SeqTrainer(precision="bf16"): serving (evaluate, predict_logits), training with the
+    chunked, dense and sampled losses, a chunked step's device time, host clock, idle share and launches, each
+    loss's step card against CPU, and fit on successor histories to a top-1 above ten times chance.  Returns the
+    bf16 kernels' launches."""
+    t0 = time.perf_counter()
+    l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
+    model = HSTUModel(**SERVE, generator=torch.Generator().manual_seed(0), device="cuda")
+    loader = SeqLoader(*serving_data(BATCH * N_BATCHES, l, vocab), batch_size=BATCH)
+    servers = {"dense": SeqTrainer(model, precision="bf16"), "chunked 8192": SeqTrainer(model, vocab_chunk_size=8192, precision="bf16")}
+    for tr in servers.values():
+        tr.evaluate(loader)
+    torch.cuda.synchronize()
+    reset_counts()
+    tokens = BATCH * N_BATCHES * l
+    for name, tr in servers.items():
+        t1 = time.perf_counter()
+        loss, top1 = tr.evaluate(loader)
+        t_eval = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        logits = tr.predict_logits(loader)
+        t_pred = time.perf_counter() - t1
+        print(f"  serving {name} (bf16): eval loss {loss:.6f}, top-1 {top1:.4f}, {tokens / t_eval:,.0f} tokens/s, {t_eval / N_BATCHES * 1e3:.3f} ms per request of {BATCH} sequences; "
+              f"predict_logits {t_pred / N_BATCHES * 1e3:.3f} ms per request")
+        if not (math.isfinite(loss) and 0 < loss < 2 * math.log(vocab)) or logits.dtype != np.float32 or not np.isfinite(logits).all():
+            raise AssertionError(f"bf16 serving output out of range ({name})")
+    serve_counts = read_counts()
+    print("  serving launches: " + ", ".join(f"{k} {v}" for k, v in serve_counts.items()))
+    if serve_counts["hstu_rab_fwd_bf16"] != 2 * len(servers) * N_BATCHES * n_layers or serve_counts["hstu_rab_fwd"] or serve_counts["hstu_rab_bwd_bf16"]:
+        raise AssertionError(f"the bf16 serving path did not run the bf16 K1 once per layer per forward: {serve_counts}")
+    toks, _, tds, tgts = (torch.from_numpy(a).cuda() for a in next(iter(loader)))
+    with torch.inference_mode():
+        device, wall = timed(lambda: servers["chunked 8192"].eval_step(toks, tds, tgts), cycles_per_ms)
+    print(f"  stage eval_step chunked 8192 (bf16): device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
+    del servers, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the three losses, TRAIN_BATCHES steps each after a warm-up step
+    data = serving_data(BATCH * TRAIN_BATCHES, l, vocab, seed=1, pad=False)
+    loader, first = SeqLoader(*data, batch_size=BATCH), SeqLoader(*(a[:BATCH] for a in data), batch_size=BATCH)
+    kinds = {"chunked 8192": dict(vocab_chunk_size=8192), "dense": dict(), "sampled 1024": dict(loss_type="sampled_softmax", loss_params=HSTU_SAMPLED)}
+    trainers = {name: SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(1), device="cuda"), precision="bf16", **kw) for name, kw in kinds.items()}
+    for tr in trainers.values():
+        tr.train_one_epoch(first, log_interval=0)
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, tr in trainers.items():
+        t1 = time.perf_counter()
+        loss = tr.train_one_epoch(loader, log_interval=0)
+        seconds = time.perf_counter() - t1
+        print(f"  training {name} (bf16): train loss {loss:.6f}, {BATCH * TRAIN_BATCHES * l / seconds:,.0f} tokens/s, {seconds / TRAIN_BATCHES * 1e3:.3f} ms per step of {BATCH} x L{l} (host clock, {TRAIN_BATCHES} steps)")
+        if not (math.isfinite(loss) and 0 < loss < 2 * math.log(vocab)):
+            raise AssertionError(f"bf16 training loss out of range ({name}): {loss}")
+        check_f32_state(f"HSTU {name}", tr)
+    train_counts = read_counts()
+    steps = len(trainers) * TRAIN_BATCHES
+    print(f"  training launches over {steps} steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in train_counts.items()))
+    expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd_bf16": n_layers * steps, "hstu_rab_bwd_bf16": n_layers * steps}
+    if train_counts != expected:
+        raise AssertionError(f"the bf16 training path did not run the bf16 K1 and K2 once per layer per step: {train_counts}, expected {expected}")
+    toks, _, tds, tgts = (torch.from_numpy(a).cuda() for a in next(iter(first)))
+    for name, tr in trainers.items():
+        device, wall, launched = step_stats(f"HSTU {name} (bf16)", lambda tr=tr: tr.train_step(toks, tds, tgts))
+        print(f"  a {name} step (bf16): device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, "
+              f"{launched:.1f} launches, {BATCH * l / wall * 1e3:,.0f} tokens/s by the host clock")
+    del trainers, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step of each loss on the card against the CPU's plain bf16 path, B2
+    b = 2
+    toks, _, tgts, tds = serving_data(b, l, vocab, seed=3, pad=True)
+    negs = np.random.default_rng(4).integers(1, vocab, HSTU_SAMPLED["num_negatives"])
+    for name, kw in kinds.items():
+        def build(device, kw=kw):
+            return SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(2)), precision="bf16", device=device, **kw)
+
+        def loss_of(trainer, device):
+            return trainer.loss_fn(*(torch.from_numpy(a).to(device) for a in (toks, tds, tgts)))
+
+        with given_negatives(negs):
+            bf16_against_cpu(f"HSTU {name} B{b}", build, loss_of)
+    gc.collect()
+
+    # fit: successor histories (each user's items run s, s + 1, ... through a window of ids; the target is the
+    # next), a rule the model must learn from the data, held out on other users' starts
+    f = BF16_HSTU_FIT
+    rng = np.random.default_rng(5)
+    start = rng.integers(0, f["window"], f["users"] + 256)
+    ids = (start[:, None] + np.arange(l + 1)[None, :]) % f["window"] + 1
+    hist = (ids[:, :l].astype(np.int32), np.broadcast_to(np.arange(l, dtype=np.int32), (len(start), l)).copy(), ids[:, l].astype(np.int32),
+            np.broadcast_to((l - 1 - np.arange(l)) * 60, (len(start), l)).astype(np.int32).copy())
+    train = SeqLoader(*(a[: f["users"]] for a in hist), batch_size=BATCH)
+    test = SeqLoader(*(a[f["users"]:] for a in hist), batch_size=BATCH)
+    tr = SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(6), device="cuda"), n_epoch=f["epochs"], vocab_chunk_size=8192, precision="bf16", model_path=HLLM_MODEL_PATH + "_hstu_bf16")
+    before = tr.evaluate(test)[1]
+    t1 = time.perf_counter()
+    tr.fit(train)
+    after = tr.evaluate(test)[1]
+    chance = 1 / (vocab - 1)
+    print(f"  fit (bf16), {f['epochs']} epochs of {f['users']} successor histories over {f['window']} ids, chunked 8192: held-out top-1 {after:.4f} (before {before:.4f}; chance {chance:.2e}, "
+          f"{f['chance_times']}x chance {f['chance_times'] * chance:.2e}), {time.perf_counter() - t1:.1f} s")
+    if not after > f["chance_times"] * chance:
+        raise AssertionError(f"bf16 HSTU fit: top-1 {after} not above {f['chance_times']}x chance")
+    print(f"  bf16 HSTU phase: {time.perf_counter() - t0:.1f} s")
+    return {k: serve_counts[k] + train_counts[k] for k in BF16_KERNELS}
+
+
+def bf16_ctr_match_mtl_phase():
+    """DeepFM at bench.py's small config under CTRTrainer(precision="bf16"): examples/s of train_one_epoch, a step's
+    device time, host clock, idle share and launches, one step card against CPU, fit above a test AUC of 0.65;
+    DSSM with in-batch negatives and MMOE under UWL and MetaBalance: one step each card against CPU."""
+    t0 = time.perf_counter()
+    b, small = CTR["batch"], [CTR["vocab"]] * CTR["n_sparse"]
+    x, y = ctr_data(CTR_TRAIN_BATCHES * b, small, seed=3)
+    trainer = CTRTrainer(ctr_model(small, seed=1, device=CARD), optimizer_params=CTR_OPT, precision="bf16")
+    loader = ArrayLoader(x, y, batch_size=b)
+    trainer.train_one_epoch(loader, log_interval=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = trainer.train_one_epoch(loader, log_interval=0)
+    seconds = time.perf_counter() - t1
+    print(f"  DeepFM training (bf16, ArrayLoader): loss {loss:.6f}, {CTR_TRAIN_BATCHES * b / seconds:,.0f} examples/s, {seconds / CTR_TRAIN_BATCHES * 1e3:.3f} ms per step of {b}")
+    yb, wb = torch.as_tensor(y[:b], device=CARD), torch.ones(b, device=CARD)
+    batch = {k: torch.as_tensor(x[k][:b], device=CARD) for k in x}
+    device, wall, launched = step_stats("DeepFM B4096 (bf16)", lambda: trainer.train_step(batch, yb, wb))
+    print(f"  a DeepFM step (bf16): device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, {launched:.1f} launches")
+    check_f32_state("DeepFM", trainer)
+    xs, ys = ctr_data(b, small, seed=4)
+
+    def ctr_loss(tr, d):
+        return tr.loss_fn({k: torch.from_numpy(v).to(d) for k, v in xs.items()}, torch.from_numpy(ys).to(d), torch.ones(b, device=d))
+
+    bf16_against_cpu(f"DeepFM B{b}", lambda d: CTRTrainer(ctr_model(small, seed=2, device="cpu"), optimizer_params=CTR_OPT, precision="bf16", device=d), ctr_loss)
+    x, _ = ctr_data(CTR_FIT_BATCHES * b, small, seed=5)
+    y = ((x["C0"] % 2) + x["I0"] > 0.5).astype(np.float32)
+    train, val, test = DataGenerator(x, y, seed=0).generate_dataloader(split_ratio=[0.7, 0.15], batch_size=b)
+    fit = CTRTrainer(ctr_model(small, seed=5, device=CARD), optimizer_params=CTR_OPT, n_epoch=3, model_path=CTR_MODEL_PATH + "_bf16", precision="bf16")
+    fit.fit(train, val, log_interval=0)
+    auc = fit.evaluate(fit.model, test)
+    print(f"  DeepFM fit (bf16), 3 epochs of {train.n} rows: test AUC {auc:.5f}")
+    if not auc > 0.65:
+        raise AssertionError(f"bf16 DeepFM fit reached a test AUC of {auc}, not above 0.65")
+
+    mb = 256
+    mx, _ = match_data(mb, seed=6)
+
+    def redrawn(model, seed):  # tables at N(0, 0.3²): at their 1e-4 start every score is near 0 and bf16 rounds nothing
+        with torch.no_grad():
+            redraw_tables(model, seed)
+        return model
+
+    def dssm_loss(tr, d):
+        return tr.loss_fn({k: torch.from_numpy(v).to(d) for k, v in mx.items()}, None, torch.ones(mb, device=d))
+
+    bf16_against_cpu(f"DSSM in-batch B{mb}", lambda d: MatchTrainer(redrawn(match_model("DSSM", seed=7, device="cpu"), 7), mode=2, in_batch_neg=True, optimizer_params=CTR_OPT, precision="bf16", device=d),
+                     dssm_loss)
+    tx, tys = mtl_data(MTL["batch"], seed=8)
+    for method in ("uwl", "metabalance"):
+        def build(d, method=method):
+            return MTLTrainer(redrawn(mtl_model("MMOE", seed=9, device="cpu"), 9), MTL_TASKS, adaptive_params={"method": method}, optimizer_params=CTR_OPT, precision="bf16", device=d)
+
+        def mtl_loss(tr, d):
+            losses = tr.task_losses(tr.model({k: torch.from_numpy(v).to(d) for k, v in tx.items()}), torch.from_numpy(tys).to(d), torch.ones(MTL["batch"], device=d))
+            return mtl_trainer._aggregate_losses(losses, tr.loss_weight, tr.adaptive_method, False)
+
+        bf16_against_cpu(f"MMOE {method} B{MTL['batch']}", build, mtl_loss)
+        tr = build(CARD)
+        losses = tr.train_one_epoch(ArrayLoader(tx, tys, batch_size=MTL["batch"]), log_interval=0)
+        check_f32_state(f"MMOE {method} after train_one_epoch", tr)
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"MMOE {method} (bf16): non-finite losses {losses}")
+    print(f"  bf16 DeepFM, DSSM and MMOE phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -3001,6 +3371,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # bf16 GEMMs sum in f32, as the CPU's
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     print("build:")
@@ -3013,6 +3384,8 @@ def main():
         print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items()))
     c, r, b = attn.occupancy(1024, 256, 128)
     print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA")
+    for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in rab.occupancy_bf16(*shape).items()))
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()
@@ -3023,6 +3396,10 @@ def main():
     print("bucket sweep (hstu_rab_fwd, hstu_rab_bwd and hstu_rab_bwd_dq + hstu_rab_bwd_dkv at every threshold -1, 0, +1 and |dt| = 2**31, vs the plain version on the CPU):")
     for name, err in sweep_phase().items():
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+    print(f"bf16 kernel phase (hstu_rab_fwd_bf16, hstu_rab_bwd_bf16 vs their plain bf16 versions and the fp32 kernels; the bucket sweep in bf16; bounds at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16):")
+    print("  " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    measured.update(bf16_kernel_phase(cases, cycles_per_ms))
+    torch.cuda.empty_cache()
     del cases
     print("materialised-bias attention phase (hstu_attention: hstu_attn_fwd vs plain PyTorch and vs hstu_rab_fwd, fp32):")
     k3 = attention_phase(bias_cases(), cycles_per_ms)
@@ -3059,6 +3436,8 @@ def main():
     hllm_phase(cycles_per_ms)
     print("TIGER phase (TIGERModel at the paper's widths on RQ-VAE semantic ids; card against CPU; AdamW steps; trie-constrained generate, recall@10 and @1):")
     tiger_phase()
+    print("bf16 DeepFM, DSSM and MMOE phase (precision=\"bf16\" through CTRTrainer, MatchTrainer and MTLTrainer; card against CPU; fit):")
+    bf16_ctr_match_mtl_phase()
     ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
     print("  the port's kernels launched by the DeepFM, ranking zoo, matching, multi-task, RQ-VAE, HLLM and TIGER phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
@@ -3070,9 +3449,11 @@ def main():
     for name, n in hstu_sparse_phase().items():
         launches[name] += n
     print(f"  HSTU sparse training phase: {time.perf_counter() - t0:.1f} s")
+    print("bf16 HSTU phase (the full-width HSTU under SeqTrainer(precision=\"bf16\"): serving, training with three losses through the bf16 K1 and K2; card against CPU; fit):")
+    launches.update(bf16_hstu_phase(cycles_per_ms))
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
-               "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45")}
+               "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
     launches["hstu_attn_fwd"] = k3.pop("launches")  # the op's own path: it lies on no model's path
     measured["hstu_attn_fwd"] = k3
     print(json.dumps({"kernels": [{
@@ -3080,7 +3461,7 @@ def main():
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving, training and sparse training paths; K3: the calls of its own phase
+        "launches": launches[name],  # serving, training and sparse training paths (bf16: the bf16 ones); K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

@@ -161,8 +161,9 @@ def test_match_trainer_rejects_what_is_not_ported(tmp_path):
         MatchTrainer(model, neg_pool="shard", device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         MatchTrainer(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MatchTrainer(model, precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="precision"):  # bf16 is ported (tests/test_torch_precision.py)
+        MatchTrainer(model, precision="fp8", device="cpu")
+    assert MatchTrainer(model, precision="bf16", device="cpu").precision == "bf16"
     assert MatchTrainer(model, neg_pool="local", device="cpu").neg_pool == "local"  # no mesh: the whole batch either way
 
 

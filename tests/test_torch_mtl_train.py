@@ -297,8 +297,9 @@ def test_sparse_path_refuses_gradnorm_metabalance_and_unfused_tables():
         MTLTrainer(model, TASK_TYPES, sparse_embedding="sgd", device="cpu")
     with pytest.raises(ValueError, match="unknown adaptive method"):
         MTLTrainer(model, TASK_TYPES, adaptive_params={"method": "pcgrad"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MTLTrainer(model, TASK_TYPES, precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="precision"):  # bf16 is ported (tests/test_torch_precision.py)
+        MTLTrainer(model, TASK_TYPES, precision="fp8", device="cpu")
+    assert MTLTrainer(model, TASK_TYPES, precision="bf16", device="cpu").precision == "bf16"
 
 
 @pytest.mark.parametrize("method", [None, "uwl", "gradnorm", "metabalance"])

@@ -142,3 +142,41 @@ def test_every_kernel_source_ships_with_the_package():
         assert src.is_file() and src.parent == PORT / "csrc", name
         assert f'extern "C" int {name}(' in src.read_text()
     assert _build.library_path("hstu_rab_fwd") == _build.library_path("hstu_rab_fwd")  # keyed by content
+
+
+def test_precision_policy_is_a_port_module_without_jax():
+    """``basic/precision.py`` is the port's own copy of the policy, not an import of the JAX package's."""
+    path = PORT / "basic" / "precision.py"
+    assert path in port_sources()
+    assert not [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
+def test_kernels_without_a_bf16_variant_refuse_bf16():
+    """K2a, K2b and K3 have no bf16 variant yet (ROADMAP queue 2): their input checks, which run before any
+    library loads, refuse bf16 q, k, v naming the queue, while K1's and K2's take it.  On the CPU all of them
+    keep taking the plain versions."""
+    import importlib
+
+    from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab
+
+    attn = importlib.import_module("torch_rechub_tpu_torch.ops.cuda.hstu_attention")
+    b, h, l, d, maxl = 2, 2, 16, 8, 16
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, g = (torch.randn(b, h, l, d, generator=gen).to(torch.bfloat16) for _ in range(4))
+    cfg = rab.BucketCfg(8, "sqrt", 1.0, "minutes")
+    pos_w, ts_w = torch.randn(2 * maxl - 1, h, generator=gen), torch.randn(9, h, generator=gen)
+    ts = torch.sort(torch.randint(0, 10**6, (b, l), generator=gen), dim=1).values.to(torch.int32)
+    mask, thr = torch.ones(b, l, dtype=torch.bool), rab.compute_bucket_thresholds(cfg)
+    checks = (q, k, v, pos_w, ts_w, ts, mask, thr, maxl, 8)
+    for entry in ("hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"):
+        with pytest.raises(TypeError, match="ROADMAP queue 2"):
+            rab._check_kernel_inputs(*checks, entry)
+    for entry in ("hstu_rab_fwd", "hstu_rab_bwd"):
+        rab._check_kernel_inputs(*checks, entry)
+    with pytest.raises(TypeError, match="ROADMAP queue 2"):
+        attn._check_kernel_inputs(q, k, v, torch.zeros(1, h, l, l, dtype=torch.bfloat16), mask)
+    args = (q, k, v, g, pos_w, ts_w, ts, mask, 0.25, maxl, cfg)
+    dq, dpos, dts = rab.rab_backward_dq(*args)
+    dk, dv = rab.rab_backward_dkv(*args)
+    assert (dq.dtype, dk.dtype, dv.dtype, dpos.dtype, dts.dtype) == (torch.bfloat16,) * 3 + (torch.float32,) * 2
+    assert attn.hstu_attention(q, k, v, torch.zeros(1, h, l, l), mask, 0.25, maxl).shape == (b, h, l, d)

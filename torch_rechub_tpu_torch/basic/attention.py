@@ -12,7 +12,9 @@ them (``models/ranking/bst.py``, ``models/matching/sasrec.py``), not
   and head.
 
 The query may differ from the keys and values: SASRec attends from
-``LayerNorm(h)`` to the un-normed ``h``.  The parameters keep flax's names:
+``LayerNorm(h)`` to the un-normed ``h``.  Both are flax layers with
+``dtype=None``: under the bf16 policy they promote a bf16 input against
+their f32 parameters and compute in f32, with f32 outputs.  The parameters keep flax's names:
 ``query``, ``key``, ``value`` and ``out`` are ``nn.Linear``s over the
 flattened heads, which ``utils/jax_weights.py`` fills from flax's
 ``DenseGeneral`` kernels.
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from .initializers import linear
+from .precision import promote
 
 
 class LayerNorm(nn.Module):
@@ -42,6 +45,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = promote(x, self.weight.dtype)
         mean = x.mean(-1, keepdim=True)
         var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
         y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
@@ -56,10 +60,11 @@ class MultiHeadDotProductAttention(nn.Module):
         super().__init__()
         self.num_heads, self.dropout_rate = num_heads, dropout_rate
         for name in ("query", "key", "value", "out"):
-            self.add_module(name, linear(d, d, generator, device))
+            self.add_module(name, linear(d, d, generator, device, policy=False))
 
     def forward(self, inputs_q: torch.Tensor, mask: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None, inputs_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         inputs_kv = inputs_q if inputs_kv is None else inputs_kv
+        inputs_q, inputs_kv = promote(inputs_q, self.query.weight.dtype), promote(inputs_kv, self.query.weight.dtype)
         b, lq, d = inputs_q.shape
         head_dim = d // self.num_heads
         q = self.query(inputs_q).reshape(b, lq, self.num_heads, head_dim)

@@ -16,6 +16,10 @@ the CPU); ``False`` materialises the dense bias with
 
 Dropout draws its masks from the ``generator`` passed to ``forward`` (the
 trainer's), not from torch's global RNG; it is active in ``train()`` mode.
+
+Under the bf16 policy (``basic/precision.py``) the LayerNorms run in f32,
+``proj1`` / ``proj2`` and the attention in bf16, and the residual stream is
+bf16, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 from ..ops.cuda.hstu_rab_attention import BucketCfg, compute_bucket_thresholds, hstu_attention_rab
 from ..utils.hstu_utils import RelativeBucketedTimeAndPositionBias
 from .initializers import linear
+from .precision import einsum, silu, weak
 
 
 def dropout(x: torch.Tensor, p: float, training: bool, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -63,7 +68,7 @@ class HSTULayer(nn.Module):
         h, dqk, dv = self.n_heads, self.dqk, self.dv
         alpha = 1.0 / math.sqrt(dqk)
 
-        proj = nn.functional.silu(self.proj1(self.norm_in(x)))
+        proj = silu(self.proj1(self.norm_in(x.to(torch.float32))))
         q, k, u, v = torch.split(proj, [h * dqk, h * dqk, h * dv, h * dv], dim=-1)
         q = q.reshape(b, l, h, dqk)
         k = k.reshape(b, l, h, dqk)
@@ -79,14 +84,15 @@ class HSTULayer(nn.Module):
             out = attn_out.transpose(1, 2).reshape(b, l, h * dv)
         else:
             bias = self.rab(time_diffs=time_diffs, seq_len=l)
-            scores = torch.einsum("blhd,bmhd->bhlm", q, k) * alpha + bias
+            scores = torch.einsum("blhd,bmhd->bhlm", q, k)
+            scores = scores * weak(scores, alpha) + bias
             valid = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))[None, None]
             if padding_mask is not None:
                 valid = valid & padding_mask[:, None, None, :]
             scores = scores.masked_fill(~valid, -1e4)
             attn = nn.functional.silu(scores) / self.max_seq_len
-            out = torch.einsum("bhlm,bmhd->blhd", attn, v).reshape(b, l, h * dv)
-        gated = dropout(self.norm_attn(out) * u, self.dropout, self.training, generator)
+            out = einsum("bhlm,bmhd->blhd", attn, v).reshape(b, l, h * dv)
+        gated = dropout(self.norm_attn(out.to(torch.float32)) * u, self.dropout, self.training, generator)
         return self.proj2(gated)
 
 

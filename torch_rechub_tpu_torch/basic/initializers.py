@@ -28,6 +28,8 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .precision import Dense
+
 
 class Initializer:
     """Base initializer spec; subclasses implement ``init(shape, generator)``."""
@@ -169,9 +171,15 @@ def param(init: Callable, shape, generator: Optional[torch.Generator] = None, de
     return torch.nn.Parameter(init(tuple(shape), generator).to(torch.float32).to(device))
 
 
-def linear(in_features: int, out_features: int, generator: Optional[torch.Generator] = None, device=None, bias: bool = True) -> torch.nn.Linear:
-    """``nn.Linear`` with the zoo's init: torch fan-in weight, zero bias (flax ``Dense``)."""
-    layer = torch.nn.Linear(in_features, out_features, bias=bias, device=device)
+def linear(in_features: int, out_features: int, generator: Optional[torch.Generator] = None, device=None, bias: bool = True, policy: bool = True) -> torch.nn.Linear:
+    """``nn.Linear`` with the zoo's init: torch fan-in weight, zero bias (flax ``Dense``).
+
+    ``policy``: a :class:`~.precision.Dense`, which computes in the active
+    precision as the JAX package's ``Dense(dtype=compute_dtype())`` does;
+    else a plain ``nn.Linear`` (flax's ``dtype=None`` layers, whose inputs the
+    caller promotes).
+    """
+    layer = (Dense if policy else torch.nn.Linear)(in_features, out_features, bias=bias, device=device)
     torch_linear_init_(layer.weight, generator)
     if bias:
         torch.nn.init.zeros_(layer.bias)

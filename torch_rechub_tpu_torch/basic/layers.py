@@ -12,6 +12,11 @@ Submodules and parameters keep flax's names (``Dense_0``, ``BatchNorm_0``,
 ``w_{i}``, ``conv_w_{i}``, ``gate_w``, ``W_Q``, ...), so a flax model's
 ``params`` and ``batch_stats`` load by name (``utils/jax_weights.py``); the
 raw parameters are drawn by flax's initializers (``basic/initializers.py``).
+
+Under the bf16 policy (``basic/precision.py``) the ``Dense`` layers and the
+parameters the JAX package reads through ``cast_compute`` compute in bf16;
+``BatchNorm`` promotes to f32; elsewhere jnp's promotion holds (bf16 with
+f32 gives f32).
 """
 
 from __future__ import annotations
@@ -26,13 +31,14 @@ from torch import nn
 from .activation import activation_layer
 from .hstu import dropout
 from .initializers import linear, param, torch_linear_init, uniform, xavier_normal, zeros
+from .precision import cast_compute, promote, sigmoid, softmax, weak
 
 
 def prediction(x: torch.Tensor, task_type: str = "classification") -> torch.Tensor:
     """Head transform: sigmoid for classification, identity for regression."""
     if task_type not in ("classification", "regression"):
         raise ValueError("task_type must be classification or regression")
-    return torch.sigmoid(x) if task_type == "classification" else x
+    return sigmoid(x) if task_type == "classification" else x
 
 
 class LR(nn.Module):
@@ -45,7 +51,7 @@ class LR(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.Dense_0(x)
-        return torch.sigmoid(out) if self.sigmoid else out
+        return sigmoid(out) if self.sigmoid else out
 
 
 class BatchNorm(nn.Module):
@@ -171,7 +177,7 @@ class CIN(nn.Module):
         x0, h, xs = x, x, []
         for i, size in enumerate(self.cin_size):
             z = (x0[:, :, None, :] * h[:, None, :, :]).reshape(b, -1, d)  # (B, F0·Fi, D)
-            w, bias = getattr(self, f"conv_w_{i}"), getattr(self, f"conv_b_{i}")
+            w, bias = cast_compute(getattr(self, f"conv_w_{i}")), cast_compute(getattr(self, f"conv_b_{i}"))
             out = F.relu(torch.einsum("bcd,oc->bod", z, w) + bias[None, :, None])
             if self.split_half and i != len(self.cin_size) - 1:
                 out, h = torch.split(out, size // 2, dim=1)
@@ -190,7 +196,7 @@ class CrossLayer(nn.Module):
         self.b = param(zeros, (d,), device=device)
 
     def forward(self, x0: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-        return x0 * self.Dense_0(xi) + self.b
+        return x0 * self.Dense_0(xi) + cast_compute(self.b)
 
 
 class CrossNetwork(nn.Module):
@@ -206,7 +212,7 @@ class CrossNetwork(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x0 = x
         for i in range(self.num_layers):
-            x = x0 * getattr(self, f"w_{i}")(x) + getattr(self, f"b_{i}") + x
+            x = x0 * getattr(self, f"w_{i}")(x) + cast_compute(getattr(self, f"b_{i}")) + x
         return x
 
 
@@ -223,7 +229,7 @@ class CrossNetV2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x0 = x
         for i in range(self.num_layers):
-            x = x0 * getattr(self, f"w_{i}")(x) + getattr(self, f"b_{i}") + x
+            x = x0 * getattr(self, f"w_{i}")(x) + cast_compute(getattr(self, f"b_{i}")) + x
         return x
 
 
@@ -246,9 +252,10 @@ class CrossNetMix(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x0 = xl = x
+        gate_w = cast_compute(self.gate_w)
         for i in range(self.num_layers):
-            u, v, c, b = (getattr(self, f"{n}_{i}") for n in ("u", "v", "c", "b"))
-            gate = torch.einsum("bd,ed->be", xl, self.gate_w)
+            u, v, c, b = (cast_compute(getattr(self, f"{n}_{i}")) for n in ("u", "v", "c", "b"))
+            gate = torch.einsum("bd,ed->be", xl, gate_w)
             vx = torch.tanh(torch.einsum("edr,bd->ber", v, xl))
             cvx = torch.tanh(torch.einsum("ers,bes->ber", c, vx))
             uv = torch.einsum("edr,ber->bed", u, cvx)  # (B, E, d)
@@ -292,11 +299,12 @@ class BiLinearInteractionLayer(nn.Module):
         self.register_buffer("j_idx", j_idx, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = cast_compute(self.w)
         if self.bilinear_type == "field_all":
-            return torch.einsum("bfd,de->bfe", x, self.w)[:, self.i_idx] * x[:, self.j_idx]
+            return torch.einsum("bfd,de->bfe", x, w)[:, self.i_idx] * x[:, self.j_idx]
         if self.bilinear_type == "field_each":
-            return torch.einsum("bfd,fde->bfe", x, self.w)[:, self.i_idx] * x[:, self.j_idx]
-        return torch.einsum("bpd,pde->bpe", x[:, self.i_idx], self.w) * x[:, self.j_idx]
+            return torch.einsum("bfd,fde->bfe", x, w)[:, self.i_idx] * x[:, self.j_idx]
+        return torch.einsum("bpd,pde->bpe", x[:, self.i_idx], w) * x[:, self.j_idx]
 
 
 class InteractingLayer(nn.Module):
@@ -314,7 +322,8 @@ class InteractingLayer(nn.Module):
         b, f, d = x.shape
         head_dim = d // self.num_heads
         q, k, v = (m(x).reshape(b, f, self.num_heads, head_dim).transpose(1, 2) for m in (self.W_Q, self.W_K, self.W_V))
-        scores = torch.einsum("bhfd,bhgd->bhfg", q, k) * (head_dim**-0.5)
+        scores = torch.einsum("bhfd,bhgd->bhfg", q, k)
+        scores = scores * weak(scores, head_dim**-0.5)
         weights = dropout(torch.softmax(scores.to(torch.float32), dim=-1).to(v.dtype), self.dropout, self.training, generator)
         out = torch.einsum("bhfg,bhgd->bhfd", weights, v).transpose(1, 2).reshape(b, f, d)
         if self.residual:
@@ -336,7 +345,7 @@ class MultiInterestSA(nn.Module):
         self.W2 = param(uniform(1.0), (hidden, interest_num), generator, device)
 
     def forward(self, seq_emb: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        logits = torch.einsum("bsd,dk->bsk", torch.tanh(torch.einsum("bse,ed->bsd", seq_emb, self.W1)), self.W2)
+        logits = torch.einsum("bsd,dk->bsk", torch.tanh(torch.einsum("bse,ed->bsd", seq_emb, cast_compute(self.W1))), cast_compute(self.W2))
         if mask is not None:
             logits = logits + -1e9 * (1.0 - mask.to(logits.dtype))
         attn = torch.softmax(logits.to(torch.float32), dim=1).to(seq_emb.dtype)  # over positions
@@ -394,7 +403,7 @@ class CapsuleNetwork(nn.Module):
         elif self.bilinear_type == 1:
             hat = self.Dense_0(item_eb)
         else:
-            hat = torch.einsum("lod,bld->blo", self.w[0, :l], item_eb)
+            hat = torch.einsum("lod,bld->blo", self.w[0, :l], promote(item_eb))
         hat = hat.reshape(b, l, k, d).transpose(1, 2)  # (B, K, L, D)
         hat_iter = hat.detach()
         if self.bilinear_type > 0:
@@ -402,11 +411,11 @@ class CapsuleNetwork(nn.Module):
         elif routing_weight is not None:
             weight = routing_weight.to(hat.dtype)
         else:
-            weight = routing_start((b, k, l), self.training, generator, hat.device)
+            weight = routing_start((b, k, l), self.training, generator, hat.device).to(hat.dtype)
         masked = (mask.reshape(b, 1, l) == 0).expand(b, k, l)
         capsule = None
         for i in range(self.routing_times):
-            soft = torch.softmax(weight, dim=-1).masked_fill(masked, 0.0)
+            soft = softmax(weight, dim=-1).masked_fill(masked, 0.0)
             last = i == self.routing_times - 1
             capsule = _squash(torch.einsum("bkl,bkld->bkd", soft, hat if last else hat_iter))
             if not last:

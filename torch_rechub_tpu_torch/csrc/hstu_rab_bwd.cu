@@ -133,67 +133,6 @@ constexpr int kWarps2 = 8;
 constexpr int kThreads2 = 32 * kWarps2;
 constexpr int kTsCopies = 4 * kWarps2;  // dts sums: one copy per warp and lane column t
 
-// dts of one thread's values (bucket -1: none): fold its runs of equal
-// buckets, then the warp's when all its lanes hold one bucket.
-template <int NVAL>
-__device__ __forceinline__ void add_ts_grads(float* gts, const float* ds, const int* bk) {
-  int cur = -1;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < NVAL; ++i) {
-    const int u = bk[i];
-    if (u < 0) continue;
-    if (u != cur) {
-      if (cur >= 0) atomicAdd(&gts[cur], acc);
-      cur = u;
-      acc = 0.f;
-    }
-    acc += ds[i];
-  }
-  const unsigned full = 0xffffffffu;
-  const int top = __reduce_max_sync(full, cur);
-  if (__all_sync(full, cur == top || cur < 0)) {
-    float sum = acc;  // 0 where cur < 0
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
-    if ((threadIdx.x & 31) == 0 && top >= 0) atomicAdd(&gts[top], sum);
-  } else if (cur >= 0) {
-    atomicAdd(&gts[cur], acc);
-  }
-}
-
-// dpos of one warp's 16 x 16 fragment pair.  part[n][j] holds the lane's
-// values at local causal distance 8 (n - 1) + kSign (2t - g + j) (kSign: +1
-// where the fragment is keys x queries, K2; -1 where it is rows x keys,
-// K2a); lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same
-// distances, so they sum along that chain by shuffles and the chain's head
-// adds one shared atomic per distance at base + its local distance, for
-// distances in [0, n_dist).
-template <int kSign>
-__device__ __forceinline__ void add_pos_grads(float* gpos, float part[3][2], int base, int n_dist, int g, int t) {
-  const unsigned full = 0xffffffffu;
-  const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
-#pragma unroll
-  for (int n = 0; n < 3; ++n)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float v = part[n][j];
-      const float v1 = __shfl_down_sync(full, v, 9);
-      v += step1 ? v1 : 0.f;
-      const float v2 = __shfl_down_sync(full, v, 18);
-      v += step2 ? v2 : 0.f;
-      part[n][j] = v;
-    }
-  const bool head = t == 0 || g < 2;
-#pragma unroll
-  for (int n = 0; n < 3; ++n)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int dist = base + 8 * (n - 1) + kSign * (2 * t - g + j);
-      if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
-    }
-}
-
 // The CTA's table sums into the global outputs (zeroed by the wrapper): the
 // dts copies added in a fixed order, one atomic per nonzero slot.
 __device__ __forceinline__ void flush_table_grads(const Args& a, const float* gpos, const float* gts, int n_dist,

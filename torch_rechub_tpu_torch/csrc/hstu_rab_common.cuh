@@ -1,8 +1,11 @@
 // Building blocks shared by the attention kernels (hstu_rab_fwd.cu,
-// hstu_rab_bwd.cu, hstu_attn_fwd.cu): 3xTF32 tensor-core products with
-// mma.sync, cp.async tile copies, and the exact O(1) time-bucket lookup.
+// hstu_rab_bwd.cu, hstu_attn_fwd.cu and the bf16 variants
+// hstu_rab_fwd_bf16.cu, hstu_rab_bwd_bf16.cu): 3xTF32 and bf16 tensor-core
+// products with mma.sync, tile copies, the exact O(1) time-bucket lookup,
+// and the backward kernels' table-gradient sums.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +71,62 @@ __device__ __forceinline__ void load_a(const float* s, int ld, int row0, int col
   split(p[8 * ld], ah[1], al[1]);
   split(p[4], ah[2], al[2]);
   split(p[8 * ld + 4], ah[3], al[3]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: one m16n8k16 product with f32 accumulators (the bf16 variants)
+// ---------------------------------------------------------------------------
+
+// d += a * b.  Each 32-bit register holds two bf16, the lower column (or
+// k) index in the low half.  Fragments (g = lane / 4, t = lane % 4):
+//   a: A[g][2t..2t+1], A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]  (16 x 16, row major)
+//   b: B[2t..2t+1][g], B[2t+8..2t+9][g]                                        (16 x 8, k x n)
+//   d: D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]   (the m16n8k8 layout)
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two consecutive bf16 of a shared tile (p 4-byte aligned)
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// p[0] in the low half, p[stride] in the high: two rows of one column
+__device__ __forceinline__ uint32_t ld_column_pair(const __nv_bfloat16* p, int stride) {
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
+  return lo | (hi << 16);
+}
+
+// Rows row0 .. row0+rows-1 (columns 0 .. width-1) of a row-major (L, width)
+// bf16 matrix into a shared tile of row stride ld (a multiple of 8), with
+// columns width .. padded-1 and rows at or past L zero.  vec: 16-byte loads
+// (width % 8 == 0 and the matrix 16-byte aligned), else 2-byte ones, so a
+// matrix may start at any element.  Plain loads and stores: the caller's
+// barrier makes them visible.
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
+                                                int rows, int L, int width, int padded, bool vec, int tid,
+                                                int nthreads) {
+  if (vec) {
+    const int cpr = padded >> 3;  // 8-element chunks per row
+    for (int i = tid; i < rows * cpr; i += nthreads) {
+      const int r = i / cpr, c = 8 * (i - r * cpr), row = row0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row < L && c < width) val = *reinterpret_cast<const uint4*>(src + (size_t)row * width + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+  } else {
+    for (int i = tid; i < rows * padded; i += nthreads) {
+      const int r = i / padded, c = i - r * padded, row = row0 + r;
+      dst[r * ld + c] = row < L && c < width ? src[(size_t)row * width + c] : __float2bfloat16(0.f);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -217,5 +276,70 @@ struct Lookup {
     return u;
   }
 };
+
+// ---------------------------------------------------------------------------
+// Table gradients of a warp's 16 x 16 fragment pair (the backward kernels)
+// ---------------------------------------------------------------------------
+
+// dts of one thread's values (bucket -1: none): fold its runs of equal
+// buckets, then the warp's when all its lanes hold one bucket.
+template <int NVAL>
+__device__ __forceinline__ void add_ts_grads(float* gts, const float* ds, const int* bk) {
+  int cur = -1;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < NVAL; ++i) {
+    const int u = bk[i];
+    if (u < 0) continue;
+    if (u != cur) {
+      if (cur >= 0) atomicAdd(&gts[cur], acc);
+      cur = u;
+      acc = 0.f;
+    }
+    acc += ds[i];
+  }
+  const unsigned full = 0xffffffffu;
+  const int top = __reduce_max_sync(full, cur);
+  if (__all_sync(full, cur == top || cur < 0)) {
+    float sum = acc;  // 0 where cur < 0
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
+    if ((threadIdx.x & 31) == 0 && top >= 0) atomicAdd(&gts[top], sum);
+  } else if (cur >= 0) {
+    atomicAdd(&gts[cur], acc);
+  }
+}
+
+// dpos of one warp's 16 x 16 fragment pair.  part[n][j] holds the lane's
+// values at local causal distance 8 (n - 1) + kSign (2t - g + j) (kSign: +1
+// where the fragment is keys x queries, K2; -1 where it is rows x keys,
+// K2a); lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same
+// distances, so they sum along that chain by shuffles and the chain's head
+// adds one shared atomic per distance at base + its local distance, for
+// distances in [0, n_dist).
+template <int kSign>
+__device__ __forceinline__ void add_pos_grads(float* gpos, float part[3][2], int base, int n_dist, int g, int t) {
+  const unsigned full = 0xffffffffu;
+  const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = part[n][j];
+      const float v1 = __shfl_down_sync(full, v, 9);
+      v += step1 ? v1 : 0.f;
+      const float v2 = __shfl_down_sync(full, v, 18);
+      v += step2 ? v2 : 0.f;
+      part[n][j] = v;
+    }
+  const bool head = t == 0 || g < 2;
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int dist = base + 8 * (n - 1) + kSign * (2 * t - g + j);
+      if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
+    }
+}
 
 }  // namespace rab

@@ -24,6 +24,7 @@ from torch import nn
 from ...basic.attention import LayerNorm
 from ...basic.hstu import dropout
 from ...basic.initializers import linear, xavier_uniform_
+from ...basic.precision import einsum, weak
 from ...utils.hstu_utils import RelPosBias, bucketize_time
 
 
@@ -51,13 +52,14 @@ class HLLMTransformerBlock(nn.Module):
         residual = x
         x = self.norm1(x)
         q, k, v = (m(x).reshape(b, l, h, hd).transpose(1, 2) for m in (self.W_Q, self.W_K, self.W_V))
-        scores = torch.einsum("bhld,bhmd->bhlm", q, k) * (hd**-0.5)
+        scores = torch.einsum("bhld,bhmd->bhlm", q, k)
+        scores = scores * weak(scores, hd**-0.5)
         causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
         scores = scores.masked_fill(~causal, float("-inf"))
         if rel_pos_bias is not None:
             scores = scores + torch.where(causal, rel_pos_bias, 0.0)
         attn = dropout(torch.softmax(scores, dim=-1), p, training, generator)
-        out = torch.einsum("bhlm,bhmd->bhld", attn, v).transpose(1, 2).reshape(b, l, d)
+        out = einsum("bhlm,bhmd->bhld", attn, v).transpose(1, 2).reshape(b, l, d)  # f32 attn (the f32 bias) promotes v
         x = residual + dropout(self.W_O(out), p, training, generator)
 
         residual = x

@@ -11,6 +11,10 @@ sampled softmax (``output_rows``), are hooks of the sparse row-wise
 updates: inside ``ops.sparse_update.record_rows`` they read the rows as a
 recorded leaf (``SeqTrainer(sparse_embedding=...)``).  A tied table also
 takes a dense gradient through the output projection, so it has no hook.
+
+Under the bf16 policy the embeddings (f32 tables) are cast to bf16 after
+the dropout and the stack runs in bf16; the logits are formed in bf16 and
+returned in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from ...basic.hstu import HSTUBlock, dropout
 from ...basic.initializers import xavier_uniform_
+from ...basic.precision import compute_dtype
 from ...ops.sparse_update import gather_rows
 from ...utils.hstu_utils import bucketize_time
 
@@ -70,7 +75,7 @@ class HSTUModel(nn.Module):
             td = time_diffs if time_diffs is not None else torch.zeros((b, l), dtype=torch.int32, device=x.device)
             buckets = bucketize_time(td, self.num_time_buckets, self.time_bucket_fn, self.time_bucket_divisor, self.time_bucket_unit, max_bucket=self.num_time_buckets - 1)
             emb = emb + self.time_embedding[buckets]
-        emb = dropout(emb * padding_mask[..., None].to(emb.dtype), self.dropout, self.training, generator)
+        emb = dropout(emb * padding_mask[..., None].to(emb.dtype), self.dropout, self.training, generator).to(compute_dtype())
 
         out = self.hstu_block(emb, padding_mask=padding_mask, time_diffs=time_diffs, generator=generator)
         out = out * padding_mask[..., None].to(out.dtype)
@@ -79,15 +84,15 @@ class HSTUModel(nn.Module):
             weight, bias = self.token_embedding, self.output_bias
         else:
             weight, bias = self.output_projection, self.output_projection_bias
-        if self.score_norm == "l2":
-            out, weight = self._l2(out), self._l2(weight)
+        if self.score_norm == "l2":  # the norms in f32
+            out, weight = self._l2(out.to(torch.float32)).to(out.dtype), self._l2(weight)
 
         if return_hidden:
             # for the chunked large-vocab CE: score-normalised hidden states
             # and output table; the caller folds in self.temperature
             return {"hidden": out, "weight": weight, "bias": bias}
 
-        logits = torch.einsum("bld,vd->blv", out, weight)
+        logits = torch.einsum("bld,vd->blv", out, weight.to(out.dtype)).to(torch.float32)
         if bias is not None:
             logits = logits + bias
         if self.temperature != 1.0:

@@ -31,6 +31,7 @@ from torch.nn import functional as F
 from ...basic.attention import LayerNorm
 from ...basic.hstu import dropout
 from ...basic.initializers import linear, normal, param
+from ...basic.precision import softmax, weak
 from ...trainers.base import resolve_device
 
 
@@ -54,10 +55,11 @@ class _MHA(nn.Module):
         hd = d // h
         q = self.q(q_in).reshape(b, lq, h, hd)
         k, v = (m(kv_in).reshape(b, kv_in.shape[1], h, hd) for m in (self.k, self.v))
-        scores = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(hd)
+        scores = torch.einsum("blhd,bmhd->bhlm", q, k)
+        scores = scores / weak(scores, math.sqrt(hd))
         if mask is not None:
             scores = torch.where(mask, scores, -1e9)
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, self.training, generator)
+        attn = dropout(softmax(scores, dim=-1), self.dropout, self.training, generator)
         return self.o(torch.einsum("bhlm,bmhd->blhd", attn, v).reshape(b, lq, d))
 
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from ...basic.initializers import param, uniform
 from ...basic.layers import CapsuleNetwork
+from ...basic.precision import einsum, promote
 from ...ops.embedding import EmbeddingCollection
 from .base import l2_normalize
 from .youtube_dnn import item_tower_with_negatives
@@ -44,7 +45,7 @@ class MultiInterestFrame(nn.Module):
         mask = (x[self.history_features[0].name] > 0).to(torch.float32)
         interests = self._interests(hist, mask, generator)  # (B, K, D)
         combined = torch.cat([input_user.expand(-1, self.interest_num, -1), interests], dim=-1)
-        return l2_normalize(combined @ self.convert_user_weight, dim=-1)
+        return l2_normalize(promote(combined) @ self.convert_user_weight, dim=-1)
 
     def item_tower(self, x, generator=None, with_negatives: bool = False):
         return item_tower_with_negatives(self.embedding, x, self.item_features, self.neg_item_feature, with_negatives)
@@ -52,7 +53,7 @@ class MultiInterestFrame(nn.Module):
     @staticmethod
     def _best(user: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """The interest of ``user (B, K, D)`` with the largest score against ``pos (B, D)``, ``(B, 1, D)``."""
-        k_idx = torch.argmax(torch.einsum("bkd,bd->bk", user, pos), dim=1)
+        k_idx = torch.argmax(einsum("bkd,bd->bk", user, pos), dim=1)
         return user[torch.arange(user.shape[0], device=user.device), k_idx][:, None, :]
 
     def towers(self, x, generator=None):

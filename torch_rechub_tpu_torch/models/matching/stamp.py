@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ...basic.initializers import normal, param, zeros
+from ...basic.precision import Dense, promote
 
 
 class STAMP(nn.Module):
@@ -29,7 +30,7 @@ class STAMP(nn.Module):
         self.w_3_t = param(normal(weight_std), (d, d), generator, device)
         self.b_a = param(zeros, (d,), device=device)
         for name in ("f_s", "f_t"):  # flax Dense with a normal(emb_std) kernel and a zero bias
-            layer = nn.Linear(d, d, device=device)
+            layer = Dense(d, d, device=device)
             with torch.no_grad():
                 layer.weight.copy_(normal(emb_std)((d, d), generator).T)
                 layer.bias.zero_()
@@ -68,4 +69,4 @@ class STAMP(nn.Module):
             return self.item_tower(x, generator)
         if self.item_feature is not None:
             return (self.user_tower(x) * self.item_tower(x)).sum(-1)
-        return self._user_repr(x) @ self.item_embedding.T
+        return promote(self._user_repr(x)) @ self.item_embedding.T

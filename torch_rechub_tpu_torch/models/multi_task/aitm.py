@@ -16,6 +16,7 @@ from torch import nn
 
 from ...basic.initializers import linear
 from ...basic.layers import MLP
+from ...basic.precision import sigmoid, softmax, weak
 from ...ops.embedding import EmbeddingCollection, squeeze_width
 
 
@@ -32,7 +33,8 @@ class AttentionLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.q_layer(x), self.k_layer(x), self.v_layer(x)
-        a = torch.softmax((q * k).sum(-1) / math.sqrt(float(self.dim)), dim=1)
+        s = (q * k).sum(-1)
+        a = softmax(s / weak(s, math.sqrt(float(self.dim))), dim=1)
         return (a[..., None] * v).sum(1)
 
 
@@ -56,5 +58,5 @@ class AITM(nn.Module):
         for i in range(1, self.n_task):
             info = getattr(self, f"info_gates_{i - 1}")(input_towers[i - 1], generator=generator)[:, None, :]
             input_towers[i] = getattr(self, f"aits_{i - 1}")(torch.cat([input_towers[i][:, None, :], info], dim=1))
-        ys = [torch.sigmoid(getattr(self, f"towers_{i}")(h, generator=generator)) for i, h in enumerate(input_towers)]
+        ys = [sigmoid(getattr(self, f"towers_{i}")(h, generator=generator)) for i, h in enumerate(input_towers)]
         return torch.cat(ys, dim=1)

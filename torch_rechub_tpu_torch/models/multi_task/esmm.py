@@ -17,6 +17,7 @@ from torch import nn
 
 from ...basic.features import DenseFeature
 from ...basic.layers import MLP
+from ...basic.precision import sigmoid
 from ...ops.embedding import EmbeddingCollection, squeeze_width
 
 
@@ -34,6 +35,6 @@ class ESMM(nn.Module):
         item = self.embedding(x, self.item_features, squeeze_dim=False)
         b = user.shape[0]
         input_tower = torch.cat([user.reshape(b, -1), item.reshape(b, -1)], dim=1)
-        cvr_pred = torch.sigmoid(self.tower_cvr(input_tower, generator=generator))
-        ctr_pred = torch.sigmoid(self.tower_ctr(input_tower, generator=generator))
+        cvr_pred = sigmoid(self.tower_cvr(input_tower, generator=generator))
+        ctr_pred = sigmoid(self.tower_ctr(input_tower, generator=generator))
         return torch.cat([cvr_pred, ctr_pred, ctr_pred * cvr_pred], dim=1)

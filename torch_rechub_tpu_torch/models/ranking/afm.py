@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...basic.initializers import linear, param, xavier_uniform
+from ...basic.precision import promote
 from ...basic.layers import FM, LR
 from ...ops.embedding import EmbeddingCollection, squeeze_width
 
@@ -39,5 +40,5 @@ class AFM(nn.Module):
         input_fm = self.EmbeddingCollection_0(x, self.fm_features)  # (B, F, D)
         y_linear = self.LR_0(input_fm.reshape(input_fm.shape[0], -1))
         y_fm = self.FM_0(input_fm)  # (B, D)
-        atts = torch.softmax(F.relu(self.Dense_0(y_fm)) @ self.h, dim=1)  # (B, 1): identically 1
+        atts = torch.softmax(promote(F.relu(self.Dense_0(y_fm))) @ self.h, dim=1)  # (B, 1): identically 1
         return (y_linear + (atts * y_fm) @ self.p).squeeze(-1)

@@ -20,6 +20,7 @@ from torch import nn
 
 from ...basic.initializers import param, xavier_uniform
 from ...basic.layers import MLP
+from ...basic.precision import einsum
 from ...ops.embedding import EmbeddingCollection, feature_mask, squeeze_width
 from ...ops.rnn import GRULayer
 from .din import embedded_width
@@ -42,7 +43,7 @@ class AUGRU(nn.Module):
             self.register_parameter(name, param(xavier_uniform, shape, generator, device))
 
     def forward(self, seq: torch.Tensor, item: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        scores = torch.einsum("btd,bd->bt", seq @ self.Wa, item)
+        scores = einsum("btd,bd->bt", seq @ self.Wa, item)
         attn = torch.softmax(torch.where(mask > 0, scores, -1e9), dim=1)
         all_pad = mask.sum(1) == 0
         d = self.Wa.shape[0]

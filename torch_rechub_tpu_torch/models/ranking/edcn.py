@@ -16,6 +16,7 @@ from torch import nn
 
 from ...basic.initializers import linear, ones, param
 from ...basic.layers import LR, MLP, CrossLayer
+from ...basic.precision import softmax
 from ...ops.embedding import EmbeddingCollection
 
 
@@ -37,7 +38,7 @@ class BridgeModule(nn.Module):
 
     def _attention(self, name: str, v: torch.Tensor) -> torch.Tensor:
         a = getattr(self, f"{name}_2")(F.relu(getattr(self, f"{name}_1")(v)))
-        return torch.softmax(a, dim=-1)
+        return softmax(a, dim=-1)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         if self.bridge_type == "hadamard_product":

@@ -23,6 +23,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..basic.precision import weak
+
 _NEG_INF = -1e30
 
 
@@ -54,8 +56,8 @@ def chunked_logsumexp(hidden: torch.Tensor, weight: torch.Tensor, bias: Optional
     """
     v = weight.shape[0]
     chunk_size = min(chunk_size, v)
-    weight = weight.to(hidden.dtype)
-    inv_t = 1.0 / temperature
+    weight = weight.to(hidden.dtype)  # the products in the compute dtype; the accumulators in f32
+    inv_t = weak(hidden, 1.0 / temperature)  # rounded to bf16 under the policy, as there
     m = torch.full(hidden.shape[:-1], _NEG_INF, dtype=torch.float32, device=hidden.device)
     s = torch.zeros(hidden.shape[:-1], dtype=torch.float32, device=hidden.device)
     # under autograd each chunk's logits are recomputed in the backward, not kept

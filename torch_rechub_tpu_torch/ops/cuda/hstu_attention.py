@@ -29,6 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...basic.precision import einsum
 from . import _build
 
 # kernel launches of this process; reset and read by chip_smoke.py
@@ -51,7 +52,7 @@ def dense_forward(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float)
         valid = valid & padding_mask[:, None, None, :]
     scores = scores.masked_fill(~valid, -1e4)  # replaces: a NaN bias at a masked pair does not reach the output
     attn = F.silu(scores) / max_seq_len
-    return torch.einsum("bhlm,bhmd->bhld", attn, v)
+    return einsum("bhlm,bhmd->bhld", attn, v)  # bf16 v with an f32 bias: f32, as jnp promotes
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +84,8 @@ def _check_kernel_inputs(q, k, v, bias, padding_mask):
         if not t.is_contiguous():
             raise ValueError(f"hstu_attention: {name} must be contiguous")
     for name in ("q", "k", "v", "bias"):
+        if named[name].dtype == torch.bfloat16:
+            raise TypeError(f"hstu_attention: the CUDA kernel takes float32, got {name} bfloat16: K3's bf16 variant is not ported yet (ROADMAP queue 2)")
         if named[name].dtype != torch.float32:
             raise TypeError(f"hstu_attention: the CUDA kernel takes float32, got {name} {named[name].dtype}")
     if k.shape != q.shape or v.shape[:3] != q.shape[:3]:

@@ -19,11 +19,23 @@ Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
   (K2a per q tile, K2b per key tile), taken when ``_FUSED_BWD[0]`` is False,
   as in the JAX package.  All three are built as K1 is: 3xTF32 products,
   P and dS in registers, ``cp.async`` rings.  The source notes have the designs.
+- bf16 (the mixed-precision policy, ``basic/precision.py``):
+  ``csrc/hstu_rab_fwd_bf16.cu`` (K1) and ``csrc/hstu_rab_bwd_bf16.cu`` (K2)
+  take bf16 q, k, v and g with f32 tables, multiply on the tensor cores in
+  ``mma.sync.m16n8k16`` bf16 with f32 accumulators, and round where the
+  Pallas kernels round: the forward's ``attn`` to bf16 before ``attn @ v``
+  and its output to bf16; the backward's ``attn`` and ``ds`` to bf16
+  before the dv, dk and dq products, dq summed in f32 and rounded at the
+  end, dk and dv written in bf16, dpos and dts summed in f32 from the
+  unrounded ``ds``.  K2a, K2b (the split backward) have no bf16 variant
+  yet and refuse a bf16 input on the card (ROADMAP queue 2).
 
 Dispatch: a tensor on the CPU takes the plain PyTorch versions
-(:func:`dense_forward`, differentiable by autograd, and
-:func:`dense_backward`).  A tensor on a CUDA device launches the kernels, or
-raises: there is no fallback.
+(fp32: :func:`dense_forward`, differentiable by autograd, and
+:func:`dense_backward`; bf16: :func:`plain_forward_bf16` and
+:func:`plain_backward_bf16`, at the kernels' rounding points).  A tensor on
+a CUDA device launches the kernels, or raises: there is no fallback and no
+cast between the two precisions.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ launches = 0  # K1, hstu_rab_fwd
 launches_bwd = 0  # K2, hstu_rab_bwd
 launches_bwd_dq = 0  # K2a, hstu_rab_bwd_dq
 launches_bwd_dkv = 0  # K2b, hstu_rab_bwd_dkv
+launches_bf16 = 0  # K1 in bf16, hstu_rab_fwd_bf16
+launches_bwd_bf16 = 0  # K2 in bf16, hstu_rab_bwd_bf16
 
 _FUSED_BWD = [True]  # False takes the split pair K2a + K2b (the JAX package's A/B switch)
 
@@ -184,6 +198,57 @@ def dense_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: float, 
     return torch.einsum("bhlm,bhmd->bhld", attn, v.to(attn.dtype)).to(q.dtype)
 
 
+def _bf16_scores(q, k, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, has_time: bool):
+    """f32 scores of bf16 ``q``, ``k`` (exact products, f32 sums), masked pairs at -1e4; and the valid pairs."""
+    l = q.shape[2]
+    bias = dense_bias(pos_w, ts_w, timestamps, l, max_seq_len, cfg, has_time)
+    scores = torch.einsum("bhld,bhmd->bhlm", q.float(), k.float()) * alpha + bias
+    valid = torch.tril(torch.ones((l, l), dtype=torch.bool, device=q.device))[None, None]
+    if padding_mask is not None:
+        valid = valid & padding_mask[:, None, None, :]
+    return scores.masked_fill(~valid, -1e4), valid
+
+
+def plain_forward_bf16(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, has_time: bool) -> torch.Tensor:
+    """K1 on bf16 inputs as the Pallas kernel rounds: ``(B, H, L, dv)`` bf16.
+
+    Scores in f32; ``attn = silu(s) / N`` rounded to bf16 before the f32
+    ``attn @ v``; the output rounded to bf16.  (The JAX package's dense
+    fallback rounds ``q @ k`` instead and keeps ``attn`` in f32.)
+    """
+    s, _ = _bf16_scores(q, k, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
+    attn = (s * torch.sigmoid(s) * (1.0 / max_seq_len)).to(torch.bfloat16)
+    return torch.einsum("bhlm,bhmd->bhld", attn.float(), v.float()).to(torch.bfloat16)
+
+
+def plain_backward_bf16(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, has_time: bool):
+    """K2 on bf16 inputs as the Pallas kernel rounds: ``(dq, dk, dv)`` bf16, ``(dpos, dts)`` f32.
+
+    ``attn`` and ``ds`` are rounded to bf16 for the dv, dk and dq products
+    (f32 sums); dpos and dts sum the unrounded f32 ``ds``.
+    """
+    b, h, l, _ = q.shape
+    s, valid = _bf16_scores(q, k, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
+    inv_n = 1.0 / max_seq_len
+    sig = torch.sigmoid(s)
+    attn = (s * sig) * inv_n
+    gf = g.float()
+    dattn = torch.einsum("bhld,bhmd->bhlm", gf, v.float())
+    ds = torch.where(valid, dattn * (sig * (1.0 + s * (1.0 - sig))) * inv_n, torch.zeros_like(s))
+    a16, d16 = attn.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dv = torch.einsum("bhlm,bhld->bhmd", a16, gf).to(torch.bfloat16)
+    dk = (torch.einsum("bhlm,bhld->bhmd", d16, q.float()) * alpha).to(torch.bfloat16)
+    dq = (torch.einsum("bhlm,bhmd->bhld", d16, k.float()) * alpha).to(torch.bfloat16)
+    pos = torch.arange(l, device=q.device)
+    rel = (pos[None, :] - pos[:, None] + (max_seq_len - 1)).reshape(-1)
+    dpos = torch.zeros_like(pos_w).index_add_(0, rel, ds.sum(0).permute(1, 2, 0).reshape(l * l, h))
+    dts = torch.zeros_like(ts_w)
+    if has_time:
+        buckets = _bucketize(timestamps[:, :, None] - timestamps[:, None, :], cfg).reshape(-1)
+        dts.index_add_(0, buckets, ds.permute(0, 2, 3, 1).reshape(b * l * l, h))
+    return dq, dk, dv, dpos, dts
+
+
 def dense_backward(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, has_time: bool):
     """``(dq, dk, dv, dpos, dts)``: autograd of :func:`dense_forward` against ``g``.
 
@@ -201,20 +266,34 @@ def dense_backward(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: flo
 # the kernel
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("hstu_rab_fwd")
-    if lib.hstu_rab_fwd.argtypes is None:
+def _load_fwd(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_rab_fwd.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
-        lib.hstu_rab_fwd.restype = i
-        lib.hstu_rab_fwd_occupancy.argtypes = [i] * 5 + [p]
-        lib.hstu_rab_fwd_occupancy.restype = i
+        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
+        fn.restype = i
+        occ = getattr(lib, name + "_occupancy")
+        occ.argtypes = [i] * 5 + [p]
+        occ.restype = i
         lib.hstu_rab_error_string.argtypes = [i]
         lib.hstu_rab_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets):
+def _lib() -> ctypes.CDLL:
+    return _load_fwd("hstu_rab_fwd")
+
+
+def _lib_bf16() -> ctypes.CDLL:
+    return _load_fwd("hstu_rab_fwd_bf16")
+
+
+# the kernels that take bf16 q, k, v (and g); the others refuse it
+BF16_ENTRIES = ("hstu_rab_fwd", "hstu_rab_bwd")
+
+
+def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets, entry: str = "hstu_rab_fwd"):
     b, h, l, dqk = q.shape
     dv = v.shape[-1]
     dev = q.device
@@ -226,9 +305,13 @@ def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresho
             raise ValueError(f"hstu_attention_rab: {name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"hstu_attention_rab: {name} must be contiguous")
-    for name in ("q", "k", "v", "pos_w", "ts_w"):
+    if q.dtype == torch.bfloat16 and entry not in BF16_ENTRIES:
+        raise TypeError(f"{entry}: q is bfloat16; the bf16 variant of this kernel is not ported yet (ROADMAP queue 2)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"hstu_attention_rab: the CUDA kernels take q, k, v all float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name in ("pos_w", "ts_w"):
         if named[name].dtype != torch.float32:
-            raise TypeError(f"hstu_attention_rab: the CUDA kernel takes float32, got {name} {named[name].dtype}")
+            raise TypeError(f"hstu_attention_rab: the CUDA kernels take float32 tables, got {name} {named[name].dtype}")
     if k.shape != q.shape or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"hstu_attention_rab: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if tuple(pos_w.shape) != (2 * max_seq_len - 1, h) or tuple(ts_w.shape) != (num_buckets + 1, h):
@@ -246,27 +329,46 @@ def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresho
 
 
 def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg) -> torch.Tensor:
-    global launches
+    """K1, or its bf16 variant when q is bf16: the output in q's dtype."""
+    global launches, launches_bf16
     num_buckets = ts_w.shape[0] - 1
     _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
     b, h, l, dqk = q.shape
     dv = v.shape[-1]
-    out = torch.empty((b, h, l, dv), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    bf16 = q.dtype == torch.bfloat16
+    name = "hstu_rab_fwd_bf16" if bf16 else "hstu_rab_fwd"
+    out = torch.empty((b, h, l, dv), dtype=q.dtype, device=q.device)
+    lib = _lib_bf16() if bf16 else _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.hstu_rab_fwd(
+        rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
             None if timestamps is None else timestamps.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
             out.data_ptr(), b, h, l, dqk, dv, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"hstu_rab_fwd launch failed: {lib.hstu_rab_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: {lib.hstu_rab_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 BWD_ENTRIES = ("hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv")  # K2, K2a, K2b: the C occupancy query's index
+
+
+def _lib_bwd_bf16() -> ctypes.CDLL:
+    lib = _build.load("hstu_rab_bwd_bf16")
+    if lib.hstu_rab_bwd_bf16.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.hstu_rab_bwd_bf16.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
+        lib.hstu_rab_bwd_bf16.restype = i
+        lib.hstu_rab_bwd_bf16_occupancy.argtypes = [i] * 5 + [p]
+        lib.hstu_rab_bwd_bf16_occupancy.restype = i
+        lib.hstu_rab_bwd_error_string.argtypes = [i]
+        lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib_bwd() -> ctypes.CDLL:
@@ -286,14 +388,17 @@ def _lib_bwd() -> ctypes.CDLL:
 def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
     """Launch one backward kernel into the given outputs (None: not produced)."""
     num_buckets = ts_w.shape[0] - 1
-    _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
+    _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets, entry)
     b, h, l, dqk = q.shape
     dv_dim = v.shape[-1]
-    if g.device != q.device or g.dtype != torch.float32 or g.shape != v.shape or not g.is_contiguous():
-        raise ValueError(f"{entry}: the output gradient must be a contiguous float32 {tuple(v.shape)} tensor on {q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if g.device != q.device or g.dtype != v.dtype or g.shape != v.shape or not g.is_contiguous():
+        raise ValueError(f"{entry}: the output gradient must be a contiguous {v.dtype} {tuple(v.shape)} tensor on {q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     if max(dqk, dv_dim) > MAX_BWD_WIDTH:
         raise ValueError(f"{entry}: the backward kernels take dqk, dv <= {MAX_BWD_WIDTH}, got dqk={dqk} dv={dv_dim}")
-    lib = _lib_bwd()
+    if q.dtype == torch.bfloat16:
+        lib, entry = _lib_bwd_bf16(), entry + "_bf16"
+    else:
+        lib = _lib_bwd()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -317,6 +422,16 @@ def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> 
     """
     queries = [("hstu_rab_fwd", _lib().hstu_rab_fwd_occupancy, ())]
     queries += [(name, _lib_bwd().hstu_rab_bwd_occupancy, (which,)) for which, name in enumerate(BWD_ENTRIES)]
+    return _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets)
+
+
+def occupancy_bf16(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> dict:
+    """The bf16 K1 and K2 as :func:`occupancy` reports the fp32 kernels."""
+    queries = [("hstu_rab_fwd_bf16", _lib_bf16().hstu_rab_fwd_bf16_occupancy, ()), ("hstu_rab_bwd_bf16", _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, ())]
+    return _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets)
+
+
+def _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets) -> dict:
     out = {}
     for name, query, which in queries:
         info = (ctypes.c_int * 3)()
@@ -330,7 +445,8 @@ def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> 
 def _dispatch_bwd(name: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds):
     """CPU: the plain backward (None); CUDA: the thresholds the kernel takes; else raise."""
     if q.device.type == "cpu":
-        return dense_backward(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None), None
+        plain = plain_backward_bf16 if q.dtype == torch.bfloat16 else dense_backward
+        return plain(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None), None
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on the CPU (plain version) or a CUDA device (kernel), not {q.device}")
     return None, compute_bucket_thresholds(cfg).to(q.device) if thresholds is None else thresholds
@@ -340,12 +456,20 @@ def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha:
     """K2: ``(dq, dk, dv, dpos, dts)`` in one pass (the plain version on the CPU).
 
     dq and the table gradients are sums of fp32 atomics across CTAs, whose
-    order changes from run to run.
+    order changes from run to run.  On bf16 inputs (the bf16 variant) dq is
+    summed into an f32 buffer and rounded to bf16 after the kernel, as the
+    JAX package rounds the Pallas kernel's f32 dq.
     """
-    global launches_bwd
+    global launches_bwd, launches_bwd_bf16
     plain, thresholds = _dispatch_bwd("rab_backward_fused", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
     if plain is not None:
         return plain
+    if q.dtype == torch.bfloat16:
+        dq32, dk, dv = torch.zeros(q.shape, dtype=torch.float32, device=q.device), torch.empty_like(k), torch.empty_like(v)
+        dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
+        _launch_bwd("hstu_rab_bwd", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dq=dq32, dk=dk, dv=dv, dpos=dpos, dts=dts)
+        launches_bwd_bf16 += 1
+        return dq32.to(torch.bfloat16), dk, dv, dpos, dts
     dq, dk, dv = torch.zeros_like(q), torch.empty_like(k), torch.empty_like(v)
     dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
     _launch_bwd("hstu_rab_bwd", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dq=dq, dk=dk, dv=dv, dpos=dpos, dts=dts)
@@ -386,13 +510,17 @@ class _RabAttentionKernel(torch.autograd.Function):
     """K1 forward; K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False.
 
     Saves the inputs, the tables, the stamps, the mask and the thresholds,
-    and no ``(L, L)`` tensor: the backward kernels rebuild every tile.
+    and no ``(L, L)`` tensor: the backward kernels rebuild every tile.  On
+    the CPU (bf16 inputs only) the forward and backward are the plain bf16
+    versions.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg):
         ctx.save_for_backward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds)
         ctx.alpha, ctx.max_seq_len, ctx.cfg = alpha, max_seq_len, cfg
+        if q.device.type == "cpu" and q.dtype == torch.bfloat16:
+            return plain_forward_bf16(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None)
         return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
 
     @staticmethod
@@ -421,19 +549,20 @@ def hstu_attention_rab(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: fl
         thresholds: ``compute_bucket_thresholds(cfg)`` already on q's device
             (a layer keeps it as a buffer); computed here when None.
 
-    Returns ``(B, H, L, dv)``.
+    Returns ``(B, H, L, dv)`` in q's dtype: float32, or bfloat16 for bf16
+    q, k, v (the mixed-precision policy; the tables stay float32).
     """
     l = q.shape[2]
     if l > max_seq_len:
         raise ValueError(f"seq_len ({l}) exceeds max_seq_len ({max_seq_len}).")
     has_time = timestamps is not None
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and q.dtype != torch.bfloat16:
         return dense_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hstu_attention_rab runs on the CPU (plain version) or a CUDA device (kernel), not {q.device}")
     if ts_w.shape[0] != cfg.num_buckets + 1:
         raise ValueError(f"hstu_attention_rab: ts_w has {ts_w.shape[0]} rows, cfg {cfg.num_buckets + 1}")
-    if thresholds is None:
+    if thresholds is None and q.device.type == "cuda":
         thresholds = compute_bucket_thresholds(cfg).to(q.device)
     if has_time:
         timestamps = timestamps.to(torch.int32).contiguous()

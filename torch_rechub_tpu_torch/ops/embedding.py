@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..basic.features import DenseFeature, Feature, SequenceFeature, SparseFeature, table_name
+from ..basic.precision import compute_dtype
 from .sparse_update import gather_rows, outside_hooks
 
 # The process-wide default of EmbeddingCollection.fused.
@@ -212,7 +213,7 @@ class EmbeddingCollection(nn.Module):
             emb = _gather(getattr(self, f"{owner}_table"), ids)
         if feature.padding_idx is not None:
             emb = emb * (ids != feature.padding_idx)[..., None].to(emb.dtype)
-        return emb
+        return emb.to(compute_dtype())
 
     def _fused_batched_embed(self, x: Mapping[str, torch.Tensor], features) -> Dict[int, torch.Tensor]:
         """One gather per fused table for all its features: ``{index in features: (B, [L,] D)}``.
@@ -238,6 +239,7 @@ class EmbeddingCollection(nn.Module):
                 pos += ids.shape[1]
                 if fea.padding_idx is not None:
                     e = e * (ids != fea.padding_idx)[..., None].to(e.dtype)
+                e = e.to(compute_dtype())
                 # scalar ids give (B, D); 2-D ids keep (B, W, D), as lookup() does
                 out[idx] = e[:, 0] if x[fea.name].ndim == 1 else e
         return out
@@ -259,7 +261,7 @@ class EmbeddingCollection(nn.Module):
                 e = batched[idx] if idx in batched else self.lookup(x, fea)
                 sparse_emb.append(pool_sequence(e, feature_mask(x, fea), fea.pooling)[:, None, ...])
             elif isinstance(fea, DenseFeature):
-                v = x[fea.name].to(torch.float32)
+                v = x[fea.name].to(compute_dtype())
                 dense_values.append(v if v.ndim > 1 else v[:, None])
             else:
                 raise TypeError(f"unknown feature type: {fea!r}")

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..basic.initializers import param
+from ..basic.precision import promote
 
 
 class GRULayer(nn.Module):
@@ -45,6 +46,7 @@ class GRULayer(nn.Module):
 
     def forward(self, seq: torch.Tensor, mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         b, l, _ = seq.shape
+        seq = promote(seq, self.w_i.dtype)  # a bf16 input meets the f32 weights in f32, as in jnp
         gi = seq @ self.w_i  # (B, L, 3d): the input side of every step at once
         if self.use_bias:
             gi = gi + self.b_i

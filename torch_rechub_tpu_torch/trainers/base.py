@@ -4,11 +4,16 @@ Counterpart of ``torch_rechub_tpu/trainers/base.py``.  The JAX trainers run
 one jitted step around ``optax``; here a step is eager PyTorch around
 ``torch.optim.Adam``, which computes the same update (see
 :func:`make_optimizer`).  The learning rate is set per epoch on the
-optimizer's parameter groups (:func:`step_lr`).
+optimizer's parameter groups (:func:`step_lr`).  ``precision=`` (None,
+``"f32"``, ``"bf16"``; ``basic/precision.py``) is validated when a trainer is
+made, and every forward a trainer runs (the training step, evaluation,
+prediction, tower embeddings) runs under it: parameters and optimizer
+state stay float32.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, Iterable, Optional, Tuple
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..basic.loss import classify_param
+from ..basic.precision import _resolve, precision_scope
 from ..basic.tracking import iter_loggers
 from ..ops.sparse_update import record_rows
 from ..utils.data import pad_batch
@@ -34,6 +40,17 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError("no CUDA device found: pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def under_precision(method):
+    """Run a trainer method under the trainer's compute precision (``precision_scope(self.precision)``)."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with precision_scope(self.precision):
+            return method(self, *args, **kwargs)
+
+    return wrapped
 
 
 def to_numpy(x) -> np.ndarray:
@@ -146,9 +163,11 @@ class TorchTrainer:
     the per-epoch learning rate, the training step over the subclass's
     ``loss_fn`` and the ``state_dict`` checkpoint."""
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = ()):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = (), precision=None):
         # extra_params: ``(name, tensor)`` pairs outside the model that the dense optimizer steps too
         # (MTLTrainer's loss weights)
+        _resolve(precision)  # validated before anything moves
+        self.precision = precision
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         # sparse_embedding: the tables the row-wise updates own, their
@@ -179,6 +198,7 @@ class TorchTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    @under_precision
     def train_step(self, *batch) -> torch.Tensor:
         """One optimizer step on one batch (the arguments of ``loss_fn``); returns the loss on the device (no host sync).
 

@@ -26,7 +26,7 @@ from ..basic.callback import EarlyStopper
 from ..basic.loss import RegularizationLoss, bce_with_logits
 from ..basic.metric import auc_from_histogram, auc_histogram, auc_score
 from ..utils.data import pad_batch
-from .base import DictBatchTrainer, to_numpy
+from .base import DictBatchTrainer, to_numpy, under_precision
 
 
 class CTRTrainer(DictBatchTrainer):
@@ -34,18 +34,17 @@ class CTRTrainer(DictBatchTrainer):
     ``device``: the CUDA card unless the caller passes another
     (``device="cpu"``); with no card and no device it raises.
 
-    ``mesh`` and ``precision="bf16"`` are not ported yet and raise;
-    ``batch_size_hint`` is accepted and unused, as in the JAX package.
+    ``precision="bf16"`` computes in bf16 (``basic/precision.py``); ``mesh``
+    is not ported yet and raises; ``batch_size_hint`` is accepted and
+    unused, as in the JAX package.
     """
 
     label_dtype = np.float32
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if precision is not None and str(precision).lower() not in ("f32", "float32"):
-            raise NotImplementedError(f"CTRTrainer(precision={precision!r}) is not ported yet: bf16 compute comes with ROADMAP queue 1, item 14")
         if mesh is not None:
             raise NotImplementedError("CTRTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision)
         self.loss_mode = loss_mode
         self.reg_loss_fn = RegularizationLoss(**(regularization_params or {}))
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -69,6 +68,7 @@ class CTRTrainer(DictBatchTrainer):
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
+    @under_precision
     def _probabilities(self, x) -> torch.Tensor:
         out = self.model(x)
         if not self.loss_mode:

@@ -36,7 +36,7 @@ from ..basic.loss import RegularizationLoss, bce_with_logits, bpr_loss, softmax_
 from ..basic.metric import auc_score
 from ..utils.data import pad_batch
 from ..utils.match import gather_inbatch_logits, inbatch_negative_sampling
-from .base import DictBatchTrainer, check_table_rows, to_numpy
+from .base import DictBatchTrainer, check_table_rows, to_numpy, under_precision
 
 
 def _flat_tower(emb: torch.Tensor) -> torch.Tensor:
@@ -48,19 +48,18 @@ class MatchTrainer(DictBatchTrainer):
     """Trains a matching model on ``device``: the CUDA card unless the caller passes another
     (``device="cpu"``); with no card and no device it raises.
 
-    ``mesh`` and ``precision="bf16"`` are not ported yet and raise.
+    ``precision="bf16"`` computes in bf16 (``basic/precision.py``); scores and
+    tower embeddings are read in f32.  ``mesh`` is not ported yet and raises.
     """
 
     def __init__(self, model: torch.nn.Module, mode: int = 0, in_batch_neg: bool = False, in_batch_neg_ratio: Optional[int] = None, hard_negative: bool = False, neg_pool: str = "global", sampler_seed: Optional[int] = None, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if precision is not None and str(precision).lower() not in ("f32", "float32"):
-            raise NotImplementedError(f"MatchTrainer(precision={precision!r}) is not ported yet: bf16 compute comes with ROADMAP queue 1, item 14")
         if mesh is not None:
             raise NotImplementedError("MatchTrainer(mesh=...) is not ported yet: the data / model mesh, and with it the local negative pool, come with ROADMAP queue 1, item 14")
         if mode not in (0, 1, 2):
             raise ValueError(f"mode only contain value in [0, 1, 2], but got {mode}")
         if neg_pool not in ("global", "local"):
             raise ValueError(f"neg_pool must be 'global' or 'local', got {neg_pool!r}")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision)
         self.mode = mode
         self.in_batch_neg, self.in_batch_neg_ratio, self.hard_negative = in_batch_neg, in_batch_neg_ratio, hard_negative
         self.neg_pool = neg_pool
@@ -101,6 +100,7 @@ class MatchTrainer(DictBatchTrainer):
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
+    @under_precision
     def _outputs(self, data_loader, take, mode=None):
         """``(fp32 outputs, labels)`` of ``data_loader``, the model in eval mode, read as the
         JAX package reads them: a ``(pos, neg)`` pair stacked (its ``to_numpy``), then ``take(out, n)`` of each

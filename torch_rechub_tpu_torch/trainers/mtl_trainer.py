@@ -45,7 +45,7 @@ from ..models.multi_task import ESMM
 from ..ops.sparse_update import record_rows
 from ..utils.data import pad_batch
 from ..utils.mtl import gradnorm_leaf, gradnorm_weight_grads, metabalance_scale, shared_task_mask
-from .base import DictBatchTrainer, resolve_device, to_numpy
+from .base import DictBatchTrainer, resolve_device, to_numpy, under_precision
 from .sparse import apply_sparse_table_updates, validate_method
 
 
@@ -82,14 +82,14 @@ class MTLTrainer(DictBatchTrainer):
     """Trains a multi-task model (dict input -> ``(B, n_task)`` probabilities) on ``device``: the CUDA card
     unless the caller passes another (``device="cpu"``); with no card and no device it raises.
 
-    ``mesh`` and ``precision="bf16"`` are not ported yet and raise.
+    ``precision="bf16"`` computes in bf16 (``basic/precision.py``); the task
+    losses and predictions are read in f32.  ``mesh`` is not ported yet and
+    raises.
     """
 
     label_dtype = np.float32
 
     def __init__(self, model: torch.nn.Module, task_types, optimizer_params=None, regularization_params=None, scheduler_params=None, adaptive_params=None, n_epoch: int = 10, earlystop_taskid: int = 0, earlystop_patience: int = 10, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if precision is not None and str(precision).lower() not in ("f32", "float32"):
-            raise NotImplementedError(f"MTLTrainer(precision={precision!r}) is not ported yet: bf16 compute comes with ROADMAP queue 1, item 14")
         if mesh is not None:
             raise NotImplementedError("MTLTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
         self.adaptive_params = adaptive_params or {}
@@ -112,7 +112,7 @@ class MTLTrainer(DictBatchTrainer):
         start = {"uwl": 0.0, "gradnorm": 1.0}.get(self.adaptive_method)
         self.loss_weight = None if start is None else torch.full((self.n_task,), start, dtype=torch.float32, device=device, requires_grad=True)
         extra = () if self.loss_weight is None else (("loss_weight", self.loss_weight),)
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, extra_params=extra)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, extra_params=extra, precision=precision)
         self.steps_per_call = int(steps_per_call)
         self.earlystop_taskid = earlystop_taskid
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -141,6 +141,7 @@ class MTLTrainer(DictBatchTrainer):
         """The ``(n_task,)`` losses of a batch's ``(B, n_task)`` outputs against its labels."""
         return torch.stack([_task_loss(out[:, i], ys[:, i].to(torch.float32), t, w) for i, t in enumerate(self.task_types)])
 
+    @under_precision
     def train_step(self, x, ys: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """One optimizer step on one padded batch; returns the ``(n_task,)`` losses on the device (no host sync)."""
         self.model.train()
@@ -242,6 +243,7 @@ class MTLTrainer(DictBatchTrainer):
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
+    @under_precision
     def _outputs(self, data_loader):
         """``(fp32 (N, n_task) outputs on the device, labels or None)`` of every real row, the model in eval mode."""
         self.model.eval()

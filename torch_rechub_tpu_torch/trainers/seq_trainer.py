@@ -20,6 +20,10 @@ input token table row by row (``trainers/sparse.py``); under the sampled
 softmax the output projection too, from the gathered candidate rows.  The
 PAD row 0 is the Adagrad fill row of both: its embedding is masked out of
 the forward, so it takes no update.
+
+``precision="bf16"`` runs the model in bf16 (``basic/precision.py``): on
+the card the attention goes through the bf16 kernels; the logits and the
+losses are read in f32.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..basic.callback import EarlyStopper
 from ..basic.tracking import iter_loggers
 from ..ops import chunked_ce
 from ..ops.chunked_ce import chunked_last_logits, chunked_next_token_loss, sampled_loss_from_rows, shifted_labels
-from .base import TorchTrainer, to_numpy
+from .base import TorchTrainer, to_numpy, under_precision
 from .sparse import validate_method
 
 
@@ -53,7 +57,7 @@ class SeqTrainer(TorchTrainer):
     unless the caller passes another (``device="cpu"``); with no card and
     no device it raises."""
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, device=None):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
         if loss_type not in ("cross_entropy", "nce", "sampled_softmax"):
             raise ValueError(f"loss_type must be cross_entropy|nce|sampled_softmax, got {loss_type!r}")
         if validate_method(sparse_embedding) and getattr(model, "tie_embeddings", False):
@@ -67,7 +71,7 @@ class SeqTrainer(TorchTrainer):
         # the sampled softmax the output projection too (only its candidate
         # rows are read there, where the full CE reads every row)
         sparse_names = ("token_embedding", "output_projection") if loss_type == "sampled_softmax" else ("token_embedding",)
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, sparse_names, spare_rows={"token_embedding": 0, "output_projection": 0})
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, sparse_names, spare_rows={"token_embedding": 0, "output_projection": 0}, precision=precision)
         self.loss_type = loss_type
         if loss_type == "nce":
             self.loss_params = loss_params or {"temperature": 0.1, "ignore_index": 0}
@@ -181,6 +185,7 @@ class SeqTrainer(TorchTrainer):
 
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
+    @under_precision
     def eval_step(self, seq_tokens: torch.Tensor, time_diffs: torch.Tensor, targets: torch.Tensor):
         """``(loss, top-1 predictions)`` of one batch, both on the device."""
         model = self.model
@@ -215,6 +220,7 @@ class SeqTrainer(TorchTrainer):
         return total_loss / len(losses), total_correct / max(total, 1)
 
     @torch.inference_mode()
+    @under_precision
     def predict_logits(self, data_loader) -> np.ndarray:
         """Last-position ``(N, V)`` logits, for ranking-style evaluation."""
         self.model.eval()
