@@ -6,7 +6,8 @@
 1. Card: its name and power limit; fails without a CUDA device.
 2. Build: every CUDA source of the port, with nvcc, from this checkout;
    the build log (ptxas's registers per kernel), and the CTAs per SM,
-   registers and shared memory of K1, K2, K2a, K2b and K3.
+   registers and shared memory of K1, K2, K2a, K2b and K3 and of their
+   bf16 variants.
 3. Kernels: each kernel against its plain PyTorch version on the card, at the
    serving shape and at adversarial ones, with a stated tolerance, and timed
    beside its bound (every kernel runs its products as 3xTF32 on the tensor
@@ -15,7 +16,8 @@
    five gradients; the bucket sweep (K1, K2 and K2a + K2b at every
    time-bucket threshold); then K3 through the op ``hstu_attention``
    (materialised bias) on eight cases, against K1 on the serving model's own
-   rab, and the op's gradients; its launch count.
+   rab, and the op's gradients; its launch count.  Then K3-bf16 through the
+   op on bf16 q, k, v, with an f32 and a bf16 bias (section 14).
 4. Serving: the full-width HSTU model of ``benchmarks/perf/hstu_train_bench.py``
    (V40000, d256, 8 heads, 4 layers, L256, batch 8) with random weights from a
    seed, through ``SeqTrainer.evaluate`` / ``predict_logits``, dense and
@@ -137,21 +139,27 @@
    up to near-ties.  The DeepFM, zoo, matching,
    multi-task, RQ-VAE, HLLM and TIGER phases check that none of the port's
    kernels was launched: no TPU kernel lies on these paths.
-14. bf16 mixed precision (``basic/precision.py``).  (a) The bf16 K1 and K2
-   (``csrc/hstu_rab_fwd_bf16.cu``, ``csrc/hstu_rab_bwd_bf16.cu``) on the
-   kernel phase's six cases and the bucket sweep, against their plain bf16
-   versions (one bf16 ulp of the largest element; dpos and dts as fp32
+14. bf16 mixed precision (``basic/precision.py``).  (a) The bf16 K1, K2,
+   K2a and K2b (``csrc/hstu_rab_fwd_bf16.cu``, ``csrc/hstu_rab_bwd_bf16.cu``)
+   on the kernel phase's six cases and the bucket sweep, against their plain
+   bf16 versions (one bf16 ulp of the largest element; dpos and dts as fp32
    sums) and nearer to them than a quarter of their distance to the fp32
    kernels; device and host-clock ms at the serving shape and at L1024
    beside the plain bf16 version and the fp32 kernels, with bounds from bf16
-   bytes and 989 TFLOP/s of bf16 tensor cores.  (b) The full-width HSTU
+   bytes and 989 TFLOP/s of bf16 tensor cores.  K3-bf16
+   (``csrc/hstu_attn_fwd_bf16.cu``) likewise through the op
+   ``hstu_attention`` on the attention phase's cases, an f32 and a bf16
+   bias, its gradients, its launches.  (b) The full-width HSTU
    under ``SeqTrainer(precision="bf16")``: ``evaluate`` / ``predict_logits``
    (ms per request, tokens/s), training with the chunked 8192, dense and
    sampled (1024) losses (tokens/s, a step's device time, host clock, idle
    share and launches), the bf16 K1 and K2 launched once per layer per
    forward and step, one step of each loss card against CPU, parameters and
-   optimizer state f32, ``fit`` on successor histories to a top-1 above ten
-   times chance.  (c) DeepFM at bench.py's small config under
+   optimizer state f32; one chunked step through the split backward
+   (``_FUSED_BWD[0] = False``: K2a-bf16 and K2b-bf16 once per layer), card
+   against CPU too, and the layers' backward timed through K2-bf16 and
+   through K2a-bf16 + K2b-bf16; ``fit`` on successor histories to a top-1
+   above ten times chance.  (c) DeepFM at bench.py's small config under
    ``CTRTrainer(precision="bf16")``: examples/s, a step's device time, host
    clock, idle share, one step card against CPU, ``fit`` above a test AUC of
    0.65; DSSM with in-batch negatives and MMOE under UWL and MetaBalance: one
@@ -292,7 +300,8 @@ ZOO_UNMOVED = {"AFM": ("Dense_0.weight", "Dense_0.bias", "h")}
 ZOO_FIT_BATCHES = 32
 CARD = torch.device("cuda")
 COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_rab_bwd_dq": "launches_bwd_dq", "hstu_rab_bwd_dkv": "launches_bwd_dkv",
-            "hstu_rab_fwd_bf16": "launches_bf16", "hstu_rab_bwd_bf16": "launches_bwd_bf16"}
+            "hstu_rab_fwd_bf16": "launches_bf16", "hstu_rab_bwd_bf16": "launches_bwd_bf16", "hstu_rab_bwd_dq_bf16": "launches_bwd_dq_bf16",
+            "hstu_rab_bwd_dkv_bf16": "launches_bwd_dkv_bf16"}
 
 
 def reset_counts():
@@ -868,8 +877,8 @@ def training_phase(cycles_per_ms):
 
     fused_steps = len(trainers) * TRAIN_BATCHES
     print(f"  launches over {fused_steps} steps + 1 split step, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    expected = {"hstu_rab_fwd": n_layers * (fused_steps + 1), "hstu_rab_bwd": n_layers * fused_steps, "hstu_rab_bwd_dq": n_layers, "hstu_rab_bwd_dkv": n_layers,
-                "hstu_rab_fwd_bf16": 0, "hstu_rab_bwd_bf16": 0}
+    expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * (fused_steps + 1), "hstu_rab_bwd": n_layers * fused_steps, "hstu_rab_bwd_dq": n_layers,
+                "hstu_rab_bwd_dkv": n_layers}
     if counts != expected:
         raise AssertionError(f"the training path did not run each kernel once per layer per step: {counts}, expected {expected}")
     tokens = BATCH * TRAIN_BATCHES * l
@@ -1540,7 +1549,7 @@ def hstu_sparse_phase():
     loss = trainer.train_one_epoch(loader, log_interval=0)
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    expected = {"hstu_rab_fwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd_dq": 0, "hstu_rab_bwd_dkv": 0, "hstu_rab_fwd_bf16": 0, "hstu_rab_bwd_bf16": 0}
+    expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * TRAIN_BATCHES, "hstu_rab_bwd": n_layers * TRAIN_BATCHES}
     print(f"  launches over {TRAIN_BATCHES} sparse steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if counts != expected:
         raise AssertionError(f"the sparse HSTU step did not run K1 and K2 once per layer: {counts}, expected {expected}")
@@ -3024,7 +3033,10 @@ def tiger_phase():
 # ---------------------------------------------------------------------------
 
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
-BF16_KERNELS = {"hstu_rab_fwd_bf16": ("hstu_rab_fwd_bf16.cu", "hstu_rab_attention.py:267"), "hstu_rab_bwd_bf16": ("hstu_rab_bwd_bf16.cu", "hstu_rab_attention.py:459")}
+BF16_KERNELS = {"hstu_rab_fwd_bf16": ("hstu_rab_fwd_bf16.cu", "hstu_rab_attention.py:267"), "hstu_rab_bwd_bf16": ("hstu_rab_bwd_bf16.cu", "hstu_rab_attention.py:459"),
+                "hstu_rab_bwd_dq_bf16": ("hstu_rab_bwd_bf16.cu", "hstu_rab_attention.py:313"), "hstu_rab_bwd_dkv_bf16": ("hstu_rab_bwd_bf16.cu", "hstu_rab_attention.py:404"),
+                "hstu_attn_fwd_bf16": ("hstu_attn_fwd_bf16.cu", "hstu_attention.py:45")}
+BF16_RAB_KERNELS = tuple(BF16_KERNELS)[:4]  # the kernel phase's; K3-bf16 has the attention phase's cases
 # a bf16 kernel against its plain bf16 version (out, dq, dk, dv): one bf16 ulp of the largest element, since a
 # rounding of attn or ds, or of an f32 sum taken in another order, may flip; dpos, dts (f32 sums of up to
 # B*L^2/2 terms): as the fp32 tables, at twice the absolute part
@@ -3070,11 +3082,17 @@ def bf16_compare(name, got, plain, f32):
     return err, share
 
 
+def bf16_rab_kernels(c, args, thr):
+    """``{kernel: {output: tensor}}`` of K1, K2, K2a and K2b on one case: the bf16 kernels on bf16 values, the fp32
+    ones on fp32 values (``c`` the forward's case, ``args`` the backward's arguments; the wrappers take either)."""
+    return {"hstu_rab_fwd_bf16": {"out": run_kernel(c)}, **{k + "_bf16": dict(zip(spec["outs"], spec["fn"](*args, thr))) for k, spec in BWD_KERNELS.items()}}
+
+
 def bf16_kernel_phase(cases, cycles_per_ms):
-    """The bf16 K1 and K2 on the kernel phase's cases and the bucket sweep, against the plain bf16 versions and
-    the fp32 kernels; timed (device and host clock) at the serving shape and at L1024 beside the plain bf16 version
-    and the fp32 kernels, with bounds from bf16 bytes and bf16 tensor-core FLOPs."""
-    worst = {k: 0.0 for k in BF16_KERNELS}
+    """The bf16 K1, K2, K2a and K2b on the kernel phase's cases and the bucket sweep, against the plain bf16 versions
+    and the fp32 kernels; timed (device and host clock) at the serving shape and at L1024 beside the plain bf16
+    version and the fp32 kernels, with bounds from bf16 bytes and bf16 tensor-core FLOPs."""
+    worst = {k: 0.0 for k in BF16_RAB_KERNELS}
     timings = {}
     for name, c32 in cases.items():
         c = bf16_case(c32)
@@ -3082,54 +3100,123 @@ def bf16_kernel_phase(cases, cycles_per_ms):
         g32 = torch.from_numpy(np.random.default_rng(10).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
         g = g32.to(torch.bfloat16)
         args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
-        got = {"out": run_kernel(c), **dict(zip(GRAD_NAMES, rab.rab_backward_fused(*args, c["thr"])))}
+        got = bf16_rab_kernels(c, args, c["thr"])
         plain = {"out": rab.plain_forward_bf16(*args[:3], *args[4:], has_time), **dict(zip(GRAD_NAMES, rab.plain_backward_bf16(*args, has_time)))}
         cf = {**c, **{n: c[n].float() for n in ("q", "k", "v")}}  # the same bf16 values in fp32
-        f32 = {"out": run_kernel(cf), **dict(zip(GRAD_NAMES, rab.rab_backward_fused(cf["q"], cf["k"], cf["v"], g.float(), *args[4:], c["thr"])))}
+        args32 = (cf["q"], cf["k"], cf["v"], g.float(), *args[4:])
+        f32 = bf16_rab_kernels(cf, args32, c["thr"])
         torch.cuda.synchronize()
-        if got["out"].dtype != torch.bfloat16 or got["dq"].dtype != torch.bfloat16 or got["dpos"].dtype != torch.float32:
-            raise AssertionError(f"bf16 kernels' output dtypes: {[(k, v.dtype) for k, v in got.items()]}")
+        dtypes = {(k, o): t.dtype for k, outs in got.items() for o, t in outs.items()}
+        if any(dt != (torch.float32 if o in ("dpos", "dts") else torch.bfloat16) for (_, o), dt in dtypes.items()):
+            raise AssertionError(f"bf16 kernels' output dtypes: {dtypes}")
         parts = []
-        for key in ("out",) + GRAD_NAMES:
-            err, share = bf16_compare(f"{name} {key}", got[key], plain[key], f32[key])
-            worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"] = max(worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"], err)
-            gap = float((plain[key].float() - f32[key].float()).abs().max())
-            parts.append(f"{key} {err:.2e} (share {share:.3f}; plain bf16 vs fp32 kernel {gap:.2e})")
+        for kernel, outs in got.items():
+            for key, t in outs.items():
+                err, share = bf16_compare(f"{name} {kernel} {key}", t, plain[key], f32[kernel][key])
+                worst[kernel] = max(worst[kernel], err)
+                gap = float((plain[key].float() - f32[kernel][key].float()).abs().max())
+                parts.append(f"{kernel} {key} {err:.2e} (share {share:.3f}; plain bf16 vs fp32 kernel {gap:.2e})")
         print(f"  {name}: max abs err against the plain bf16 version " + ", ".join(parts))
-        if c["mask"] is not None and not bool(c["mask"][0].any()) and not bool((got["out"][0] == 0).all()):
+        if c["mask"] is not None and not bool(c["mask"][0].any()) and not bool((got["hstu_rab_fwd_bf16"]["out"][0] == 0).all()):
             raise AssertionError("bf16: a fully masked row must give zeros")
         if name.startswith("serve") or "L1024" in name:
             dqk, dv, pairs = c["q"].shape[-1], c["v"].shape[-1], valid_pairs(c)
-            fwd = lambda: run_kernel(c)  # noqa: E731
-            bwd = lambda: rab.rab_backward_fused(*args, c["thr"])  # noqa: E731
-            (f_ms, f_wall), (fp_ms, fp_wall) = timed(fwd, cycles_per_ms), timed(lambda: rab.plain_forward_bf16(*args[:3], *args[4:], has_time), cycles_per_ms)
-            (b_ms, b_wall), (bp_ms, bp_wall) = timed(bwd, cycles_per_ms), timed(lambda: rab.plain_backward_bf16(*args, has_time), cycles_per_ms)
-            (f32_ms, _), (b32_ms, _) = timed(lambda: run_kernel(cf), cycles_per_ms), timed(lambda: rab.rab_backward_fused(cf["q"], cf["k"], cf["v"], g32, *args[4:], c["thr"]), cycles_per_ms)
-            fb = bf16_bounds(2 * pairs * (dqk + dv), input_bytes(c) + got["out"].numel() * 2)  # inputs read, the bf16 output written
-            out_bytes = sum(t.numel() * t.element_size() for t in got.values()) - got["out"].numel() * 2
-            bb = bf16_bounds(2 * pairs * (3 * dqk + 2 * dv), input_bytes(c) + g.numel() * 2 + out_bytes)
-            timings.setdefault("hstu_rab_fwd_bf16", {})[name] = dict(ms=f_ms, plain_ms=fp_ms, bound_ms=fb[0], bound_by=fb[1])
-            timings.setdefault("hstu_rab_bwd_bf16", {})[name] = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=bb[0], bound_by=bb[1])
-            print(f"    hstu_rab_fwd_bf16 device {f_ms:.4f} ms (fp32 kernel {f32_ms:.4f} ms), plain bf16 {fp_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}: bf16 bytes {fb[2]:.4f} ms, "
-                  f"bf16 FLOPs at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s {fb[3]:.4f} ms); host clock kernel {f_wall:.4f} ms, plain {fp_wall:.4f} ms")
-            print(f"    hstu_rab_bwd_bf16 device {b_ms:.4f} ms (fp32 kernel {b32_ms:.4f} ms), plain bf16 {bp_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}: bytes {bb[2]:.4f} ms, FLOPs {bb[3]:.4f} ms); "
-                  f"host clock kernel {b_wall:.4f} ms, plain {bp_wall:.4f} ms; {pairs:,} valid pairs; medians of {REPS}")
+            fwd_plain = timed(lambda: rab.plain_forward_bf16(*args[:3], *args[4:], has_time), cycles_per_ms)
+            bwd_plain = timed(lambda: rab.plain_backward_bf16(*args, has_time), cycles_per_ms)
+            for kernel in BF16_RAB_KERNELS:
+                out_bytes = sum(t.numel() * t.element_size() for t in got[kernel].values())
+                if kernel == "hstu_rab_fwd_bf16":  # inputs read, the bf16 output written
+                    (ms, wall), (f32_ms, _) = timed(lambda: run_kernel(c), cycles_per_ms), timed(lambda: run_kernel(cf), cycles_per_ms)
+                    b, (p_ms, p_wall) = bf16_bounds(2 * pairs * (dqk + dv), input_bytes(c) + out_bytes), fwd_plain
+                else:  # inputs and g read, the kernel's outputs written
+                    spec = BWD_KERNELS[kernel.removesuffix("_bf16")]
+                    (ms, wall), (f32_ms, _) = timed(lambda: spec["fn"](*args, c["thr"]), cycles_per_ms), timed(lambda: spec["fn"](*args32, c["thr"]), cycles_per_ms)
+                    fq, fv = spec["fma"]
+                    b, (p_ms, p_wall) = bf16_bounds(2 * pairs * (fq * dqk + fv * dv), input_bytes(c) + g.numel() * 2 + out_bytes), bwd_plain
+                timings.setdefault(kernel, {})[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1])
+                print(f"    {kernel} device {ms:.4f} ms (fp32 kernel {f32_ms:.4f} ms), plain bf16 {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: bf16 bytes {b[2]:.4f} ms, "
+                      f"bf16 FLOPs at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s {b[3]:.4f} ms); host clock kernel {wall:.4f} ms, plain {p_wall:.4f} ms")
+            print(f"    {pairs:,} valid pairs; medians of {REPS}; the plain bf16 backward computes all five gradients")
     for cfg in rab.SWEEP_CFGS:  # every bucket edge and |dt| = 2**31, the plain bf16 version on the CPU
         c = bf16_case(sweep_case(cfg))
         g = torch.from_numpy(np.random.default_rng(31).normal(size=tuple(c["v"].shape)).astype(np.float32)).to(torch.bfloat16)
         args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
-        dev = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
-        got = [rab.hstu_attention_rab(*dev[:3], *dev[4:], c["thr"].cuda())] + list(rab.rab_backward_fused(*dev, c["thr"].cuda()))
-        plain = [rab.plain_forward_bf16(*args[:3], *args[4:], True)] + list(rab.plain_backward_bf16(*args, True))
+        dev = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in c.items()}
+        got = bf16_rab_kernels(dev, [a.cuda() if isinstance(a, torch.Tensor) else a for a in args], dev["thr"])
+        plain = {"out": rab.plain_forward_bf16(*args[:3], *args[4:], True), **dict(zip(GRAD_NAMES, rab.plain_backward_bf16(*args, True)))}
         errs = []
-        for key, a, p in zip(("out",) + GRAD_NAMES, got, plain):
-            err, _ = bf16_compare(f"bucket sweep {tuple(cfg)} {key}", a, p, p)
-            worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"] = max(worst["hstu_rab_fwd_bf16" if key == "out" else "hstu_rab_bwd_bf16"], err)
-            errs.append(f"{key} {err:.2e}")
+        for kernel, outs in got.items():
+            for key, t in outs.items():
+                err, _ = bf16_compare(f"bucket sweep {tuple(cfg)} {kernel} {key}", t, plain[key], plain[key])
+                worst[kernel] = max(worst[kernel], err)
+                errs.append(f"{kernel} {key} {err:.2e}")
         print(f"  bf16 bucket sweep {tuple(cfg)}, L{c['max_seq_len']}: max abs err " + ", ".join(errs))
     print(f"  tolerances: out, dq, dk, dv {BF16_ULP_REL} x the tensor's max |plain| (one bf16 ulp), and at most {BF16_SHARE} of the plain bf16 version's distance to the fp32 kernel (L2); "
           f"dpos, dts rtol {BF16_TABLE_RTOL}, atol {BF16_TABLE_ATOL_REL} x the table's max")
-    return {k: dict(max_abs_err=worst[k], **next(iter(timings[k].values()))) for k in BF16_KERNELS}
+    return {k: dict(max_abs_err=worst[k], **next(iter(timings[k].values()))) for k in BF16_RAB_KERNELS}
+
+
+def bf16_attention_phase(cases, cycles_per_ms):
+    """K3-bf16 through the op on the attention phase's cases with q, k, v rounded to bf16 and the bias in f32 (every
+    case) and in bf16 ((a), (b), (f)): against ``plain_forward_bf16`` and the fp32 K3 on the same values; one
+    backward each on (a) and (b); its launches over these op calls; timed at (a) and (g) beside the plain bf16
+    version and the fp32 K3, with bounds from the bytes at their dtypes and 989 TFLOP/s."""
+    attn.launches_bf16 = 0
+    calls, worst, timings = 0, 0.0, {}
+    variants = [(name, torch.float32) for name in cases] + [(name, torch.bfloat16) for name in cases if name.startswith(("(a)", "(b)", "(f)"))]
+    for name, bias_dtype in variants:
+        c32 = cases[name]
+        c = {**bf16_case(c32), "bias": c32["bias"].to(bias_dtype)}
+        label = f"{name}, {str(bias_dtype).removeprefix('torch.')} bias"
+        with torch.no_grad():
+            out = run_op(c)
+            calls += 1
+            f32 = run_op({**c, **{n: c[n].float() for n in ("q", "k", "v", "bias")}})
+        plain = attn.plain_forward_bf16(c["q"], c["k"], c["v"], c["bias"], c["mask"], c["alpha"], c["max_seq_len"])
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16:
+            raise AssertionError(f"hstu_attn_fwd_bf16's output is {out.dtype}")
+        err, share = bf16_compare(f"hstu_attn_fwd_bf16, {label}", out, plain, f32)
+        worst = max(worst, err)
+        print(f"  {label}: max abs err {err:.3e} (max |plain| {float(plain.float().abs().max()):.3e}), share {share:.3f} of the plain bf16 version's distance to fp32 K3 "
+              f"({float((plain.float() - f32).abs().max()):.2e})")
+        if c["mask"] is not None and not bool(c["mask"][0].any()) and not bool((out[0] == 0).all()):
+            raise AssertionError("K3-bf16: a fully masked row must give zeros")
+        if name.startswith(("(a)", "(b)")) and bias_dtype == torch.bfloat16:
+            g = torch.from_numpy(np.random.default_rng(11).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda().to(torch.bfloat16)
+            got, ref = ([t.detach().clone().requires_grad_(True) for t in (c["q"], c["k"], c["v"], c["bias"])] for _ in range(2))
+            hstu_attention(*got, c["mask"], c["alpha"], c["max_seq_len"]).backward(g)
+            calls += 1
+            attn.dense_forward(*ref, c["mask"], c["alpha"], c["max_seq_len"]).backward(g)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+                if a.grad.dtype != torch.bfloat16 or a.grad.shape != r.shape:
+                    raise AssertionError(f"K3-bf16's backward ({gname}, {label}): {a.grad.dtype} {tuple(a.grad.shape)}")
+                errs.append(f"{gname} {bf16_compare(f'{label} {gname}', a.grad, r.grad, r.grad)[0]:.2e}")
+            print(f"    backward through the op (dbias {tuple(got[3].grad.shape)}), bf16, against autograd of the plain version: max abs err " + ", ".join(errs))
+    launches = attn.launches_bf16
+    print(f"  hstu_attn_fwd_bf16 launches {launches} over {calls} op calls on bf16 q, k, v; tolerance one bf16 ulp ({BF16_ULP_REL}) of the largest element, share at most {BF16_SHARE}")
+    if launches != calls:
+        raise AssertionError(f"hstu_attention did not launch K3-bf16 once per bf16 call: {launches} launches, {calls} calls")
+    for name, c32 in cases.items():  # timed after the count: these calls launch too
+        if not name.startswith(("(a)", "(g)")):
+            continue
+        c = bf16_case(c32)
+        cf = {**c, **{n: c[n].float() for n in ("q", "k", "v")}}
+        with torch.no_grad():
+            (ms, wall), (f32_ms, _) = timed(lambda: run_op(c), cycles_per_ms), timed(lambda: run_op(cf), cycles_per_ms)
+            plain_ms, plain_wall = timed(lambda: attn.plain_forward_bf16(c["q"], c["k"], c["v"], c["bias"], c["mask"], c["alpha"], c["max_seq_len"]), cycles_per_ms)
+        b, h, l, dqk = c["q"].shape
+        dv, pairs = c["v"].shape[-1], valid_pairs(c)
+        keys = torch.ones((b, l), dtype=torch.bool, device=CARD) if c["mask"] is None else c["mask"]
+        bias_elems = pairs if c["bias"].shape[0] == b else h * int(keys.any(0).to(torch.int64).cumsum(0).sum())
+        nbytes = 2 * (2 * c["q"].numel() + 2 * c["v"].numel()) + (0 if c["mask"] is None else keys.numel()) + c["bias"].element_size() * bias_elems
+        bb = bf16_bounds(2 * pairs * (dqk + dv), nbytes)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bb[0], bound_by=bb[1])
+        print(f"  {name}, f32 bias: hstu_attn_fwd_bf16 device {ms:.4f} ms (fp32 K3 {f32_ms:.4f} ms), plain bf16 {plain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}: "
+              f"bytes {bb[2]:.4f} ms, FLOPs {bb[3]:.4f} ms); host clock kernel {wall:.4f} ms, plain {plain_wall:.4f} ms; {pairs:,} valid pairs; medians of {REPS}")
+    return dict(launches=launches, max_abs_err=worst, **timings[next(iter(timings))])
 
 
 def check_f32_state(label, trainer):
@@ -3190,9 +3277,11 @@ def bf16_against_cpu(label, build, loss_fn):
 
 def bf16_hstu_phase(cycles_per_ms):
     """The full-width HSTU under SeqTrainer(precision="bf16"): serving (evaluate, predict_logits), training with the
-    chunked, dense and sampled losses, a chunked step's device time, host clock, idle share and launches, each
-    loss's step card against CPU, and fit on successor histories to a top-1 above ten times chance.  Returns the
-    bf16 kernels' launches."""
+    chunked, dense and sampled losses, a chunked step's device time, host clock, idle share and launches, a chunked
+    step through the split backward and the layers' backward timed through K2-bf16 and through K2a-bf16 + K2b-bf16,
+    each loss's step card against CPU (the chunked one through the split backward too), and fit on successor
+    histories to a top-1 above ten times chance.  Returns the bf16 rab kernels' launches: K1-bf16's and K2-bf16's
+    in the serving and training runs, K2a-bf16's and K2b-bf16's in the split step."""
     t0 = time.perf_counter()
     l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
     model = HSTUModel(**SERVE, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -3254,6 +3343,41 @@ def bf16_hstu_phase(cycles_per_ms):
         device, wall, launched = step_stats(f"HSTU {name} (bf16)", lambda tr=tr: tr.train_step(toks, tds, tgts))
         print(f"  a {name} step (bf16): device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, "
               f"{launched:.1f} launches, {BATCH * l / wall * 1e3:,.0f} tokens/s by the host clock")
+
+    # the split backward: one chunked step with _FUSED_BWD[0] = False, K2a-bf16 and K2b-bf16 once per layer
+    tr = trainers["chunked 8192"]
+    reset_counts()
+    rab._FUSED_BWD[0] = False
+    try:
+        split_loss = tr.train_one_epoch(first, log_interval=0)
+    finally:
+        rab._FUSED_BWD[0] = True
+    split_counts = read_counts()
+    print(f"  a chunked 8192 step through the split backward (bf16, _FUSED_BWD[0] = False): loss {split_loss:.6f}; launches " + ", ".join(f"{k} {v}" for k, v in split_counts.items()))
+    expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd_bf16": n_layers, "hstu_rab_bwd_dq_bf16": n_layers, "hstu_rab_bwd_dkv_bf16": n_layers}
+    if split_counts != expected or not math.isfinite(split_loss):
+        raise AssertionError(f"the bf16 split step did not run K1-bf16, K2a-bf16 and K2b-bf16 once per layer: {split_counts}, expected {expected}; loss {split_loss}")
+    # the layers' backward (a cotangent on the hidden states) through K2-bf16 and through K2a-bf16 + K2b-bf16
+    cotangent = torch.from_numpy(np.random.default_rng(2).normal(size=(BATCH, l, SERVE["d_model"])).astype(np.float32)).cuda().to(torch.bfloat16)
+
+    def layers(backward, split=False):
+        rab._FUSED_BWD[0] = not split
+        try:
+            tr.optimizer.zero_grad(set_to_none=True)
+            with precision_scope("bf16"):
+                hidden = tr.model(toks, tds, return_hidden=True, generator=tr.generator)["hidden"]
+            if backward:
+                hidden.backward(cotangent)
+        finally:
+            rab._FUSED_BWD[0] = True
+
+    tr.model.train()
+    t = {key: timed(fn, cycles_per_ms) for key, fn in (("forward", lambda: layers(False)), ("fused", lambda: layers(True)), ("split", lambda: layers(True, split=True)))}
+    for key, stage in (("forward", f"forward, {n_layers} HSTU layers (hidden states, autograd on)"), ("fused", "forward + backward of the hidden states through K2-bf16"),
+                       ("split", "forward + backward of the hidden states through K2a-bf16 + K2b-bf16 (_FUSED_BWD[0] = False)")):
+        print(f"  stage {stage} (bf16): device {t[key][0]:.4f} ms, host clock {t[key][1]:.4f} ms (medians of {REPS})")
+    print(f"  the layers' backward by difference (bf16, device ms): through K2-bf16 {t['fused'][0] - t['forward'][0]:.4f}, "
+          f"through K2a-bf16 + K2b-bf16 {t['split'][0] - t['forward'][0]:.4f}")
     del trainers, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3271,6 +3395,12 @@ def bf16_hstu_phase(cycles_per_ms):
 
         with given_negatives(negs):
             bf16_against_cpu(f"HSTU {name} B{b}", build, loss_of)
+        if name == "chunked 8192":  # and through the split backward: K2a-bf16 + K2b-bf16 on the card
+            rab._FUSED_BWD[0] = False
+            try:
+                bf16_against_cpu(f"HSTU {name} B{b}, _FUSED_BWD[0] = False", build, loss_of)
+            finally:
+                rab._FUSED_BWD[0] = True
     gc.collect()
 
     # fit: successor histories (each user's items run s, s + 1, ... through a window of ids; the target is the
@@ -3294,7 +3424,8 @@ def bf16_hstu_phase(cycles_per_ms):
     if not after > f["chance_times"] * chance:
         raise AssertionError(f"bf16 HSTU fit: top-1 {after} not above {f['chance_times']}x chance")
     print(f"  bf16 HSTU phase: {time.perf_counter() - t0:.1f} s")
-    return {k: serve_counts[k] + train_counts[k] for k in BF16_KERNELS}
+    return {**{k: serve_counts[k] + train_counts[k] for k in ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16")},
+            **{k: split_counts[k] for k in ("hstu_rab_bwd_dq_bf16", "hstu_rab_bwd_dkv_bf16")}}
 
 
 def bf16_ctr_match_mtl_phase():
@@ -3385,7 +3516,8 @@ def main():
     c, r, b = attn.occupancy(1024, 256, 128)
     print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA")
     for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
-        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in rab.occupancy_bf16(*shape).items()))
+        occ = {**rab.occupancy_bf16(*shape), **{f"hstu_attn_fwd_bf16 ({name} bias)": attn.occupancy_bf16(*shape[:3], name == "bf16") for name in ("f32", "bf16")}}
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items()))
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()
@@ -3396,13 +3528,19 @@ def main():
     print("bucket sweep (hstu_rab_fwd, hstu_rab_bwd and hstu_rab_bwd_dq + hstu_rab_bwd_dkv at every threshold -1, 0, +1 and |dt| = 2**31, vs the plain version on the CPU):")
     for name, err in sweep_phase().items():
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
-    print(f"bf16 kernel phase (hstu_rab_fwd_bf16, hstu_rab_bwd_bf16 vs their plain bf16 versions and the fp32 kernels; the bucket sweep in bf16; bounds at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16):")
+    print(f"bf16 kernel phase (hstu_rab_fwd_bf16, hstu_rab_bwd_bf16, hstu_rab_bwd_dq_bf16 + hstu_rab_bwd_dkv_bf16 vs their plain bf16 versions and the fp32 kernels; "
+          f"the bucket sweep in bf16; bounds at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16):")
     print("  " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
     measured.update(bf16_kernel_phase(cases, cycles_per_ms))
     torch.cuda.empty_cache()
     del cases
     print("materialised-bias attention phase (hstu_attention: hstu_attn_fwd vs plain PyTorch and vs hstu_rab_fwd, fp32):")
-    k3 = attention_phase(bias_cases(), cycles_per_ms)
+    bcases = bias_cases()
+    k3 = attention_phase(bcases, cycles_per_ms)
+    print("bf16 materialised-bias attention phase (hstu_attention on bf16 q, k, v: hstu_attn_fwd_bf16 vs plain_forward_bf16 and the fp32 K3; f32 and bf16 bias):")
+    k3_bf16 = bf16_attention_phase(bcases, cycles_per_ms)
+    del bcases
+    torch.cuda.empty_cache()
 
     print("serving phase (full-width HSTU through SeqTrainer):")
     launches = {name: 0 for name in COUNTERS}
@@ -3413,7 +3551,7 @@ def main():
 
     # the DeepFM path runs PyTorch's own kernels only: none of the port's is launched there
     reset_counts()
-    attn.launches = 0
+    attn.launches = attn.launches_bf16 = 0
     print("DeepFM serving phase (bench.py's small config through CTRTrainer.predict / evaluate; one batch at the Criteo-full geometry):")
     ctr_serving_phase(cycles_per_ms)
     print("DeepFM training phase (bench.py's small config through CTRTrainer.train_one_epoch; a step against the CPU; fit):")
@@ -3438,7 +3576,7 @@ def main():
     tiger_phase()
     print("bf16 DeepFM, DSSM and MMOE phase (precision=\"bf16\" through CTRTrainer, MatchTrainer and MTLTrainer; card against CPU; fit):")
     bf16_ctr_match_mtl_phase()
-    ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches}
+    ctr_launches = {**read_counts(), "hstu_attn_fwd": attn.launches, "hstu_attn_fwd_bf16": attn.launches_bf16}
     print("  the port's kernels launched by the DeepFM, ranking zoo, matching, multi-task, RQ-VAE, HLLM and TIGER phases: " + ", ".join(f"{k} {v}" for k, v in ctr_launches.items()))
     if any(ctr_launches.values()):
         raise AssertionError(f"the DeepFM, ranking zoo, matching, multi-task, RQ-VAE, HLLM or TIGER path launched an HSTU attention kernel: {ctr_launches}")
@@ -3449,19 +3587,21 @@ def main():
     for name, n in hstu_sparse_phase().items():
         launches[name] += n
     print(f"  HSTU sparse training phase: {time.perf_counter() - t0:.1f} s")
-    print("bf16 HSTU phase (the full-width HSTU under SeqTrainer(precision=\"bf16\"): serving, training with three losses through the bf16 K1 and K2; card against CPU; fit):")
+    print("bf16 HSTU phase (the full-width HSTU under SeqTrainer(precision=\"bf16\"): serving, training with three losses through the bf16 K1 and K2, "
+          "a step through K2a-bf16 + K2b-bf16; card against CPU; fit):")
     launches.update(bf16_hstu_phase(cycles_per_ms))
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
     launches["hstu_attn_fwd"] = k3.pop("launches")  # the op's own path: it lies on no model's path
-    measured["hstu_attn_fwd"] = k3
+    launches["hstu_attn_fwd_bf16"] = k3_bf16.pop("launches")
+    measured.update(hstu_attn_fwd=k3, hstu_attn_fwd_bf16=k3_bf16)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving, training and sparse training paths (bf16: the bf16 ones); K3: the calls of its own phase
+        "launches": launches[name],  # serving, training and sparse training paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

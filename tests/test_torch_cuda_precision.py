@@ -1,9 +1,11 @@
-"""The bf16 variants of K1 and K2 on the card, against their plain bf16 versions.
+"""The bf16 variants of K1, K2, K2a, K2b and K3 on the card, against their plain bf16 versions.
 
-The kernels take bf16 q, k, v and g with f32 tables and round where the
-Pallas kernels round (``ops/cuda/hstu_rab_attention.py``); the plain
-versions (``plain_forward_bf16`` / ``plain_backward_bf16``) are held
-against the Pallas kernels on the CPU in ``tests/test_torch_precision.py``.
+The rab kernels take bf16 q, k, v and g with f32 tables, K3 bf16 q, k, v with
+an f32 or bf16 bias, and they round where the Pallas kernels round
+(``ops/cuda/hstu_rab_attention.py``, ``ops/cuda/hstu_attention.py``); the
+plain versions (``plain_forward_bf16`` / ``plain_backward_bf16`` of either
+module) are held against the Pallas kernels on the CPU in
+``tests/test_torch_precision.py`` and ``tests/test_torch_bf16_kernels.py``.
 These tests need a CUDA device and skip without one; they import no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_precision.py
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cuda_kernels import CASES, bwd_args, rab_inputs, sweep_inputs
+from test_torch_cuda_kernels import BIAS_CASES, CASES, bias_inputs, bwd_args, rab_inputs, run_backward, sweep_inputs
 from torch_rechub_tpu_torch.basic.precision import precision_scope
 from torch_rechub_tpu_torch.models.generative import HSTUModel
 from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab
@@ -63,12 +65,13 @@ def grad_of(t, seed=7, offset=0):
     return out
 
 
-def kernel_and_plain(t, kw, g):
-    """The bf16 kernels' (out, dq, dk, dv, dpos, dts), the plain bf16 versions', and fp32 plain ones' on the same values."""
+def kernel_and_plain(t, kw, g, split=False):
+    """The bf16 kernels' (out, dq, dk, dv, dpos, dts), the plain bf16 versions', and fp32 plain ones' on the same
+    values; the gradients from K2-bf16, or with ``split`` from K2a-bf16 then K2b-bf16."""
     names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
     has_time = t["timestamps"] is not None
     out = rab._launch(*(t[n] for n in names), rab.compute_bucket_thresholds(kw["cfg"]).to(t["q"].device), kw["alpha"], kw["max_seq_len"], kw["cfg"])
-    got = (out,) + rab.rab_backward_fused(*bwd_args(t, kw, g))
+    got = (out,) + run_backward(bwd_args(t, kw, g), split)
     plain = (rab.plain_forward_bf16(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], has_time),) + rab.plain_backward_bf16(*bwd_args(t, kw, g), has_time)
     t32 = {n: (t[n].float() if n in ("q", "k", "v") else t[n]) for n in names}
     f32 = (rab.dense_forward(*(t32[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"], has_time),)
@@ -132,8 +135,41 @@ def test_bf16_autograd_runs_the_bf16_kernels(card):
     assert_bf16_close(got, plain)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_split_kernels_match_plain(card, case):
+    """K2a-bf16 then K2b-bf16 (``_FUSED_BWD[0] = False``) on every case: dq, dk, dv, dpos and dts against the
+    plain bf16 backward, each counted on its own counter."""
+    t, kw = rab_inputs(card, **CASES[case])
+    t = to_bf16(t)
+    counters = ("launches_bwd_dq_bf16", "launches_bwd_dkv_bf16", "launches_bwd_bf16", "launches_bwd_dq", "launches_bwd_dkv")
+    counts = [getattr(rab, c) for c in counters]
+    got, plain, f32 = kernel_and_plain(t, kw, grad_of(t), split=True)
+    torch.cuda.synchronize()
+    assert [getattr(rab, c) for c in counters] == [counts[0] + 1, counts[1] + 1] + counts[2:]
+    assert_bf16_close(got, plain, f32)
+    if case == "empty_row":
+        assert all(torch.all(x[0] == 0) for x in got[1:4]) and all(torch.isfinite(x.float()).all() for x in got)
+
+
+def test_bf16_split_backward_twice_agrees_and_dkv_equals_fused(card):
+    """K2a-bf16's dq and K2b-bf16's dk, dv are sums in a fixed order: equal bit for bit between two runs; K2b-bf16 is
+    K2-bf16's body without dq and the table sums, so its dk, dv equal K2-bf16's bit for bit too."""
+    t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
+    t = to_bf16(t)
+    g = grad_of(t, seed=12)
+    first, second = (run_backward(bwd_args(t, kw, g), split=True) for _ in range(2))
+    fused = rab.rab_backward_fused(*bwd_args(t, kw, g))
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), first, second, fused):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda m: f"{name}: {m}")
+        if name != "dq":
+            torch.testing.assert_close(a, c, rtol=0, atol=0, msg=lambda m: f"{name} against K2-bf16: {m}")
+    assert_bf16_close((first[0],) + first, (second[0],) + second)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
 @pytest.mark.parametrize("l", [63, 130])
-def test_bf16_kernels_read_rows_and_masks_at_any_offset(card, l):
+def test_bf16_kernels_read_rows_and_masks_at_any_offset(card, l, split):
     """q, k, v and g one element (2 bytes) into their buffers, so no row is 16-byte aligned and the kernels take
     their 2-byte loads; the mask a view one byte into its buffer."""
     t, kw = rab_inputs(card, l=l, times="shuffled", mask="scattered")
@@ -143,20 +179,21 @@ def test_bf16_kernels_read_rows_and_masks_at_any_offset(card, l):
     t = to_bf16(t, offset=1)
     assert t["q"].data_ptr() % 16 != 0 and t["padding_mask"].data_ptr() % 4 != 0
     g = grad_of(t, seed=9, offset=1)
-    got, plain, f32 = kernel_and_plain(t, kw, g)
+    got, plain, f32 = kernel_and_plain(t, kw, g, split)
     torch.cuda.synchronize()
     assert_bf16_close(got, plain, f32)
 
 
+@pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
 @pytest.mark.parametrize("cfg", rab.SWEEP_CFGS, ids=lambda c: str(tuple(c)))
-def test_bf16_bucket_sweep_matches_plain(card, cfg):
+def test_bf16_bucket_sweep_matches_plain(card, cfg, split):
     """Every bucket threshold -1, 0, +1 and |dt| = 2**31 (``rab.bucket_sweep_stamps``), the plain version on the
     CPU, where the thresholds were computed."""
     t, kw = sweep_inputs(cfg)
     t = to_bf16(t)
     g = grad_of(t, seed=3)
     dev = {n: (x.to(card) if isinstance(x, torch.Tensor) else x) for n, x in t.items()}
-    got, _, _ = kernel_and_plain(dev, kw, g.to(card))
+    got, _, _ = kernel_and_plain(dev, kw, g.to(card), split)
     torch.cuda.synchronize()
     has_time = True
     plain = (rab.plain_forward_bf16(*(t[n] for n in ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")), kw["alpha"], kw["max_seq_len"], kw["cfg"], has_time),)
@@ -164,24 +201,90 @@ def test_bf16_bucket_sweep_matches_plain(card, cfg):
     assert_bf16_close([x.cpu() for x in got], plain)
 
 
-def test_kernels_without_a_bf16_variant_raise_on_the_card(card):
-    """K2a + K2b (``_FUSED_BWD[0] = False``) and K3 refuse bf16 on the card, naming ROADMAP queue 2: no cast."""
+def test_kernels_refuse_fp16_and_mixed_dtypes_on_the_card(card):
+    """Every kernel takes q, k, v all float32 or all bfloat16 (K3 a bf16 bias only with bf16 q): fp16 and mixed
+    dtypes raise on the card, with no cast."""
     t, kw = rab_inputs(card, l=64, maxl=64)
-    t = to_bf16(t)
-    g = grad_of(t)
-    for fn in (rab.rab_backward_dq, rab.rab_backward_dkv):
-        with pytest.raises(TypeError, match="ROADMAP queue 2"):
-            fn(*bwd_args(t, kw, g))
-    with pytest.raises(TypeError, match="ROADMAP queue 2"):
-        attn.hstu_attention(t["q"], t["k"], t["v"], torch.zeros((1, 3, 64, 64), dtype=BF16, device=card), t["padding_mask"], kw["alpha"], 64)
+    g = grad_of(t).half()
+    h16 = {**t, **{n: t[n].half() for n in ("q", "k", "v")}}
+    for fn in (rab.rab_backward_fused, rab.rab_backward_dq, rab.rab_backward_dkv):
+        with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+            fn(*bwd_args(h16, kw, g))
     with pytest.raises(TypeError, match="all float32 or all bfloat16"):
-        rab.hstu_attention_rab(t["q"], t["k"].float(), t["v"], t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"])
+        rab.hstu_attention_rab(t["q"].to(BF16), t["k"], t["v"].to(BF16), t["pos_w"], t["ts_w"], t["timestamps"], t["padding_mask"], kw["alpha"], kw["max_seq_len"], kw["cfg"])
+    bias = torch.zeros((1, 3, 64, 64), device=card)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        attn.hstu_attention(h16["q"], h16["k"], h16["v"], bias.half(), t["padding_mask"], kw["alpha"], 64)
+    with pytest.raises(TypeError, match="takes a bias of torch.float32,"):
+        attn.hstu_attention(t["q"], t["k"], t["v"], bias.to(BF16), t["padding_mask"], kw["alpha"], 64)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        attn.hstu_attention(t["q"].to(BF16), t["k"].to(BF16), t["v"], bias, t["padding_mask"], kw["alpha"], 64)
 
 
-def test_bf16_hstu_step_on_the_card_matches_the_cpu(card):
+# K3-bf16 through the op: every case of the fp32 K3's, with the bias in f32 and in bf16 (a bf16 view one element
+# into its buffer where the fp32 case had one 4 bytes in)
+def bf16_bias_inputs(card, case, bias_dtype):
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, **BIAS_CASES[case])
+    q, k, v = (x.to(BF16) for x in (q, k, v))
+    if bias_dtype == BF16:
+        offset = int(BIAS_CASES[case].get("bias_offset", False))
+        buf = torch.full((bias.numel() + offset,), float("nan"), dtype=BF16, device=card)
+        buf[offset:] = bias.flatten()
+        bias = buf[offset:].view(bias.shape)
+    return q, k, v, bias, mask, alpha, n
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, BF16], ids=["f32_bias", "bf16_bias"])
+@pytest.mark.parametrize("case", list(BIAS_CASES))
+def test_bf16_attention_kernel_matches_plain(card, case, bias_dtype):
+    """K3-bf16 against ``plain_forward_bf16`` (f32 scores and attn, the output rounded) to one bf16 ulp of the
+    largest element, and nearer to it than BF16_SHARE of its distance to the fp32 K3 on the same values; a NaN bias
+    at the pairs no valid pair reads stays out; a fully masked row gives zeros."""
+    q, k, v, bias, mask, alpha, n = bf16_bias_inputs(card, case, bias_dtype)
+    before = (attn.launches, attn.launches_bf16)
+    out = attn.hstu_attention(q, k, v, bias, mask, alpha, n)
+    f32 = attn.hstu_attention(q.float(), k.float(), v.float(), bias.float(), mask, alpha, n)
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.launches_bf16) == (before[0] + 1, before[1] + 1)
+    plain = attn.plain_forward_bf16(q, k, v, bias, mask, alpha, n)
+    assert out.dtype == plain.dtype == BF16 and torch.isfinite(out.float()).all()
+    a, b, c = out.float(), plain.float(), f32
+    torch.testing.assert_close(a, b, rtol=0, atol=ULP_REL * float(b.abs().max()) + 1e-12)
+    if float((b - c).norm()) > 0:
+        assert float((a - b).norm()) <= BF16_SHARE * float((b - c).norm()), (float((a - b).norm()), float((b - c).norm()))
+    if case == "empty_row":
+        assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_batch", "shared"])
+def test_bf16_attention_kernel_twice_agrees_and_backs_up(card, shared):
+    """K3-bf16 uses no atomics: two runs agree bit for bit; the op's backward on bf16 leaves (autograd of the plain
+    version, as JAX's) gives gradients in the leaves' dtypes, dbias in the bias's shape."""
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, b=4, mask="scattered", shared=shared)
+    leaves = [x.to(BF16).requires_grad_(True) for x in (q, k, v)] + [bias.requires_grad_(True)]
+    first = attn.hstu_attention(*leaves, mask, alpha, n)
+    second = attn.hstu_attention(*(x.detach() for x in leaves), mask, alpha, n)
+    first.backward(grad_of({"v": first}, seed=5))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first.detach(), second, rtol=0, atol=0)
+    assert [x.grad.dtype for x in leaves] == [BF16] * 3 + [torch.float32] and leaves[3].grad.shape == bias.shape
+    assert all(torch.isfinite(x.grad.float()).all() for x in leaves)
+
+
+def test_bf16_attention_kernel_occupancy(card):
+    """K3-bf16's shared memory does not grow with L; dqk 256 with dv 128 fits."""
+    for bias_bf16 in (False, True):
+        ctas, regs, smem = attn.occupancy_bf16(256, 32, 32, bias_bf16)
+        assert ctas >= 2 and 0 < regs <= 255 and smem == attn.occupancy_bf16(4096, 32, 32, bias_bf16)[2]
+        ctas, regs, smem = attn.occupancy_bf16(1024, 256, 128, bias_bf16)
+        assert ctas >= 1 and smem <= 232448
+
+
+def hstu_step_card_vs_cpu(card, split):
     """A small HSTU under ``SeqTrainer(precision="bf16")``: the chunked loss and every gradient of one step on the
-    card against the CPU's (the plain bf16 attention there), through the bf16 kernels.  The tolerance: a few bf16
-    ulps of each tensor's largest gradient (cuBLAS and the kernels sum in other orders than the CPU)."""
+    card against the CPU's (the plain bf16 attention there), through K1-bf16 and K2-bf16, or with ``split`` through
+    K2a-bf16 and K2b-bf16 (``_FUSED_BWD[0] = False``).  The tolerance: a few bf16 ulps of each tensor's largest
+    gradient (cuBLAS and the kernels sum in other orders than the CPU)."""
     kw = dict(vocab_size=60, d_model=32, n_heads=2, n_layers=2, dqk=16, dv=16, max_seq_len=64, dropout=0.0, num_time_buckets=16)
     rng = np.random.default_rng(0)
     toks = np.zeros((4, 64), np.int64)
@@ -189,21 +292,35 @@ def test_bf16_hstu_step_on_the_card_matches_the_cpu(card):
         toks[i, :n] = rng.integers(1, 60, n)
     tds = np.sort(rng.integers(0, 10**6, (4, 64)), axis=1).astype(np.int32)
     tgts = rng.integers(1, 60, 4)
+    counters = ("launches_bf16", "launches_bwd_bf16", "launches_bwd_dq_bf16", "launches_bwd_dkv_bf16")
+    expected = (2, 0, 2, 2) if split else (2, 2, 0, 0)
     grads, losses = [], []
-    for device in ("cpu", card):
-        torch.manual_seed(0)
-        model = HSTUModel(**kw, generator=torch.Generator().manual_seed(0))
-        trainer = SeqTrainer(model, vocab_chunk_size=16, precision="bf16", device=device)
-        model.train()
-        counts = (rab.launches_bf16, rab.launches_bwd_bf16)
-        with precision_scope("bf16"):
-            loss = trainer.loss_fn(*(torch.from_numpy(a).to(device) for a in (toks, tds, tgts)))
-        loss.backward()
-        if device != "cpu":
-            torch.cuda.synchronize()
-            assert (rab.launches_bf16 - counts[0], rab.launches_bwd_bf16 - counts[1]) == (2, 2)
-        losses.append(float(loss))
-        grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    rab._FUSED_BWD[0] = not split
+    try:
+        for device in ("cpu", card):
+            torch.manual_seed(0)
+            model = HSTUModel(**kw, generator=torch.Generator().manual_seed(0))
+            trainer = SeqTrainer(model, vocab_chunk_size=16, precision="bf16", device=device)
+            model.train()
+            counts = [getattr(rab, c) for c in counters]
+            with precision_scope("bf16"):
+                loss = trainer.loss_fn(*(torch.from_numpy(a).to(device) for a in (toks, tds, tgts)))
+            loss.backward()
+            if device != "cpu":
+                torch.cuda.synchronize()
+                assert tuple(getattr(rab, c) - n for c, n in zip(counters, counts)) == expected
+            losses.append(float(loss))
+            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    finally:
+        rab._FUSED_BWD[0] = True
     np.testing.assert_allclose(losses[1], losses[0], rtol=2e-3)
     for name, ref in grads[0].items():
         torch.testing.assert_close(grads[1][name], ref, rtol=0, atol=4 * ULP_REL * float(ref.abs().max()) + 1e-12, msg=lambda m: f"{name}: {m}")
+
+
+def test_bf16_hstu_split_step_on_the_card_matches_the_cpu(card):
+    hstu_step_card_vs_cpu(card, split=True)
+
+
+def test_bf16_hstu_step_on_the_card_matches_the_cpu(card):
+    hstu_step_card_vs_cpu(card, split=False)

@@ -151,10 +151,10 @@ def test_precision_policy_is_a_port_module_without_jax():
     assert not [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
-def test_kernels_without_a_bf16_variant_refuse_bf16():
-    """K2a, K2b and K3 have no bf16 variant yet (ROADMAP queue 2): their input checks, which run before any
-    library loads, refuse bf16 q, k, v naming the queue, while K1's and K2's take it.  On the CPU all of them
-    keep taking the plain versions."""
+def test_every_kernel_input_check_takes_bf16_and_refuses_fp16():
+    """Every kernel of the port has a bf16 variant: the input checks, which run before any library loads, take
+    bf16 q, k, v (K3 with an f32 or a bf16 bias) and refuse fp16, a mix of dtypes, and a bf16 bias under fp32
+    q.  On the CPU the wrappers keep taking the plain versions, in bf16 where the input is."""
     import importlib
 
     from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab
@@ -167,16 +167,21 @@ def test_kernels_without_a_bf16_variant_refuse_bf16():
     pos_w, ts_w = torch.randn(2 * maxl - 1, h, generator=gen), torch.randn(9, h, generator=gen)
     ts = torch.sort(torch.randint(0, 10**6, (b, l), generator=gen), dim=1).values.to(torch.int32)
     mask, thr = torch.ones(b, l, dtype=torch.bool), rab.compute_bucket_thresholds(cfg)
-    checks = (q, k, v, pos_w, ts_w, ts, mask, thr, maxl, 8)
-    for entry in ("hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"):
-        with pytest.raises(TypeError, match="ROADMAP queue 2"):
-            rab._check_kernel_inputs(*checks, entry)
-    for entry in ("hstu_rab_fwd", "hstu_rab_bwd"):
-        rab._check_kernel_inputs(*checks, entry)
-    with pytest.raises(TypeError, match="ROADMAP queue 2"):
-        attn._check_kernel_inputs(q, k, v, torch.zeros(1, h, l, l, dtype=torch.bfloat16), mask)
+    tables = (pos_w, ts_w, ts, mask, thr, maxl, 8)
+    rab._check_kernel_inputs(q, k, v, *tables)
+    rab._check_kernel_inputs(q.float(), k.float(), v.float(), *tables)
+    for bad in ((q.half(), k.half(), v.half()), (q, k.float(), v), (q.float(), k.float(), v)):
+        with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+            rab._check_kernel_inputs(*bad, *tables)
+    for bias in (torch.zeros(1, h, l, l), torch.zeros(b, h, l, l, dtype=torch.bfloat16)):
+        attn._check_kernel_inputs(q, k, v, bias, mask)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        attn._check_kernel_inputs(q.half(), k.half(), v.half(), torch.zeros(1, h, l, l, dtype=torch.half), mask)
+    with pytest.raises(TypeError, match="takes a bias of torch.float32,"):
+        attn._check_kernel_inputs(q.float(), k.float(), v.float(), torch.zeros(1, h, l, l, dtype=torch.bfloat16), mask)
     args = (q, k, v, g, pos_w, ts_w, ts, mask, 0.25, maxl, cfg)
     dq, dpos, dts = rab.rab_backward_dq(*args)
     dk, dv = rab.rab_backward_dkv(*args)
     assert (dq.dtype, dk.dtype, dv.dtype, dpos.dtype, dts.dtype) == (torch.bfloat16,) * 3 + (torch.float32,) * 2
-    assert attn.hstu_attention(q, k, v, torch.zeros(1, h, l, l), mask, 0.25, maxl).shape == (b, h, l, d)
+    out = attn.hstu_attention(q, k, v, torch.zeros(1, h, l, l), mask, 0.25, maxl)
+    assert out.shape == (b, h, l, d) and out.dtype == torch.bfloat16

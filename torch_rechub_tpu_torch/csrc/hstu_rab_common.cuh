@@ -1,6 +1,6 @@
 // Building blocks shared by the attention kernels (hstu_rab_fwd.cu,
 // hstu_rab_bwd.cu, hstu_attn_fwd.cu and the bf16 variants
-// hstu_rab_fwd_bf16.cu, hstu_rab_bwd_bf16.cu): 3xTF32 and bf16 tensor-core
+// hstu_rab_fwd_bf16.cu, hstu_rab_bwd_bf16.cu, hstu_attn_fwd_bf16.cu): 3xTF32 and bf16 tensor-core
 // products with mma.sync, tile copies, the exact O(1) time-bucket lookup,
 // and the backward kernels' table-gradient sums.
 #pragma once

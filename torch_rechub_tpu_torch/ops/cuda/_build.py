@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {name: CSRC / f"{name}.cu" for name in ("hstu_rab_fwd", "hstu_rab_bwd", "hstu_attn_fwd", "hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16")}
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("hstu_rab_fwd", "hstu_rab_bwd", "hstu_attn_fwd", "hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_attn_fwd_bf16")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}

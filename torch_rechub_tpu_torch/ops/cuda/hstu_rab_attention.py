@@ -20,15 +20,15 @@ Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
   as in the JAX package.  All three are built as K1 is: 3xTF32 products,
   P and dS in registers, ``cp.async`` rings.  The source notes have the designs.
 - bf16 (the mixed-precision policy, ``basic/precision.py``):
-  ``csrc/hstu_rab_fwd_bf16.cu`` (K1) and ``csrc/hstu_rab_bwd_bf16.cu`` (K2)
-  take bf16 q, k, v and g with f32 tables, multiply on the tensor cores in
-  ``mma.sync.m16n8k16`` bf16 with f32 accumulators, and round where the
-  Pallas kernels round: the forward's ``attn`` to bf16 before ``attn @ v``
-  and its output to bf16; the backward's ``attn`` and ``ds`` to bf16
-  before the dv, dk and dq products, dq summed in f32 and rounded at the
-  end, dk and dv written in bf16, dpos and dts summed in f32 from the
-  unrounded ``ds``.  K2a, K2b (the split backward) have no bf16 variant
-  yet and refuse a bf16 input on the card (ROADMAP queue 2).
+  ``csrc/hstu_rab_fwd_bf16.cu`` (K1) and ``csrc/hstu_rab_bwd_bf16.cu`` (K2,
+  and the split pair K2a, K2b) take bf16 q, k, v and g with f32 tables,
+  multiply on the tensor cores in ``mma.sync.m16n8k16`` bf16 with f32
+  accumulators, and round where the Pallas kernels round: the forward's
+  ``attn`` to bf16 before ``attn @ v`` and its output to bf16; the
+  backward's ``attn`` and ``ds`` to bf16 before the dv, dk and dq products,
+  dq summed in f32 and rounded at the end (K2 into an f32 buffer, K2a in
+  registers), dk and dv written in bf16, dpos and dts summed in f32 from
+  the unrounded ``ds``.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch versions
 (fp32: :func:`dense_forward`, differentiable by autograd, and
@@ -56,6 +56,8 @@ launches_bwd_dq = 0  # K2a, hstu_rab_bwd_dq
 launches_bwd_dkv = 0  # K2b, hstu_rab_bwd_dkv
 launches_bf16 = 0  # K1 in bf16, hstu_rab_fwd_bf16
 launches_bwd_bf16 = 0  # K2 in bf16, hstu_rab_bwd_bf16
+launches_bwd_dq_bf16 = 0  # K2a in bf16, hstu_rab_bwd_dq_bf16
+launches_bwd_dkv_bf16 = 0  # K2b in bf16, hstu_rab_bwd_dkv_bf16
 
 _FUSED_BWD = [True]  # False takes the split pair K2a + K2b (the JAX package's A/B switch)
 
@@ -289,11 +291,7 @@ def _lib_bf16() -> ctypes.CDLL:
     return _load_fwd("hstu_rab_fwd_bf16")
 
 
-# the kernels that take bf16 q, k, v (and g); the others refuse it
-BF16_ENTRIES = ("hstu_rab_fwd", "hstu_rab_bwd")
-
-
-def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets, entry: str = "hstu_rab_fwd"):
+def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets):
     b, h, l, dqk = q.shape
     dv = v.shape[-1]
     dev = q.device
@@ -305,8 +303,6 @@ def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresho
             raise ValueError(f"hstu_attention_rab: {name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"hstu_attention_rab: {name} must be contiguous")
-    if q.dtype == torch.bfloat16 and entry not in BF16_ENTRIES:
-        raise TypeError(f"{entry}: q is bfloat16; the bf16 variant of this kernel is not ported yet (ROADMAP queue 2)")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"hstu_attention_rab: the CUDA kernels take q, k, v all float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name in ("pos_w", "ts_w"):
@@ -356,39 +352,37 @@ def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: f
 
 
 BWD_ENTRIES = ("hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv")  # K2, K2a, K2b: the C occupancy query's index
+BWD_ENTRIES_BF16 = tuple(name + "_bf16" for name in BWD_ENTRIES)
+
+
+def _load_bwd(name: str, entries) -> ctypes.CDLL:
+    """The backward library ``name``, its ``entries`` (K2, K2a, K2b, in the occupancy query's order) bound."""
+    lib = _build.load(name)
+    if getattr(lib, entries[0]).argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (getattr(lib, entry) for entry in entries):
+            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
+            fn.restype = i
+        occ = getattr(lib, name + "_occupancy")
+        occ.argtypes = [i] * 6 + [p]
+        occ.restype = i
+        lib.hstu_rab_bwd_error_string.argtypes = [i]
+        lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib_bwd_bf16() -> ctypes.CDLL:
-    lib = _build.load("hstu_rab_bwd_bf16")
-    if lib.hstu_rab_bwd_bf16.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hstu_rab_bwd_bf16.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
-        lib.hstu_rab_bwd_bf16.restype = i
-        lib.hstu_rab_bwd_bf16_occupancy.argtypes = [i] * 5 + [p]
-        lib.hstu_rab_bwd_bf16_occupancy.restype = i
-        lib.hstu_rab_bwd_error_string.argtypes = [i]
-        lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _load_bwd("hstu_rab_bwd_bf16", BWD_ENTRIES_BF16)
 
 
 def _lib_bwd() -> ctypes.CDLL:
-    lib = _build.load("hstu_rab_bwd")
-    if lib.hstu_rab_bwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (getattr(lib, name) for name in BWD_ENTRIES):
-            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
-            fn.restype = i
-        lib.hstu_rab_bwd_occupancy.argtypes = [i] * 6 + [p]
-        lib.hstu_rab_bwd_occupancy.restype = i
-        lib.hstu_rab_bwd_error_string.argtypes = [i]
-        lib.hstu_rab_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _load_bwd("hstu_rab_bwd", BWD_ENTRIES)
 
 
 def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
     """Launch one backward kernel into the given outputs (None: not produced)."""
     num_buckets = ts_w.shape[0] - 1
-    _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets, entry)
+    _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
     b, h, l, dqk = q.shape
     dv_dim = v.shape[-1]
     if g.device != q.device or g.dtype != v.dtype or g.shape != v.shape or not g.is_contiguous():
@@ -426,8 +420,9 @@ def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> 
 
 
 def occupancy_bf16(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> dict:
-    """The bf16 K1 and K2 as :func:`occupancy` reports the fp32 kernels."""
-    queries = [("hstu_rab_fwd_bf16", _lib_bf16().hstu_rab_fwd_bf16_occupancy, ()), ("hstu_rab_bwd_bf16", _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, ())]
+    """The bf16 K1, K2, K2a and K2b as :func:`occupancy` reports the fp32 kernels."""
+    queries = [("hstu_rab_fwd_bf16", _lib_bf16().hstu_rab_fwd_bf16_occupancy, ())]
+    queries += [(name, _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, (which,)) for which, name in enumerate(BWD_ENTRIES_BF16)]
     return _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets)
 
 
@@ -478,31 +473,38 @@ def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha:
 
 
 def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
-    """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU).
+    """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU), dq in q's dtype.
 
-    dq is written once per row, its partials summed in a fixed order: the
-    same bit for bit from run to run; dpos and dts are sums of fp32 atomics.
+    dq is written once per row, its partials summed in a fixed order (in
+    f32 registers, rounded once for bf16): the same bit for bit from run to
+    run; dpos and dts are sums of fp32 atomics.
     """
-    global launches_bwd_dq
+    global launches_bwd_dq, launches_bwd_dq_bf16
     plain, thresholds = _dispatch_bwd("rab_backward_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
     if plain is not None:
         return plain[0], plain[3], plain[4]
     dq = torch.empty_like(q)
     dpos, dts = torch.zeros_like(pos_w), torch.zeros_like(ts_w)
     _launch_bwd("hstu_rab_bwd_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dq=dq, dpos=dpos, dts=dts)
-    launches_bwd_dq += 1
+    if q.dtype == torch.bfloat16:
+        launches_bwd_dq_bf16 += 1
+    else:
+        launches_bwd_dq += 1
     return dq, dpos, dts
 
 
 def rab_backward_dkv(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
-    """K2b: ``(dk, dv)`` (the plain version's on the CPU), the same bit for bit from run to run."""
-    global launches_bwd_dkv
+    """K2b: ``(dk, dv)`` in k's and v's dtype (the plain version's on the CPU), the same bit for bit from run to run."""
+    global launches_bwd_dkv, launches_bwd_dkv_bf16
     plain, thresholds = _dispatch_bwd("rab_backward_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
     if plain is not None:
         return plain[1], plain[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("hstu_rab_bwd_dkv", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg, dk=dk, dv=dv)
-    launches_bwd_dkv += 1
+    if q.dtype == torch.bfloat16:
+        launches_bwd_dkv_bf16 += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 
