@@ -331,6 +331,30 @@ def test_k3_bf16_launch_hands_the_kernel_its_shapes_and_bias_layout(fake_card, s
     assert args[6:] == (b, h, l, dqk, dv, int(shared), int(bias_dtype == BF16), 0.3, 64.0, 1234)
 
 
+def test_launch_shape_reads_the_ring_stages_from_a_fourth_field(fake_card, monkeypatch):
+    """``launch_shape_bf16`` asks K1-bf16 or, by index, K2-bf16 (0) or K2b-bf16 (2) (K2a-bf16 has no ring: refused)
+    into a four-int buffer, and returns all four fields; ``occupancy_bf16`` keeps returning three."""
+    stages = {(): 2, (0,): 1, (2,): 2}  # the kernel's index -> the stages the fake reports
+
+    def query(*args):
+        which, info = args[:-6], args[-1]
+        fake_card.calls.append((which, args[-6:-1]))
+        assert len(info) == 4
+        info[0], info[1], info[2], info[3] = 3, 80, 40_000, stages.get(which, 0)
+        return 0
+
+    lib = type("Lib", (), {"hstu_rab_fwd_bf16_occupancy": staticmethod(query), "hstu_rab_bwd_bf16_occupancy": staticmethod(query)})()
+    monkeypatch.setattr(trab, "_lib_bf16", lambda: lib)
+    monkeypatch.setattr(trab, "_lib_bwd_bf16", lambda: lib)
+    shape = (4096, 128, 128, 4096, 128)
+    got = {name: trab.launch_shape_bf16(name, *shape) for name in ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16")}
+    assert got == {"hstu_rab_fwd_bf16": (3, 80, 40_000, 2), "hstu_rab_bwd_bf16": (3, 80, 40_000, 1), "hstu_rab_bwd_dkv_bf16": (3, 80, 40_000, 2)}
+    assert fake_card.calls == [((), shape), ((0,), shape), ((2,), shape)]
+    with pytest.raises(ValueError, match="no ring"):
+        trab.launch_shape_bf16("hstu_rab_bwd_dq_bf16", *shape)
+    assert trab.occupancy_bf16(256, 32, 32, 256, 128)["hstu_rab_fwd_bf16"] == (3, 80, 40_000)
+
+
 def test_bf16_occupancy_queries_name_every_kernel(fake_card):
     """``occupancy_bf16`` asks for K1-bf16 and, by index, K2-, K2a- and K2b-bf16; K3-bf16's for its bias dtype."""
     assert trab.occupancy_bf16(256, 32, 32, 256, 128) == {name: (0, 0, 0) for name in ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16}

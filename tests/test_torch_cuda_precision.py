@@ -167,6 +167,44 @@ def test_bf16_split_backward_twice_agrees_and_dkv_equals_fused(card):
     assert_bf16_close((first[0],) + first, (second[0],) + second)
 
 
+def test_bf16_forward_and_fused_dkv_twice_agree(card):
+    """K1-bf16 sums its four key splits' partial outputs, and K2-bf16 its four query splits' partial dk, dv, in a
+    fixed order with no atomics: two runs agree bit for bit (K2-bf16's dq, summed with atomics, need not)."""
+    t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
+    t = to_bf16(t)
+    g = grad_of(t, seed=13)
+    names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
+    thr = rab.compute_bucket_thresholds(kw["cfg"]).to(card)
+    outs = [rab._launch(*(t[n] for n in names), thr, kw["alpha"], kw["max_seq_len"], kw["cfg"]) for _ in range(2)]
+    grads = [rab.rab_backward_fused(*bwd_args(t, kw, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0, msg=lambda m: f"out: {m}")
+    for name, i in (("dk", 1), ("dv", 2)):
+        torch.testing.assert_close(grads[0][i], grads[1][i], rtol=0, atol=0, msg=lambda m: f"{name}: {m}")
+
+
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may take on sm_90
+
+
+def test_bf16_rab_kernels_occupancy(card):
+    """K1-bf16, K2-bf16 and K2b-bf16 (CTAs of 8 warps) at the serving shape: at least 2 CTAs per SM, at most 255
+    registers, both ring stages.  At L4096 with dqk, dv 128 they still fit.  Where two stages cannot fit (a longer L:
+    pw and, for K2-bf16, gpos grow with it) they take one and still fit."""
+    names = ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16")
+    for name in names:
+        for shape, least in (((256, 32, 32, 256, 128), 2), ((4096, 128, 128, 4096, 128), 1)):
+            ctas, regs, smem, stages = rab.launch_shape_bf16(name, *shape)
+            assert ctas >= least and 0 < regs <= 255 and 0 < smem <= SMEM_LIMIT, (name, shape, ctas, regs, smem)
+            if shape[0] == 256:
+                assert stages == 2 and (ctas, regs, smem) == rab.occupancy_bf16(*shape)[name], (name, stages)
+    # two 64-row stages of K and V (K1-bf16) or of Q and G (K2-bf16) at dqk = dv = 128 take 2 x 2 x 64 x 128 x 2 bytes;
+    # with pw [L] (and gpos [L]) in f32 beside them, two stages exceed the limit past these L
+    for name, l in (("hstu_rab_fwd_bf16", 44_000), ("hstu_rab_bwd_bf16", 21_000)):
+        assert 2 * 2 * 64 * 128 * 2 + (4 if name == "hstu_rab_fwd_bf16" else 8) * l > SMEM_LIMIT
+        ctas, regs, smem, stages = rab.launch_shape_bf16(name, l, 128, 128, l, 128)
+        assert stages == 1 and ctas >= 1 and smem <= SMEM_LIMIT, (name, l, ctas, smem, stages)
+
+
 @pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
 @pytest.mark.parametrize("l", [63, 130])
 def test_bf16_kernels_read_rows_and_masks_at_any_offset(card, l, split):

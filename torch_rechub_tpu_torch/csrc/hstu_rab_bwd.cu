@@ -214,10 +214,6 @@ __host__ __device__ inline Layout2 layout2(const Fused& f, int L, int nb) {
   return o;
 }
 
-__device__ __forceinline__ void red_add_v4(float* addr, float x, float y, float z, float w) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr), "f"(x), "f"(y), "f"(z), "f"(w) : "memory");
-}
-
 // kFull: K2 (dq, dk, dv, dpos, dts); else K2b (dk, dv)
 template <int N, bool kFull>  // n-tiles of 8 features: dqk, dv <= 8 * N
 __device__ __forceinline__ void key_tile_body(const Fused& f) {

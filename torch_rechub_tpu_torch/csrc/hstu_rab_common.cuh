@@ -1,8 +1,9 @@
 // Building blocks shared by the attention kernels (hstu_rab_fwd.cu,
 // hstu_rab_bwd.cu, hstu_attn_fwd.cu and the bf16 variants
 // hstu_rab_fwd_bf16.cu, hstu_rab_bwd_bf16.cu, hstu_attn_fwd_bf16.cu): 3xTF32 and bf16 tensor-core
-// products with mma.sync, tile copies, the exact O(1) time-bucket lookup,
-// and the backward kernels' table-gradient sums.
+// products with mma.sync, ldmatrix fragment loads, tile copies (cp.async),
+// the dq vector reduction, the exact O(1) time-bucket lookup, and the
+// backward kernels' table-gradient sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -129,6 +130,47 @@ __device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, int ld, cons
   }
 }
 
+// ldmatrix: four (x4) or two (x2) 8 x 8 bf16 matrices from shared memory,
+// matrix i's eight 16-byte rows addressed by lanes 8i .. 8i+7 (each row
+// address 16-byte aligned).  Register i holds matrix i as a fragment: lane
+// (g, t) gets row g, columns 2t, 2t+1, or with .trans row 2t and 2t+1 of
+// column g.  So a row-major 16 x 16 A tile, or the B fragments of two 8-wide
+// n-tiles (rows n, columns k: plain; rows k, columns n: .trans), load in one
+// instruction.  A tile whose row stride is 8 mod 16 elements (an odd number
+// of 16-byte units) is read without bank conflicts.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t r[2], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];" : "=r"(r[0]), "=r"(r[1]) : "r"(s));
+}
+
+// The lane's row and column offsets for those x4 loads (the lane addresses
+// matrix lane / 8; x2 uses the first two):
+//   a:   a row-major 16 x 16 A tile: rows 0-7, 8-15 of columns 0-7, then of 8-15
+//   bn:  B of n-tiles 0, 1 from a [n][k] tile: k 0-7, 8-15 of n 0-7, then of n 8-15;
+//        with .trans, also a 16 x 16 A tile from its transpose, a [k][m] tile
+//   bt:  B of n-tiles 0, 1 from a [k][n] tile (.trans): k 0-7, 8-15 of n 0-7, then of n 8-15
+struct LdsmLane {
+  int a_row, a_col, bn_row, bn_col, bt_row, bt_col;
+  __device__ __forceinline__ explicit LdsmLane(int lane)
+      : a_row(lane & 15), a_col((lane >> 4) << 3),
+        bn_row((lane & 7) + ((lane >> 4) << 3)), bn_col(((lane >> 3) & 1) << 3),
+        bt_row((lane & 7) + (((lane >> 3) & 1) << 3)), bt_col((lane >> 4) << 3) {}
+};
+
 // ---------------------------------------------------------------------------
 // cp.async
 // ---------------------------------------------------------------------------
@@ -173,6 +215,41 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, 
       ++r;
     }
   }
+}
+
+// stage_rows_bf16's copy for a ring: 16-byte cp.async (zero-filled past L)
+// where vec, so the copy runs during the math and lands at the next
+// cp_wait_all; else stage_rows_bf16's plain loads and stores, which the
+// caller's next barrier makes visible.  With vec the columns width ..
+// padded-1 are not written: the caller zeroes them once.
+__device__ __forceinline__ void copy_rows_bf16(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
+                                               int rows, int L, int width, int padded, bool vec, int tid,
+                                               int nthreads) {
+  if (!vec) {
+    stage_rows_bf16(dst, ld, src, row0, rows, L, width, padded, false, tid, nthreads);
+    return;
+  }
+  const int cpr = width >> 3;  // 8-element chunks per row
+  const int total = rows * cpr;
+  int r = tid / cpr, c = tid - r * cpr;
+  const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
+  for (int i = tid; i < total; i += nthreads) {
+    const int row = row0 + r;
+    const bool in = row < L;
+    cp_async16(dst + r * ld + 8 * c, src + (size_t)(in ? row : 0) * width + 8 * c, in ? 16 : 0);
+    r += dr;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+}
+
+// Four consecutive floats added to global memory in one vector reduction
+// (addr 16-byte aligned)
+__device__ __forceinline__ void red_add_v4(float* addr, float x, float y, float z, float w) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(addr), "f"(x), "f"(y), "f"(z), "f"(w) : "memory");
 }
 
 // Rows row0 .. row0+rows-1, columns col0 .. col0+cols-1 (cols a multiple

@@ -23,7 +23,9 @@ Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
   ``csrc/hstu_rab_fwd_bf16.cu`` (K1) and ``csrc/hstu_rab_bwd_bf16.cu`` (K2,
   and the split pair K2a, K2b) take bf16 q, k, v and g with f32 tables,
   multiply on the tensor cores in ``mma.sync.m16n8k16`` bf16 with f32
-  accumulators, and round where the Pallas kernels round: the forward's
+  accumulators (K1, K2 and K2b in their fp32 twins' Hopper design: 8-warp
+  CTAs, ``cp.async`` rings, K2's dq by vector reductions), and round where
+  the Pallas kernels round: the forward's
   ``attn`` to bf16 before ``attn @ v`` and its output to bf16; the
   backward's ``attn`` and ``ds`` to bf16 before the dv, dk and dq products,
   dq summed in f32 and rounded at the end (K2 into an f32 buffer, K2a in
@@ -426,14 +428,27 @@ def occupancy_bf16(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int
     return _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets)
 
 
-def _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets) -> dict:
+def launch_shape_bf16(name: str, l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> tuple:
+    """K1-bf16, K2-bf16 or K2b-bf16 (by entry name) as this shape would launch it: ``(CTAs per SM, registers per
+    thread, shared bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit (K1-bf16's K/V ring, K2's
+    and K2b's Q/G ring); raises where the shape does not fit at all.  Nothing is launched."""
+    if name == "hstu_rab_fwd_bf16":
+        query = (name, _lib_bf16().hstu_rab_fwd_bf16_occupancy, ())
+    elif name in ("hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16"):
+        query = (name, _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, (BWD_ENTRIES_BF16.index(name),))
+    else:
+        raise ValueError(f"launch_shape_bf16: {name} has no ring; K1-bf16, K2-bf16 and K2b-bf16 do")
+    return _query_occupancy([query], l, dqk, dv, max_seq_len, num_buckets, full=True)[name]
+
+
+def _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets, full=False) -> dict:
     out = {}
     for name, query, which in queries:
-        info = (ctypes.c_int * 3)()
+        info = (ctypes.c_int * 4)()  # the redesigned bf16 kernels also give their ring stages in info[3]
         rc = query(*which, l, dqk, dv, max_seq_len, num_buckets, info)
         if rc != 0:
             raise RuntimeError(f"{name} occupancy query failed: error {rc}")
-        out[name] = tuple(info)
+        out[name] = tuple(info) if full else tuple(info)[:3]
     return out
 
 
