@@ -3516,9 +3516,11 @@ def main():
     c, r, b = attn.occupancy(1024, 256, 128)
     print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA")
     for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
-        occ = {**rab.occupancy_bf16(*shape), **{f"hstu_attn_fwd_bf16 ({name} bias)": attn.occupancy_bf16(*shape[:3], name == "bf16") for name in ("f32", "bf16")}}
-        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items())
-              + "; ring stages: " + ", ".join(f"{k} {rab.launch_shape_bf16(k, *shape)[3]}" for k in ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16")))
+        occ = {**{k: rab.launch_shape_bf16(k, *shape) for k in ("hstu_rab_fwd_bf16",) + rab.BWD_ENTRIES_BF16},
+               **{f"hstu_attn_fwd_bf16 ({name} bias)": attn.occupancy_bf16(*shape[:3], name == "bf16") for name in ("f32", "bf16")}}
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages" for k, (c, r, b, st) in occ.items()))
+    print("  dqk 256 dv 128, bf16: " + "; ".join(f"hstu_attn_fwd_bf16 ({name} bias): {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages"
+                                            for name in ("f32", "bf16") for c, r, b, st in [attn.occupancy_bf16(1024, 256, 128, name == "bf16")]))
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()

@@ -332,9 +332,10 @@ def test_k3_bf16_launch_hands_the_kernel_its_shapes_and_bias_layout(fake_card, s
 
 
 def test_launch_shape_reads_the_ring_stages_from_a_fourth_field(fake_card, monkeypatch):
-    """``launch_shape_bf16`` asks K1-bf16 or, by index, K2-bf16 (0) or K2b-bf16 (2) (K2a-bf16 has no ring: refused)
-    into a four-int buffer, and returns all four fields; ``occupancy_bf16`` keeps returning three."""
-    stages = {(): 2, (0,): 1, (2,): 2}  # the kernel's index -> the stages the fake reports
+    """``launch_shape_bf16`` asks K1-bf16 or, by index, K2-bf16 (0), K2a-bf16 (1) or K2b-bf16 (2) into a four-int
+    buffer, and returns all four fields (a name that is no bf16 rab kernel is refused); ``occupancy_bf16`` keeps
+    returning three."""
+    stages = {(): 2, (0,): 1, (1,): 1, (2,): 2}  # the kernel's index -> the stages the fake reports
 
     def query(*args):
         which, info = args[:-6], args[-1]
@@ -347,18 +348,21 @@ def test_launch_shape_reads_the_ring_stages_from_a_fourth_field(fake_card, monke
     monkeypatch.setattr(trab, "_lib_bf16", lambda: lib)
     monkeypatch.setattr(trab, "_lib_bwd_bf16", lambda: lib)
     shape = (4096, 128, 128, 4096, 128)
-    got = {name: trab.launch_shape_bf16(name, *shape) for name in ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16")}
-    assert got == {"hstu_rab_fwd_bf16": (3, 80, 40_000, 2), "hstu_rab_bwd_bf16": (3, 80, 40_000, 1), "hstu_rab_bwd_dkv_bf16": (3, 80, 40_000, 2)}
-    assert fake_card.calls == [((), shape), ((0,), shape), ((2,), shape)]
-    with pytest.raises(ValueError, match="no ring"):
-        trab.launch_shape_bf16("hstu_rab_bwd_dq_bf16", *shape)
+    names = ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16
+    got = {name: trab.launch_shape_bf16(name, *shape) for name in names}
+    assert got == {"hstu_rab_fwd_bf16": (3, 80, 40_000, 2), "hstu_rab_bwd_bf16": (3, 80, 40_000, 1), "hstu_rab_bwd_dq_bf16": (3, 80, 40_000, 1),
+                   "hstu_rab_bwd_dkv_bf16": (3, 80, 40_000, 2)}
+    assert fake_card.calls == [((), shape), ((0,), shape), ((1,), shape), ((2,), shape)]
+    with pytest.raises(ValueError, match="not a bf16 rab kernel"):
+        trab.launch_shape_bf16("hstu_rab_fwd", *shape)
     assert trab.occupancy_bf16(256, 32, 32, 256, 128)["hstu_rab_fwd_bf16"] == (3, 80, 40_000)
 
 
 def test_bf16_occupancy_queries_name_every_kernel(fake_card):
-    """``occupancy_bf16`` asks for K1-bf16 and, by index, K2-, K2a- and K2b-bf16; K3-bf16's for its bias dtype."""
+    """``occupancy_bf16`` asks for K1-bf16 and, by index, K2-, K2a- and K2b-bf16; K3-bf16's for its bias dtype (with
+    its ring stages in a fourth field)."""
     assert trab.occupancy_bf16(256, 32, 32, 256, 128) == {name: (0, 0, 0) for name in ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16}
-    assert tmod.occupancy_bf16(1024, 256, 128, bias_bf16=True) == (0, 0, 0)
+    assert tmod.occupancy_bf16(1024, 256, 128, bias_bf16=True) == (0, 0, 0, 0)
     calls = [(name, args[:-1]) for name, args in fake_card.calls]
     assert calls == [("hstu_rab_fwd_bf16_occupancy", (256, 32, 32, 256, 128))] + [("hstu_rab_bwd_bf16_occupancy", (which, 256, 32, 32, 256, 128)) for which in range(3)] + [
         ("hstu_attn_fwd_bf16_occupancy", (1024, 256, 128, 1))]

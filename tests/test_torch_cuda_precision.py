@@ -187,22 +187,35 @@ SMEM_LIMIT = 232448  # dynamic shared memory a CTA may take on sm_90
 
 
 def test_bf16_rab_kernels_occupancy(card):
-    """K1-bf16, K2-bf16 and K2b-bf16 (CTAs of 8 warps) at the serving shape: at least 2 CTAs per SM, at most 255
-    registers, both ring stages.  At L4096 with dqk, dv 128 they still fit.  Where two stages cannot fit (a longer L:
-    pw and, for K2-bf16, gpos grow with it) they take one and still fit."""
-    names = ("hstu_rab_fwd_bf16", "hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16")
+    """The bf16 rab kernels (CTAs of 8 warps: K1-, K2-, K2a- and K2b-bf16) at the serving shape: at least 2 CTAs per
+    SM, at most 255 registers, both ring stages.  At L4096 with dqk, dv 128 they still fit.  Where two stages cannot
+    fit (a longer L: pw and, for K2- and K2a-bf16, gpos grow with it) they take one and still fit."""
+    names = ("hstu_rab_fwd_bf16",) + rab.BWD_ENTRIES_BF16
     for name in names:
         for shape, least in (((256, 32, 32, 256, 128), 2), ((4096, 128, 128, 4096, 128), 1)):
             ctas, regs, smem, stages = rab.launch_shape_bf16(name, *shape)
             assert ctas >= least and 0 < regs <= 255 and 0 < smem <= SMEM_LIMIT, (name, shape, ctas, regs, smem)
             if shape[0] == 256:
                 assert stages == 2 and (ctas, regs, smem) == rab.occupancy_bf16(*shape)[name], (name, stages)
-    # two 64-row stages of K and V (K1-bf16) or of Q and G (K2-bf16) at dqk = dv = 128 take 2 x 2 x 64 x 128 x 2 bytes;
-    # with pw [L] (and gpos [L]) in f32 beside them, two stages exceed the limit past these L
-    for name, l in (("hstu_rab_fwd_bf16", 44_000), ("hstu_rab_bwd_bf16", 21_000)):
+    # two 64-row stages of K and V (K1-, K2a-bf16) or of Q and G (K2-bf16) at dqk = dv = 128 take 2 x 2 x 64 x 128 x 2
+    # bytes; with pw [L] (and gpos [L]) in f32 beside them, two stages exceed the limit past these L
+    for name, l in (("hstu_rab_fwd_bf16", 44_000), ("hstu_rab_bwd_bf16", 21_000), ("hstu_rab_bwd_dq_bf16", 21_000)):
         assert 2 * 2 * 64 * 128 * 2 + (4 if name == "hstu_rab_fwd_bf16" else 8) * l > SMEM_LIMIT
         ctas, regs, smem, stages = rab.launch_shape_bf16(name, l, 128, 128, l, 128)
         assert stages == 1 and ctas >= 1 and smem <= SMEM_LIMIT, (name, l, ctas, smem, stages)
+
+
+def test_bf16_split_kernels_match_plain_on_one_ring_stage(card):
+    """K2a-bf16 with one K/V stage (refilled after a second barrier) and one dts table: at dqk = dv = 128, 12,000
+    buckets' tables (tw, thr and the dts sums, 12 bytes a bucket) leave no room for a second stage at L300.  Then
+    K2a-bf16 and K2b-bf16 against the plain bf16 backward, as on every case."""
+    shape = (300, 128, 128, 300, 12_000)
+    assert rab.launch_shape_bf16("hstu_rab_bwd_dq_bf16", *shape)[3] == 1
+    t, kw = rab_inputs(card, l=300, maxl=300, d=128, dv=128, nb=12_000, times="shuffled", mask="scattered")
+    t = to_bf16(t)
+    got, plain, f32 = kernel_and_plain(t, kw, grad_of(t, seed=15), split=True)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, plain, f32)
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
@@ -310,12 +323,29 @@ def test_bf16_attention_kernel_twice_agrees_and_backs_up(card, shared):
 
 
 def test_bf16_attention_kernel_occupancy(card):
-    """K3-bf16's shared memory does not grow with L; dqk 256 with dv 128 fits."""
+    """K3-bf16 (CTAs of 8 warps) with an f32 or a bf16 bias: at least 2 CTAs per SM and both ring stages at the
+    serving shape; its shared memory does not grow with L; dqk 256 with dv 128 fits, with both stages."""
     for bias_bf16 in (False, True):
-        ctas, regs, smem = attn.occupancy_bf16(256, 32, 32, bias_bf16)
-        assert ctas >= 2 and 0 < regs <= 255 and smem == attn.occupancy_bf16(4096, 32, 32, bias_bf16)[2]
-        ctas, regs, smem = attn.occupancy_bf16(1024, 256, 128, bias_bf16)
-        assert ctas >= 1 and smem <= 232448
+        ctas, regs, smem, stages = attn.occupancy_bf16(256, 32, 32, bias_bf16)
+        assert ctas >= 2 and 0 < regs <= 255 and stages == 2 and smem == attn.occupancy_bf16(4096, 32, 32, bias_bf16)[2]
+        ctas, regs, smem, stages = attn.occupancy_bf16(1024, 256, 128, bias_bf16)
+        assert ctas >= 1 and smem <= SMEM_LIMIT and stages == 2
+
+
+@pytest.mark.parametrize("l", [130, 258])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, BF16], ids=["f32_bias", "bf16_bias"])
+def test_bf16_attention_kernel_takes_the_4_byte_bias_copies(card, bias_dtype, l):
+    """An even L that is not a multiple of 4: K3-bf16 copies the bias in 4-byte chunks (one f32, or two bf16), not
+    16-byte ones; NaN in the upper triangle and at the masked keys stays out, and the output holds against the plain
+    bf16 version as on every case."""
+    q, k, v, bias, mask, alpha, n = bias_inputs(card, l=l, mask="scattered", nan=True)
+    q, k, v, bias = q.to(BF16), k.to(BF16), v.to(BF16), bias.to(bias_dtype)
+    assert l % 4 and not l % 2 and bias.data_ptr() % 4 == 0
+    out = attn.hstu_attention(q, k, v, bias, mask, alpha, n)
+    plain = attn.plain_forward_bf16(q, k, v, bias, mask, alpha, n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=ULP_REL * float(plain.float().abs().max()) + 1e-12)
 
 
 def hstu_step_card_vs_cpu(card, split):

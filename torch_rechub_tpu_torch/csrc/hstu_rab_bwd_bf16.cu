@@ -75,23 +75,39 @@
 //   memory, 3 CTAs per SM (the first design: 4 warps, 223 registers, 2
 //   CTAs, 8 warps per SM); K2b 80 registers, no spills, 28,448 B, 3 CTAs.
 //
-// K2a (bwd_q_kernel) keeps the simple first design and the TPU kernel's
-// ownership: one CTA owns 64 q rows and walks the 64-key tiles up to the
-// causal frontier, so dq is summed in f32 registers and written once in
-// bf16, with no atomics and no zeroed output.  It is the first K1-bf16's
-// loop run backward:
-// - CTA = 4 warps, each 16 rows, heaviest q tile first (grid y reversed);
-//   operands staged in shared memory with plain loads (16-byte where the
-//   width and address allow, else 2-byte), one stage, two barriers a tile.
+// K2a (bwd_q_kernel) keeps the TPU kernel's ownership: one CTA owns its q
+// rows and walks the 64-key tiles up to the causal frontier, so dq is summed
+// in f32 and written once in bf16, with no atomics and no zeroed output.  It
+// takes fp32 K2a's Hopper design (hstu_rab_bwd.cu), K1-bf16's loop
+// (hstu_rab_fwd_bf16.cu) run backward:
+// - CTA = 8 warps over a 32-row q tile: 2 row groups of 16 x 4 key splits,
+//   each warp 16 of every 64 staged keys; 512 CTAs at the serving shape,
+//   heaviest q tile first (grid y reversed).  Each warp's S, dA and buckets
+//   are two 8-key n-tiles ([2][4]).
+// - Latency: K, V, the key stamps and the mask words of the next 64-key tile
+//   are copied into a two-stage ring (copy_rows_bf16: cp.async where the
+//   width and address allow, else plain loads into the same slot) during
+//   the current tile's math, one barrier a tile; Q and G once.  Where two
+//   stages do not fit, one stage is refilled after a second barrier.
 // - S = Q K^T and dA = G V^T share one fragment layout, so dS is formed in
 //   registers and, rounded to bf16 pairwise, is the A fragment of
-//   dQ += dS K as is (K's B fragment pairs two rows of one column): dS never
-//   touches shared memory, and dq is the same bit for bit from run to run.
-// - dpos and dts by causal distance over its q tile's pairs (distances 0 ..
-//   q_end-1), with K2's sums into a dts copy per warp and lane column.
-// K2a at the serving shape: 168 registers, 32,800 B, 3 CTAs per SM.
-// Registers and shared memory: ptxas's report in the build log, and
-// hstu_rab_bwd_bf16_occupancy (with K2's and K2b's ring stages).
+//   dQ += dS K as is; K's B fragments of two n-tiles come in one transposed
+//   ldmatrix.  Every fragment by ldmatrix, row strides 8 mod 16 elements.
+// - dq: the four key splits' partials summed in f32 in the fixed order
+//   (0 + 2) + (1 + 3) through one slot per row group in the freed ring,
+//   times alpha, rounded to bf16 and written once: the same bits from run to
+//   run.
+// - dpos and dts from the unrounded dS with K2's sums, per q tile
+//   (distances 0 .. q_end-1): one CTA-wide gpos, a dts copy per warp and
+//   lane column, or one table where the copies do not fit.
+// - Registers: launch bounds of 3 CTAs (24 warps) per SM at dqk, dv <= 32.
+//   At the serving shape on an H100: 78 registers, no spills, 46,400 B of
+//   shared memory, 3 CTAs per SM, both ring stages.
+// The first design (4 warps over 64-row q tiles, one stage with plain loads
+// and two barriers a tile, K's B fragment for dQ by two 2-byte loads, 168
+// registers, 32,800 B, 3 CTAs of 4 warps) took 0.1063 ms on an H100 at the
+// serving shape.  Registers and shared memory: ptxas's report in the build
+// log, and hstu_rab_bwd_bf16_occupancy (with every kernel's ring stages).
 
 #include "hstu_rab_common.cuh"
 
@@ -116,7 +132,7 @@ struct Args {
   int ldk, ldv;     // shared row strides in elements, 8 mod 16: pk + 8 (Q, K), pv + 8 (G, V)
   int vec_q, vec_k, vec_v, vec_g;
   int ts_copies;    // dts copies per warp and lane column, or 1 where they do not fit
-  int stages;       // K2, K2b: the Q/G ring, 2 stages or 1 where two do not fit
+  int stages;       // the Q/G ring (K2, K2b) or the K/V ring (K2a): 2 stages, or 1 where two do not fit
   int red_v4;       // K2: dq by vector reductions
 };
 
@@ -558,66 +574,74 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_kv_kernel(Args 
 }
 
 // ---------------------------------------------------------------------------
-// K2a: 64-row q tiles of 4 warps (the source note at the top)
+// K2a: 32-row q tiles of 8 warps (the source note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTileK = 64;  // keys per stage
-constexpr int kTileQ = 64;  // q rows per CTA
-constexpr int kTsCopies = 4 * kWarps;
-static_assert(kTileK == 16 * kWarps && kTileQ == 64, "8 n-tiles of 8, 4 k-steps of 16 a tile");
+constexpr int kRowGroups = 2;                    // 16-row groups per CTA
+constexpr int kKeySplits = 4;                    // warps sharing a row group, each its own keys
+constexpr int kTileQa = 16 * kRowGroups;         // q rows per CTA
+constexpr int kTileKa = 64;                      // keys per stage
+constexpr int kWarpKeys = kTileKa / kKeySplits;  // keys per warp per stage: one k-step of dQ
+static_assert(kRowGroups * kKeySplits == kWarpsK && kWarpKeys == 16, "8 warps, 16 keys each a stage");
+static_assert(kKeySplits == 4, "the partial dq are summed as (0 + 2) + (1 + 3)");
 
 // Shared memory in bytes, each part 16-byte aligned:
-//   K [kTileK][ldk]  V [kTileK][ldv]  Q [kTileQ][ldk]  G [kTileQ][ldv]  (bf16)
-//   tk [kTileK]  kv [kTileK]  tq [kTileQ]  (int)  pw [L]  gpos [L]  tw [nb+1]  (f32)  thr [nb+1]  (int)
-//   gts [ts_copies][nb4]  (f32)
-struct Layout {
-  int k, v, q, g, tk, kv, tq, pw, gpos, tw, th, gts, nb4, total;
+//   Q [kTileQa][ldk]  G [kTileQa][ldv] (bf16)  tq [kTileQa] (int)  pw [L]  tw [nb+1] (f32)  thr [nb+1] (int)
+//   gpos [L]  gts [ts_copies][nb+1] (f32)
+//   1 or 2 stages of { K [kTileKa][ldk]  V [kTileKa][ldv] (bf16)  tk [kTileKa] (int)  mask words [kTileKa/4 + 4] },
+//   the stages also holding one slot of partial dq per row group at the end,
+//   [kRowGroups][16][ldk] f32: no more than a stage's K.  With one stage and
+//   one dts table this is never more than the first design (4 warps over
+//   64-row q tiles, Q, G, K and V 64 rows each) took.
+struct QLayout {
+  int q, g, tq, pw, tw, th, gpos, gts, nb4, stage, stage_bytes, k, v, tk, km, total;
 };
 
-__host__ __device__ inline Layout layout(int ldk, int ldv, int L, int nb, int ts_copies) {
-  Layout o;
+__host__ __device__ inline QLayout q_layout(int ldk, int ldv, int L, int nb, int ts_copies, int stages) {
+  QLayout o;
   o.nb4 = (nb + 1 + 3) & ~3;
-  o.k = 0;
-  o.v = o.k + align16(2 * kTileK * ldk);
-  o.q = o.v + align16(2 * kTileK * ldv);
-  o.g = o.q + align16(2 * kTileQ * ldk);
-  o.tk = o.g + align16(2 * kTileQ * ldv);
-  o.kv = o.tk + 4 * kTileK;
-  o.tq = o.kv + 4 * kTileK;
-  o.pw = o.tq + 4 * kTileQ;
-  o.gpos = o.pw + align16(4 * L);
-  o.tw = o.gpos + align16(4 * L);
+  o.q = 0;
+  o.g = o.q + align16(2 * kTileQa * ldk);
+  o.tq = o.g + align16(2 * kTileQa * ldv);
+  o.pw = o.tq + 4 * kTileQa;
+  o.tw = o.pw + align16(4 * L);
   o.th = o.tw + 4 * o.nb4;
-  o.gts = o.th + 4 * o.nb4;
-  o.total = o.gts + 4 * ts_copies * o.nb4;
+  o.gpos = o.th + 4 * o.nb4;
+  o.gts = o.gpos + align16(4 * L);
+  o.stage = o.gts + 4 * ts_copies * o.nb4;
+  o.k = 0;
+  o.v = o.k + align16(2 * kTileKa * ldk);
+  o.tk = o.v + align16(2 * kTileKa * ldv);
+  o.km = o.tk + 4 * kTileKa;
+  o.stage_bytes = o.km + 4 * (kTileKa / 4 + 4);
+  int area = stages * o.stage_bytes;
+  const int partials = 4 * kRowGroups * 16 * ldk;
+  if (partials > area) area = partials;
+  o.total = o.stage + area;
   return o;
 }
 
-template <int N>  // n-tiles of 8 features: dqk, dv <= 8 * N
-__global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
+template <int N>  // n-tiles of 8 features: dqk, dv <= 8 * N; 3 CTAs (24 warps) per SM where N <= 4
+__global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = a.L, H = a.H, ldk = a.ldk, ldv = a.ldv;
-  const Layout lay = layout(ldk, ldv, L, a.bk.nb, a.ts_copies);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + lay.v);
+  const QLayout lay = q_layout(ldk, ldv, L, a.bk.nb, a.ts_copies, a.stages);
   bf16* Qs = reinterpret_cast<bf16*>(smem + lay.q);
   bf16* Gs = reinterpret_cast<bf16*>(smem + lay.g);
-  int* tk = reinterpret_cast<int*>(smem + lay.tk);
-  int* kv = reinterpret_cast<int*>(smem + lay.kv);
   int* tq = reinterpret_cast<int*>(smem + lay.tq);
   float* pw = reinterpret_cast<float*>(smem + lay.pw);
-  float* gpos = reinterpret_cast<float*>(smem + lay.gpos);
   float* tw = reinterpret_cast<float*>(smem + lay.tw);
   int* th = reinterpret_cast<int*>(smem + lay.th);
+  float* gpos = reinterpret_cast<float*>(smem + lay.gpos);
   float* gts = reinterpret_cast<float*>(smem + lay.gts);
+  unsigned char* stages = smem + lay.stage;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileQ;  // heaviest q tiles first
-  const int q_end = min(q0 + kTileQ, L);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileQa;  // heaviest q tiles first
+  const int q_end = min(q0 + kTileQa, L);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % kRowGroups, ks = warp / kRowGroups;
   const bool has_time = a.ts != nullptr;
   const int dqk = a.dqk, dvd = a.dv_dim;
   const int dk8 = (dqk + 7) >> 3, nkc = a.pk >> 4, nvc = a.pv >> 4;
@@ -626,152 +650,227 @@ __global__ void __launch_bounds__(kThreads) bwd_q_kernel(Args a) {
   const int* tsb = has_time ? a.ts + (size_t)b * L : nullptr;
   const float inv_n = 1.f / (float)a.max_seq_len;
   const Lookup bucket(th, a.bk);
+  const LdsmLane ll(lane);
+  // lanes of one t share no distance chain; one table for all where the copies do not fit
   float* my_gts = gts + (a.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  const bool ring = a.stages == 2;  // else the next key tile is copied once the current one is consumed
 
-  // the q tile, its stamps, the tables; the sums zeroed
-  stage_rows_bf16(Qs, ldk, a.q + (size_t)bh * L * dqk, q0, kTileQ, L, dqk, a.pk, a.vec_q, tid, kThreads);
-  stage_rows_bf16(Gs, ldv, a.g + (size_t)bh * L * dvd, q0, kTileQ, L, dvd, a.pv, a.vec_g, tid, kThreads);
-  if (tid < kTileQ) tq[tid] = has_time && q0 + tid < L ? tsb[q0 + tid] : 0;
-  for (int d = tid; d < q_end; d += kThreads) {
+  auto stage_ptr = [&](int s) { return stages + s * lay.stage_bytes; };
+  auto issue = [&](int kt, int s) {
+    unsigned char* st = stage_ptr(s);
+    const int k0 = kt * kTileKa;
+    copy_rows_bf16(reinterpret_cast<bf16*>(st + lay.k), ldk, kb, k0, kTileKa, L, dqk, a.pk, a.vec_k, tid, kThreadsK);
+    copy_rows_bf16(reinterpret_cast<bf16*>(st + lay.v), ldv, vb, k0, kTileKa, L, dvd, a.pv, a.vec_v, tid, kThreadsK);
+    if (has_time) copy_stamps(reinterpret_cast<int*>(st + lay.tk), tsb, k0, kTileKa, L, tid);
+    if (a.mask != nullptr)
+      copy_mask(reinterpret_cast<int*>(st + lay.km), a.mask, (size_t)a.B * L, (size_t)b * L + k0, kTileKa, tid);
+  };
+
+  // Zero the padding columns that the 16-byte copies leave (dqk .. pk-1 of Q
+  // and K, dv .. pv-1 of G and V) and the table-gradient sums; then the q
+  // tile, its stamps, the first key tile and the tables.
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int r = tid; r < kTileQa + a.stages * kTileKa; r += kThreadsK) {
+    bf16 *kr, *vr;
+    if (r < kTileQa) {
+      kr = Qs + r * ldk;
+      vr = Gs + r * ldv;
+    } else {
+      unsigned char* st = stage_ptr((r - kTileQa) / kTileKa);
+      const int rr = (r - kTileQa) % kTileKa;
+      kr = reinterpret_cast<bf16*>(st + lay.k) + rr * ldk;
+      vr = reinterpret_cast<bf16*>(st + lay.v) + rr * ldv;
+    }
+    for (int d = dqk; d < a.pk; ++d) kr[d] = zero;
+    for (int d = dvd; d < a.pv; ++d) vr[d] = zero;
+  }
+  copy_rows_bf16(Qs, ldk, a.q + (size_t)bh * L * dqk, q0, kTileQa, L, dqk, a.pk, a.vec_q, tid, kThreadsK);
+  copy_rows_bf16(Gs, ldv, a.g + (size_t)bh * L * dvd, q0, kTileQa, L, dvd, a.pv, a.vec_g, tid, kThreadsK);
+  if (has_time) copy_stamps(tq, tsb, q0, kTileQa, L, tid);
+  issue(0, 0);
+  cp_commit();
+  for (int d = tid; d < q_end; d += kThreadsK) {
     pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
     gpos[d] = 0.f;
   }
+  for (int i = tid; i < a.ts_copies * lay.nb4; i += kThreadsK) gts[i] = 0.f;
   if (has_time)
-    for (int u = tid; u <= a.bk.nb; u += kThreads) {
+    for (int u = tid; u <= a.bk.nb; u += kThreadsK) {
       tw[u] = a.ts_w[(size_t)u * H + h];
       th[u] = a.thr[u];
     }
-  for (int i = tid; i < a.ts_copies * lay.nb4; i += kThreads) gts[i] = 0.f;
 
   float acc[N][4];  // dq / alpha: rows g, g+8 of the warp's 16, columns 8j + 2t, 8j + 2t + 1
 #pragma unroll
   for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  const int qr = 16 * warp, r0 = q0 + qr;  // this warp's first row, in the tile and in L
-  const int r_last = min(r0 + 15, L - 1);
-  const int n_kt = (q_end - 1) / kTileK + 1;  // key tiles up to the causal frontier
+  const int qr = 16 * rg, r0 = q0 + qr;    // this warp's first row, in the tile and in L
+  const int r_last = min(r0 + 15, L - 1);  // its last real row
+  const int n_kt = (q_end - 1) / kTileKa + 1;  // key tiles up to the causal frontier
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTileK;
-    __syncthreads();  // every warp is done with the last key tile
-    stage_rows_bf16(Ks, ldk, kb, k0, kTileK, L, dqk, a.pk, a.vec_k, tid, kThreads);
-    stage_rows_bf16(Vs, ldv, vb, k0, kTileK, L, dvd, a.pv, a.vec_v, tid, kThreads);
-    if (tid < kTileK) {
-      const int m = k0 + tid;
-      tk[tid] = has_time && m < L ? tsb[m] : 0;
-      kv[tid] = m < L && (a.mask == nullptr || a.mask[(size_t)b * L + m] != 0);
+    cp_wait_all();
+    __syncthreads();  // B1: key tile kt visible; every warp is done with tile kt-1's stage
+    if (ring) {
+      if (kt + 1 < n_kt) issue(kt + 1, (kt + 1) & 1);
+      cp_commit();
     }
-    __syncthreads();  // the key tile (and, at kt = 0, Q, G and the tables) is visible
-    if (r0 >= L || k0 > r_last) continue;  // no pair with m <= l for this warp
-
-    // s: S, da: dA then dS; element (nt, i) is row qr + g + 8 (i >> 1), key 8 nt + 2t + (i & 1) of the tiles
-    float s[8][4], da[8][4];
-    int bk[8][4];
+    const unsigned char* st = stage_ptr(ring ? kt & 1 : 0);
+    const bf16* Ks = reinterpret_cast<const bf16*>(st + lay.k);
+    const bf16* Vs = reinterpret_cast<const bf16*>(st + lay.v);
+    const int* tk = reinterpret_cast<const int*>(st + lay.tk);
+    const uint8_t* km = st + lay.km + (a.mask != nullptr ? mask_offset(a.mask, (size_t)b * L + kt * kTileKa) : 0);
+    const int c0 = ks * kWarpKeys, m0 = kt * kTileKa + c0;  // this warp's first key, in the tile and in L
+    if (r0 < L && m0 <= r_last) {                             // warp-uniform: some pair with m <= l
+      // s: S, da: dA then dS; element (nt, i) is row qr + g + 8 (i >> 1), key c0 + 8 nt + 2t + (i & 1) of the tiles
+      float s[2][4], da[2][4];
+      int bk[2][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = da[nt][i] = 0.f;
-        bk[nt][i] = -1;
-      }
-    for (int kc = 0; kc < nkc; ++kc) {
-      const bf16* qp = Qs + (qr + g) * ldk + 16 * kc + 2 * t;
-      const uint32_t af[4] = {ld_pair(qp), ld_pair(qp + 8 * ldk), ld_pair(qp + 8), ld_pair(qp + 8 * ldk + 8)};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* kp = Ks + (8 * nt + g) * ldk + 16 * kc + 2 * t;
-        const uint32_t bf[2] = {ld_pair(kp), ld_pair(kp + 8)};
-        mma_bf16(s[nt], af, bf);
-      }
-    }
-    for (int kc = 0; kc < nvc; ++kc) {
-      const bf16* gp = Gs + (qr + g) * ldv + 16 * kc + 2 * t;
-      const uint32_t af[4] = {ld_pair(gp), ld_pair(gp + 8 * ldv), ld_pair(gp + 8), ld_pair(gp + 8 * ldv + 8)};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* vp = Vs + (8 * nt + g) * ldv + 16 * kc + 2 * t;
-        const uint32_t bf[2] = {ld_pair(vp), ld_pair(vp + 8)};
-        mma_bf16(da[nt], af, bf);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rl = qr + g + 8 * (i >> 1), l = q0 + rl;
-        const int c = 8 * nt + 2 * t + (i & 1), m = k0 + c;
-        float dsv = 0.f;
-        if (l < L && m <= l && kv[c]) {
-          float x = fmaf(s[nt][i], a.alpha, pw[l - m]);
-          if (has_time) {
-            const int u = bucket(tq[rl], tk[c]);
-            x += tw[u];
-            bk[nt][i] = u;
-          }
-          const float sig = 1.f / (1.f + expf(-x));  // exp overflow: 0
-          dsv = da[nt][i] * (sig * (1.f + x * (1.f - sig))) * inv_n;
+        for (int i = 0; i < 4; ++i) {
+          s[nt][i] = da[nt][i] = 0.f;
+          bk[nt][i] = -1;
         }
-        da[nt][i] = dsv;
+      for (int kc = 0; kc < nkc; ++kc) {
+        uint32_t af[4], bf[4];
+        ldsm_x4(af, Qs + (qr + ll.a_row) * ldk + 16 * kc + ll.a_col);
+        ldsm_x4(bf, Ks + (c0 + ll.bn_row) * ldk + 16 * kc + ll.bn_col);
+        mma_bf16(s[0], af, bf);
+        mma_bf16(s[1], af, bf + 2);
       }
+      for (int kc = 0; kc < nvc; ++kc) {
+        uint32_t af[4], bf[4];
+        ldsm_x4(af, Gs + (qr + ll.a_row) * ldv + 16 * kc + ll.a_col);
+        ldsm_x4(bf, Vs + (c0 + ll.bn_row) * ldv + 16 * kc + ll.bn_col);
+        mma_bf16(da[0], af, bf);
+        mma_bf16(da[1], af, bf + 2);
+      }
+      const int tq_r[2] = {has_time ? tq[qr + g] : 0, has_time ? tq[qr + g + 8] : 0};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int l = r0 + g + 8 * (i >> 1);
+          const int c = c0 + 8 * nt + 2 * t + (i & 1), m = kt * kTileKa + c;
+          float dsv = 0.f;
+          if (l < L && m <= l && (a.mask == nullptr || km[c])) {
+            float x = pw[l - m];
+            if (has_time) {
+              const int u = bucket(tq_r[i >> 1], tk[c]);
+              x += tw[u];
+              bk[nt][i] = u;
+            }
+            x = fmaf(s[nt][i], a.alpha, x);
+            const float sig = __fdividef(1.f, 1.f + __expf(-x));  // exp overflow: 0
+            dsv = da[nt][i] * (sig * (1.f + x * (1.f - sig))) * inv_n;
+          }
+          da[nt][i] = dsv;
+        }
 
-    // dQ += dS K over 4 steps of 16 keys: dS's fragment, rounded to bf16, is the A fragment as is
+      // dQ += dS K over the warp's 16 keys: dS's fragment, rounded to bf16 pairwise, is the A
+      // fragment as is; K's B fragments of two n-tiles come in one transposed ldmatrix
+      const uint32_t af[4] = {pack_bf16(da[0][0], da[0][1]), pack_bf16(da[0][2], da[0][3]), pack_bf16(da[1][0], da[1][1]),
+                              pack_bf16(da[1][2], da[1][3])};
+      const bf16* kp = Ks + (c0 + ll.bt_row) * ldk + ll.bt_col;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t af[4] = {pack_bf16(da[2 * kc][0], da[2 * kc][1]), pack_bf16(da[2 * kc][2], da[2 * kc][3]),
-                              pack_bf16(da[2 * kc + 1][0], da[2 * kc + 1][1]), pack_bf16(da[2 * kc + 1][2], da[2 * kc + 1][3])};
-      const bf16* kp = Ks + (16 * kc + 2 * t) * ldk + g;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        if (j < dk8) {
-          const uint32_t bf[2] = {ld_column_pair(kp + 8 * j, ldk), ld_column_pair(kp + 8 * ldk + 8 * j, ldk)};
+      for (int j = 0; j < N; j += 2) {
+        if (j + 1 < dk8) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, kp + 8 * j);
+          mma_bf16(acc[j], af, bf);
+          mma_bf16(acc[j + 1], af, bf + 2);
+        } else if (j < dk8) {
+          uint32_t bf[2];
+          ldsm_x2_trans(bf, kp + 8 * j);
           mma_bf16(acc[j], af, bf);
         }
       }
-    }
 
-    // dpos and dts of each 16 x 16 fragment pair (rows qr .., keys 16 kc ..), from the unrounded dS:
-    // local distance (row - key) = 8 ((i >> 1) - nt) + g - 2t - (i & 1)
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
+      // dpos and dts from the unrounded dS.  dpos: this lane's values by local distance
+      // (row - key) = 8n + (g - 2t) - (i & 1), n = (i >> 1) - nt
       float part[3][2];
 #pragma unroll
       for (int n = 0; n < 3; ++n) part[n][0] = part[n][1] = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) part[(i >> 1) - nt + 1][i & 1] += da[2 * kc + nt][i];
-      add_pos_grads<-1>(gpos, part, r0 - (k0 + 16 * kc), q_end, g, t);
+        for (int i = 0; i < 4; ++i) part[(i >> 1) - nt + 1][i & 1] += da[nt][i];
+      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);
       if (has_time) {
-        // the lane's values key by key along each of its two rows, so that its runs of equal buckets fold
+        // dts into the warp's own sums: the lane's values key by key along each of
+        // its two rows, so that its runs of equal buckets fold before an atomic
         float dsr[8];
         int bkr[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int ii = e >> 2, nt = 2 * kc + ((e >> 1) & 1), j = e & 1;
+          const int ii = e >> 2, nt = (e >> 1) & 1, j = e & 1;
           dsr[e] = da[nt][2 * ii + j];
           bkr[e] = bk[nt][2 * ii + j];
         }
         add_ts_grads<8>(my_gts, dsr, bkr);
       }
     }
-  }
-
-  // dq (times alpha) of the warp's rows, written once in bf16
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int l = r0 + g + 8 * i;
-    if (l < L) {
-      bf16* dst = a.dq16 + ((size_t)bh * L + l) * dqk;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int c = 8 * j + 2 * t;
-        if (c < dqk) dst[c] = __float2bfloat16_rn(acc[j][2 * i] * a.alpha);
-        if (c + 1 < dqk) dst[c + 1] = __float2bfloat16_rn(acc[j][2 * i + 1] * a.alpha);
-      }
+    if (!ring) {
+      __syncthreads();  // B2: the stage is consumed
+      if (kt + 1 < n_kt) issue(kt + 1, 0);
+      cp_commit();
     }
   }
 
-  __syncthreads();  // every warp's table sums are in gpos / gts
-  flush_table_grads(a, gpos, gts, q_end, lay.nb4, h, kThreads);
+  // Sum the key splits' partial dq in a fixed order, (0 + 2) + (1 + 3), through
+  // one slot per row group: split 2 hands its partial to split 0, split 3 to
+  // split 1, then split 1 its sum to split 0
+  cp_wait_all();
+  __syncthreads();  // the stages are free
+  float* slot = reinterpret_cast<float*>(stages) + rg * 16 * ldk;
+  auto put = [&]() {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < dk8) {
+        *reinterpret_cast<float2*>(slot + g * ldk + 8 * j + 2 * t) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(slot + (g + 8) * ldk + 8 * j + 2 * t) = make_float2(acc[j][2], acc[j][3]);
+      }
+  };
+  auto take = [&]() {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < dk8) {
+        const float2 lo = *reinterpret_cast<const float2*>(slot + g * ldk + 8 * j + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(slot + (g + 8) * ldk + 8 * j + 2 * t);
+        acc[j][0] += lo.x;
+        acc[j][1] += lo.y;
+        acc[j][2] += hi.x;
+        acc[j][3] += hi.y;
+      }
+  };
+  if (ks == 2) put();
+  __syncthreads();
+  if (ks == 0) take();
+  __syncthreads();
+  if (ks == 3) put();
+  __syncthreads();
+  if (ks == 1) take();
+  __syncthreads();
+  if (ks == 1) put();
+  __syncthreads();  // also: every warp's table sums are in gpos / gts
+  if (ks == 0 && r0 < L) {
+    take();
+    // dq (times alpha) of the row group, written once in bf16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int l = r0 + g + 8 * i;
+      if (l < L) {
+        bf16* dst = a.dq16 + ((size_t)bh * L + l) * dqk;
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const int c = 8 * j + 2 * t;
+          if (c < dqk) dst[c] = __float2bfloat16_rn(acc[j][2 * i] * a.alpha);
+          if (c + 1 < dqk) dst[c + 1] = __float2bfloat16_rn(acc[j][2 * i + 1] * a.alpha);
+        }
+      }
+    }
+  }
+  flush_table_grads(a, gpos, gts, q_end, lay.nb4, h, kThreadsK);
 }
 
 template <int N, bool kFull>  // K2 (kFull) or K2b
@@ -801,18 +900,23 @@ cudaError_t launch_key_tiles(Args a, cudaStream_t stream, int* info) {
 
 template <int N>  // K2a
 cudaError_t launch_q_tiles(Args a, cudaStream_t stream, int* info) {
-  a.ts_copies = kTsCopies;
-  size_t smem = layout(a.ldk, a.ldv, a.L, a.bk.nb, a.ts_copies).total;
-  if (smem > kMaxSmem) {
-    a.ts_copies = 1;
-    smem = layout(a.ldk, a.ldv, a.L, a.bk.nb, 1).total;
+  // As K2: the dts copies go first, then the ring's second stage
+  size_t smem = 0;
+  for (int option = 0; option < 4; ++option) {
+    a.stages = option < 2 ? 2 : 1;
+    a.ts_copies = option % 2 == 0 ? kTsCopiesK : 1;
+    smem = q_layout(a.ldk, a.ldv, a.L, a.bk.nb, a.ts_copies, a.stages).total;
+    if (smem <= kMaxSmem) break;
   }
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(bwd_q_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (info != nullptr) return occupancy(bwd_q_kernel<N>, kThreads, smem, info);
-  const dim3 grid(a.B * a.H, (a.L + kTileQ - 1) / kTileQ);
-  bwd_q_kernel<N><<<grid, kThreads, smem, stream>>>(a);
+  if (info != nullptr) {
+    info[3] = a.stages;
+    return occupancy(bwd_q_kernel<N>, kThreadsK, smem, info);
+  }
+  const dim3 grid(a.B * a.H, (a.L + kTileQa - 1) / kTileQa);
+  bwd_q_kernel<N><<<grid, kThreadsK, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -899,9 +1003,8 @@ extern "C" int hstu_rab_bwd_dkv_bf16(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS,
 
 // A backward kernel (which: 0 K2, 1 K2a, 2 K2b) as this shape would launch
 // it, without launching it: info[0] resident CTAs per SM, info[1] registers
-// per thread, info[2] dynamic shared memory bytes per CTA; for K2 and K2b
-// info[3] their Q/G ring stages (2, or 1 where two do not fit).  Returns the
-// cudaError_t.
+// per thread, info[2] dynamic shared memory bytes per CTA, info[3] its ring
+// stages (2, or 1 where two do not fit).  Returns the cudaError_t.
 extern "C" int hstu_rab_bwd_bf16_occupancy(int which, int L, int dqk, int dv, int max_seq_len, int num_buckets,
                                            int* info) {
   return run(which, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

@@ -95,41 +95,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// two consecutive bf16 of a shared tile (p 4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// p[0] in the low half, p[stride] in the high: two rows of one column
-__device__ __forceinline__ uint32_t ld_column_pair(const __nv_bfloat16* p, int stride) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return lo | (hi << 16);
-}
-
-// Rows row0 .. row0+rows-1 (columns 0 .. width-1) of a row-major (L, width)
-// bf16 matrix into a shared tile of row stride ld (a multiple of 8), with
-// columns width .. padded-1 and rows at or past L zero.  vec: 16-byte loads
-// (width % 8 == 0 and the matrix 16-byte aligned), else 2-byte ones, so a
-// matrix may start at any element.  Plain loads and stores: the caller's
-// barrier makes them visible.
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
-                                                int rows, int L, int width, int padded, bool vec, int tid,
-                                                int nthreads) {
-  if (vec) {
-    const int cpr = padded >> 3;  // 8-element chunks per row
-    for (int i = tid; i < rows * cpr; i += nthreads) {
-      const int r = i / cpr, c = 8 * (i - r * cpr), row = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row < L && c < width) val = *reinterpret_cast<const uint4*>(src + (size_t)row * width + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = tid; i < rows * padded; i += nthreads) {
-      const int r = i / padded, c = i - r * padded, row = row0 + r;
-      dst[r * ld + c] = row < L && c < width ? src[(size_t)row * width + c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
 // ldmatrix: four (x4) or two (x2) 8 x 8 bf16 matrices from shared memory,
 // matrix i's eight 16-byte rows addressed by lanes 8i .. 8i+7 (each row
 // address 16-byte aligned).  Register i holds matrix i as a fragment: lane
@@ -217,16 +182,23 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, 
   }
 }
 
-// stage_rows_bf16's copy for a ring: 16-byte cp.async (zero-filled past L)
-// where vec, so the copy runs during the math and lands at the next
-// cp_wait_all; else stage_rows_bf16's plain loads and stores, which the
-// caller's next barrier makes visible.  With vec the columns width ..
-// padded-1 are not written: the caller zeroes them once.
+// Rows row0 .. row0+rows-1 (columns 0 .. width-1) of a row-major (L, width)
+// bf16 matrix into a shared tile of row stride ld (a multiple of 8), rows at
+// or past L zero, for a ring.  Where vec (width % 8 == 0 and the matrix
+// 16-byte aligned): 16-byte cp.async copies (zero-filled past L), which run
+// during the math and land at the next cp_wait_all; the columns width ..
+// padded-1 are not written, so the caller zeroes them once.  Else 2-byte
+// plain loads and stores, so a matrix may start at any element, with the
+// columns width .. padded-1 zero; the caller's next barrier makes them
+// visible.
 __device__ __forceinline__ void copy_rows_bf16(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
                                                int rows, int L, int width, int padded, bool vec, int tid,
                                                int nthreads) {
   if (!vec) {
-    stage_rows_bf16(dst, ld, src, row0, rows, L, width, padded, false, tid, nthreads);
+    for (int i = tid; i < rows * padded; i += nthreads) {
+      const int r = i / padded, c = i - r * padded, row = row0 + r;
+      dst[r * ld + c] = row < L && c < width ? src[(size_t)row * width + c] : __float2bfloat16(0.f);
+    }
     return;
   }
   const int cpr = width >> 3;  // 8-element chunks per row
@@ -253,27 +225,34 @@ __device__ __forceinline__ void red_add_v4(float* addr, float x, float y, float 
 }
 
 // Rows row0 .. row0+rows-1, columns col0 .. col0+cols-1 (cols a multiple
-// of 4) of a row-major (L, L) fp32 matrix into a shared tile of row stride
-// ld, for a causal reader: a chunk at or past L in either dimension, or
-// wholly above its row's diagonal (its first column past the row), is
-// zero-filled and not read.  16-byte chunks where vec (L % 4 == 0 and the
-// matrix 16-byte aligned, so that a chunk lies wholly inside or wholly
-// past L), else 4-byte ones.  The walk is copy_rows's.
-__device__ __forceinline__ void copy_causal_tile(float* dst, int ld, const float* src, int row0, int rows, int col0,
-                                                 int cols, int L, bool vec, int tid, int nthreads) {
-  const int w = vec ? 4 : 1;  // floats per chunk
-  const int cpr = cols / w;   // chunks per row
+// of 16 / sizeof(T)) of a row-major (L, L) matrix of T (float or bf16) into
+// a shared tile of row stride ld, for a causal reader: a chunk at or past L
+// in either dimension, or wholly above its row's diagonal (its first column
+// past the row), is zero-filled and not read.  16-byte chunks (4 floats or
+// 8 bf16) where vec (L a multiple of the chunk and the matrix 16-byte
+// aligned, so that a chunk lies wholly inside or wholly past L), else
+// 4-byte ones (one float, or two bf16 where pairs: L even and the matrix
+// 4-byte aligned), else (bf16 only) plain 2-byte loads and stores, which
+// the caller's next barrier makes visible.  The walk is copy_rows's.
+template <typename T>
+__device__ __forceinline__ void copy_causal_tile(T* dst, int ld, const T* src, int row0, int rows, int col0, int cols,
+                                                 int L, bool vec, int tid, int nthreads, bool pairs = true) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 2, "float or bf16");
+  const int w = vec ? 16 / (int)sizeof(T) : (pairs ? 4 / (int)sizeof(T) : 1);  // elements per chunk
+  const int cpr = cols / w;  // chunks per row
   const int total = rows * cpr;
   int r = tid / cpr, c = tid - r * cpr;
   const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
   for (int i = tid; i < total; i += nthreads) {
     const int row = row0 + r, col = col0 + w * c;
     const bool in = row < L && col <= row;  // col <= row < L
-    const float* s = src + (in ? (size_t)row * L + col : 0);
+    const T* s = src + (in ? (size_t)row * L + col : 0);
     if (vec)
-      cp_async16(dst + r * ld + 4 * c, s, in ? 16 : 0);
-    else
-      cp_async4(dst + r * ld + c, s, in ? 4 : 0);
+      cp_async16(dst + r * ld + w * c, s, in ? 16 : 0);
+    else if (pairs)
+      cp_async4(dst + r * ld + w * c, s, in ? 4 : 0);
+    else if constexpr (sizeof(T) == 2)
+      dst[r * ld + c] = in ? *s : __float2bfloat16(0.f);
     r += dr;
     c += dc;
     if (c >= cpr) {

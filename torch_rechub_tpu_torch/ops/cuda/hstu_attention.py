@@ -16,11 +16,13 @@ TPU's ``_fwd_kernel`` (K3):
   bias it is bound by bytes.
 - bf16 (the mixed-precision policy, ``basic/precision.py``),
   ``csrc/hstu_attn_fwd_bf16.cu``: bf16 q, k, v with an f32 or bf16 bias, per
-  batch or shared; ``mma.sync.m16n8k16`` bf16 with f32 accumulators.  It
-  rounds where the Pallas kernel rounds: the scores in f32 (the bias
-  promoted), ``attn = silu(s) / N`` kept in f32 for ``attn @ v`` (as an
-  exact bf16 pair hi + lo), only the output rounded to bf16
-  (:func:`plain_forward_bf16` is its plain version).
+  batch or shared; the fp32 kernel's Hopper design in bf16, with
+  ``mma.sync.m16n8k16`` bf16 and f32 accumulators and the bias tile (either
+  dtype) in the ``cp.async`` ring.  It rounds where the Pallas kernel
+  rounds: the scores in f32 (the bias promoted), ``attn = silu(s) / N``
+  kept in f32 for ``attn @ v`` (as three bf16 terms hi + mid + lo), only
+  the output rounded to bf16 (:func:`plain_forward_bf16` is its plain
+  version).
 
 The backward is autograd of :func:`dense_forward` on the saved inputs: the
 same recompute as the JAX package's XLA backward (``_hstu_bwd``), which has
@@ -189,8 +191,9 @@ def occupancy(l: int, dqk: int, dv: int) -> tuple:
 
 
 def occupancy_bf16(l: int, dqk: int, dv: int, bias_bf16: bool = False) -> tuple:
-    """K3-bf16 (with a bf16 or an f32 bias) as :func:`occupancy` reports K3."""
-    info = (ctypes.c_int * 3)()
+    """K3-bf16 (with a bf16 or an f32 bias) as :func:`occupancy` reports K3, and its ring stages: ``(CTAs per SM,
+    registers per thread, shared bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit."""
+    info = (ctypes.c_int * 4)()
     rc = _lib_bf16().hstu_attn_fwd_bf16_occupancy(l, dqk, dv, int(bias_bf16), info)
     if rc != 0:
         raise RuntimeError(f"hstu_attn_fwd_bf16 occupancy query failed: error {rc}")

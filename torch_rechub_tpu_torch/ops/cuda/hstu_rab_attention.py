@@ -429,22 +429,22 @@ def occupancy_bf16(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int
 
 
 def launch_shape_bf16(name: str, l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> tuple:
-    """K1-bf16, K2-bf16 or K2b-bf16 (by entry name) as this shape would launch it: ``(CTAs per SM, registers per
-    thread, shared bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit (K1-bf16's K/V ring, K2's
+    """A bf16 rab kernel (by entry name) as this shape would launch it: ``(CTAs per SM, registers per thread, shared
+    bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit (K1-bf16's and K2a-bf16's K/V ring, K2's
     and K2b's Q/G ring); raises where the shape does not fit at all.  Nothing is launched."""
     if name == "hstu_rab_fwd_bf16":
         query = (name, _lib_bf16().hstu_rab_fwd_bf16_occupancy, ())
-    elif name in ("hstu_rab_bwd_bf16", "hstu_rab_bwd_dkv_bf16"):
+    elif name in BWD_ENTRIES_BF16:
         query = (name, _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, (BWD_ENTRIES_BF16.index(name),))
     else:
-        raise ValueError(f"launch_shape_bf16: {name} has no ring; K1-bf16, K2-bf16 and K2b-bf16 do")
+        raise ValueError(f"launch_shape_bf16: {name} is not a bf16 rab kernel; hstu_rab_fwd_bf16 and {', '.join(BWD_ENTRIES_BF16)} are")
     return _query_occupancy([query], l, dqk, dv, max_seq_len, num_buckets, full=True)[name]
 
 
 def _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets, full=False) -> dict:
     out = {}
     for name, query, which in queries:
-        info = (ctypes.c_int * 4)()  # the redesigned bf16 kernels also give their ring stages in info[3]
+        info = (ctypes.c_int * 4)()  # the bf16 kernels also give their ring stages in info[3]
         rc = query(*which, l, dqk, dv, max_seq_len, num_buckets, info)
         if rc != 0:
             raise RuntimeError(f"{name} occupancy query failed: error {rc}")

@@ -55,9 +55,11 @@ def next_token_loss(logits: torch.Tensor, seq_tokens: torch.Tensor, targets: tor
 class SeqTrainer(TorchTrainer):
     """Trains and evaluates a sequence model on ``device``: the CUDA card
     unless the caller passes another (``device="cpu"``); with no card and
-    no device it raises."""
+    no device it raises.  ``mesh`` is not ported yet and raises."""
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, mesh=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("SeqTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
         if loss_type not in ("cross_entropy", "nce", "sampled_softmax"):
             raise ValueError(f"loss_type must be cross_entropy|nce|sampled_softmax, got {loss_type!r}")
         if validate_method(sparse_embedding) and getattr(model, "tie_embeddings", False):

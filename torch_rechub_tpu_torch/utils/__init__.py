@@ -1,0 +1,3 @@
+from . import data
+
+__all__ = ["data"]
