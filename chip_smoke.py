@@ -165,7 +165,29 @@
    0.65; DSSM with in-batch negatives and MMOE under UWL and MetaBalance: one
    step each card against CPU (inside the block that checks that no HSTU
    kernel was launched).
-15. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+15. The trainer lifecycle (``lifecycle_phase``).  (a) The serving HSTU
+   (V40,000, d256, 8 heads, dqk = dv = 32, 4 layers, L256, tied, B8, fp32,
+   chunked 8192, dropout 0) through ``SeqTrainer``: 8 steps straight, twice,
+   and 4 steps, ``maybe_step_checkpoint``, a fresh trainer, ``maybe_resume``,
+   4 more, through K2 and again through K2a + K2b; the state's round trip bit
+   for bit, the checkpoint's bytes and save / restore time, the resumed run
+   within twice the run-to-run spread; K1, K2 (or K2a, K2b) once per layer
+   per step.  The registered op's host cost against the ctypes launch, a
+   step's device time and host clock.  ``trainer.export`` of the trained
+   model, reloaded, one request of 8 x L256: K1 four times a call, within
+   1e-6 of the largest eager logit, ms a request beside the eager forward
+   and ``evaluate``; the int8 and fp16 exports: bytes against fp32, within K
+   quantized tensors x ``quantization_error`` x the largest logit, ms a
+   request.  One step under ``utils/profiling.trace`` with an ``annotate``
+   span: the Chrome trace names K1's and K2's kernels and the span; the
+   peak from ``device_memory_stats()``.  (b) DeepFM at the Criteo-full
+   geometry with sparse Adagrad on ``ArrayLoader`` (the prefetching loop):
+   examples/s and idle against synchronous copies; checkpoints every 8 of 16
+   steps with ``max_to_keep=1`` (the steps saved, the file kept, bytes and
+   seconds); 8 + resume + 8 equal to two straight runs bit for bit under
+   ``torch.use_deterministic_algorithms`` (``index_add_``'s atomics make
+   the default runs differ); the files deleted.
+16. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 outside the bf16 phases, TF32 off, and cuBLAS's bf16 GEMMs without
@@ -183,6 +205,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -213,7 +236,10 @@ from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, MTLTrainer
 from torch_rechub_tpu_torch.trainers.sparse import apply_sparse_table_updates  # noqa: E402
 from torch_rechub_tpu_torch.utils.data import ArrayLoader, DataGenerator, DeviceCachedLoader, SeqLoader, SequenceDataGenerator, pad_batch, pad_sequences  # noqa: E402
 from torch_rechub_tpu_torch.utils.hstu_utils import RelativeBucketedTimeAndPositionBias  # noqa: E402
+from torch_rechub_tpu_torch.utils import export as texport  # noqa: E402
 from torch_rechub_tpu_torch.utils import mtl as mtl_utils  # noqa: E402
+from torch_rechub_tpu_torch.utils.checkpoint import flat_tensors  # noqa: E402
+from torch_rechub_tpu_torch.utils.profiling import annotate, device_memory_stats, trace  # noqa: E402
 from torch_rechub_tpu_torch.utils.match import get_item_sample_weight  # noqa: E402
 from torch_rechub_tpu_torch.utils.tiger import Trie, build_tiger_samples, semantic_id_vocab  # noqa: E402
 
@@ -3495,6 +3521,341 @@ def bf16_ctr_match_mtl_phase():
     print(f"  bf16 DeepFM, DSSM and MMOE phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 16. the trainer lifecycle: step checkpoints and exact resume, export, profiling
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_lifecycle")
+LIFE = dict(steps=8, half=4, ctr_steps=16, ctr_every=8, ctr_epochs=5)
+# a resumed HSTU run lies within the run-to-run spread: its largest difference from the first straight run (each
+# tensor's max |a - b| over its max |b|, the largest over the tensors) is at most twice the second straight run's.
+# K2 adds dq with red.global.add, K2a / K2b's dpos and dts add float atomics: the spread is not 0
+SPREAD_FACTOR = 2.0
+# an exported program runs the model's own operations and K1: within 1e-6 of the largest eager logit
+EXPORT_ATOL_REL = 1e-6
+
+
+def rel_diff(a, b):
+    """``(the largest over the tensors of max |a - b| / max |b|, that tensor's name)``."""
+    return max((float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30), k) for k in b)
+
+
+def params_of(trainer):
+    out = {k: v.detach().clone() for k, v in trainer.model.named_parameters()}
+    out.update({f"accum:{k}": v.detach().clone() for k, v in trainer.sparse_accums.items()})
+    return out
+
+
+def state_mismatches(a, b):
+    """The paths at which two train states differ (tensors by ``torch.equal``, on their devices)."""
+    fa, fb = dict(flat_tensors(a)), dict(flat_tensors(b))
+    if fa.keys() != fb.keys():
+        return sorted(fa.keys() ^ fb.keys())
+    return [k for k, v in fa.items() if not (torch.equal(v, fb[k]) and v.device == fb[k].device if isinstance(v, torch.Tensor) else v == fb[k])]
+
+
+def check_resume(label, straight, resumed):
+    """The resumed run's parameters against two straight runs'."""
+    (spread, at_s), (got, at_g), (got2, _) = rel_diff(straight[1], straight[0]), rel_diff(resumed, straight[0]), rel_diff(resumed, straight[1])
+    table = [k for k in straight[0] if k == "token_embedding"]  # the largest table
+    print(f"  {label}: resumed vs straight run 1 {got:.3e} ({at_g}), vs run 2 {got2:.3e}; the two straight runs {spread:.3e} ({at_s}) (each tensor's max |d| over its max, "
+          f"the largest over {len(resumed)} tensors; the bound {SPREAD_FACTOR:g} x the spread)"
+          + "".join(f"; {k}: resumed {rel_diff({k: resumed[k]}, {k: straight[0][k]})[0]:.3e}, straight runs {rel_diff({k: straight[1][k]}, {k: straight[0][k]})[0]:.3e}" for k in table))
+    if got > SPREAD_FACTOR * spread:
+        raise AssertionError(f"{label}: the resumed run differs from the straight one by {got:.3e}, beyond {SPREAD_FACTOR:g} x the run-to-run spread {spread:.3e}")
+
+
+def lifecycle_hstu(cycles_per_ms, directory):
+    """The serving HSTU through SeqTrainer (chunked 8192, dropout 0): 8 steps straight twice, 4 + a checkpoint + a
+    fresh trainer resumed + 4, on the fused backward (K2) and the split one (K2a + K2b); the state's round trip bit
+    for bit, the checkpoint's bytes and save / restore time; then export, int8 and fp16 export of the trained model,
+    one request of B8 x L256 through each program; the registered op's dispatch cost; a traced step."""
+    l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
+    data = serving_data(BATCH * LIFE["steps"], l, vocab, seed=11, pad=False)
+    half = BATCH * LIFE["half"]
+    loaders = {"all": SeqLoader(*data, batch_size=BATCH), "first": SeqLoader(*(a[:half] for a in data), batch_size=BATCH),
+               "second": SeqLoader(*(a[half:] for a in data), batch_size=BATCH)}
+
+    def build():
+        return SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(11), device=CARD), vocab_chunk_size=8192)
+
+    total = {k: 0 for k in COUNTERS}
+
+    def take():
+        """The launches since the last take (added to the phase's total), the counts set to 0."""
+        counts = read_counts()
+        reset_counts()
+        for k, v in counts.items():
+            total[k] += v
+        return counts
+
+    trained = None
+    steps = 2 * LIFE["steps"] + 2 * LIFE["half"]
+    reset_counts()
+    for fused, kernels in ((True, "K2"), (False, "K2a + K2b")):
+        ckpt_dir = os.path.join(directory, f"hstu_{'fused' if fused else 'split'}")
+        rab._FUSED_BWD[0] = fused
+        try:
+            straight = []
+            for _ in range(2):
+                tr = build()
+                tr.train_one_epoch(loaders["all"], log_interval=0)
+                straight.append(params_of(tr))
+                del tr
+            first = build()
+            ckpt = first.enable_step_checkpointing(ckpt_dir, every_n_steps=LIFE["half"], max_to_keep=1)
+            first.train_one_epoch(loaders["first"], log_interval=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first.maybe_step_checkpoint()
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(ckpt.path(LIFE["half"]))
+            resumed = build()
+            resumed.enable_step_checkpointing(ckpt_dir, every_n_steps=LIFE["half"], max_to_keep=1)
+            t0 = time.perf_counter()
+            step = resumed.maybe_resume()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            bad = state_mismatches(resumed.train_state(), first.train_state())
+            print(f"  HSTU through {kernels}: checkpoint of step {step}, {nbytes:,} bytes (the model, Adam's moments, the step), saved in {save_s * 1e3:.1f} ms, "
+                  f"restored in {restore_s * 1e3:.1f} ms; the state's round trip: {len(bad)} of {len(list(flat_tensors(first.train_state())))} leaves differ")
+            if step != LIFE["half"] or bad:
+                raise AssertionError(f"HSTU ({kernels}): the resumed state is not the saved one bit for bit: step {step}, {bad[:5]}")
+            del first
+            resumed.train_one_epoch(loaders["second"], log_interval=0)
+            check_resume(f"HSTU through {kernels}, {LIFE['steps']} steps", straight, params_of(resumed))
+        finally:
+            rab._FUSED_BWD[0] = True
+        counts = take()
+        expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * steps, **({"hstu_rab_bwd": n_layers * steps} if fused else {"hstu_rab_bwd_dq": n_layers * steps, "hstu_rab_bwd_dkv": n_layers * steps})}
+        print(f"  HSTU through {kernels}: launches over {steps} steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        if counts != expected:
+            raise AssertionError(f"the resume runs did not launch each kernel once per layer per step: {counts}, expected {expected}")
+        shutil.rmtree(ckpt_dir)
+        if fused:
+            trained = resumed
+        del straight, resumed
+        torch.cuda.empty_cache()
+
+    # the registered op: its dispatcher's host cost against the ctypes launch it wraps, at the serving shape (a
+    # measurement beside the path: its launches are not counted)
+    c = rab_case(21, BATCH, l, l)
+    args = (c["q"], c["k"], c["v"], c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["thr"], c["alpha"], c["max_seq_len"], c["cfg"])
+    host_us = {}
+    for name, fn in (("registered op", rab._op_forward), ("ctypes launch", rab._launch)):
+        for _ in range(3):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(*args)
+        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    reset_counts()
+    print(f"  K1 at B{BATCH} H8 L{l} d32, host time to enqueue one call (mean of 200): the registered op {host_us['registered op']:.1f} us, the ctypes launch alone "
+          f"{host_us['ctypes launch']:.1f} us: the dispatcher adds {host_us['registered op'] - host_us['ctypes launch']:.1f} us a call, {n_layers} calls a forward")
+    # the chunked step with K1 through the registered op, and through the ctypes launch alone, in turn
+    toks, _, tds, tgts = (torch.from_numpy(a).to(CARD) for a in next(iter(loaders["first"])))
+    via_op = rab._op_forward
+    for label in ("the registered op", "the ctypes launch alone", "the registered op"):
+        rab._op_forward = via_op if label == "the registered op" else rab._launch
+        try:
+            device, wall = timed(lambda: trained.train_step(toks, tds, tgts), cycles_per_ms)
+        finally:
+            rab._op_forward = via_op
+        print(f"  chunked 8192 train_step, K1 through {label}: device {device:.4f} ms, host clock {wall:.4f} ms, device idle {1 - device / wall:.0%} (medians of {REPS})")
+
+    # export the trained model and serve one request through each program
+    request = (toks, tds)
+    take()
+    path = trained.export(os.path.join(directory, "hstu"), example_input=request)
+    traced = take()["hstu_rab_fwd"]
+    run, _ = texport.load_exported(path)
+    out = run(request)
+    torch.cuda.synchronize()
+    per_call = take()["hstu_rab_fwd"]
+    with torch.inference_mode():
+        trained.model.eval()
+        eager = trained.model(toks, tds)
+    err, largest = float((out - eager).abs().max()), float(eager.abs().max())
+    program_ms = timed(lambda: run(request), cycles_per_ms)
+    with torch.inference_mode():
+        eager_ms = timed(lambda: trained.model(toks, tds), cycles_per_ms)
+    evaluate_ms = wall_ms(lambda: trained.evaluate(SeqLoader(*(a[:BATCH] for a in data), batch_size=BATCH)))
+    print(f"  export: {os.path.getsize(path):,} bytes, {traced} launches while tracing; one request of {BATCH} x L{l}: {per_call} hstu_rab_fwd launches a call, "
+          f"max |program - eager| {err:.3e} of the largest logit {largest:.3e} (bound {EXPORT_ATOL_REL:g} x); the program {program_ms[0]:.4f} ms device, {program_ms[1]:.4f} ms host clock "
+          f"a request; the eager forward {eager_ms[0]:.4f} / {eager_ms[1]:.4f} ms; SeqTrainer.evaluate {evaluate_ms:.4f} ms a request (host clock, with its loss and top-1)")
+    if traced or per_call != n_layers or not err <= EXPORT_ATOL_REL * largest or out.shape != (BATCH, l, vocab):
+        raise AssertionError(f"the exported HSTU: {traced} launches while tracing, {per_call} a call (expected {n_layers}), error {err:.3e} of {largest:.3e}")
+    params = dict(trained.model.named_parameters())
+    rows = texport.linear_weight_names(trained.model)
+    for quant_mode in ("int8", "fp16"):
+        qpath = trained.export_quantized(os.path.join(directory, f"hstu_{quant_mode}"), example_input=request, quant_mode=quant_mode)
+        qrun, _ = texport.load_exported(qpath)
+        take()
+        qout = qrun(request)
+        torch.cuda.synchronize()
+        q_launches = take()["hstu_rab_fwd"]
+        qerr = texport.quantization_error(params, quant_mode, rows)
+        k = sum(p.ndim == 2 for p in params.values()) if quant_mode == "int8" else len(params)
+        diff, q_ms = float((qout - out).abs().max()), timed(lambda: qrun(request), cycles_per_ms)
+        print(f"  export_quantized {quant_mode}: {os.path.getsize(qpath):,} bytes against {os.path.getsize(path):,} ({os.path.getsize(qpath) / os.path.getsize(path):.3f}); "
+              f"{q_launches} hstu_rab_fwd launches a call; max |{quant_mode} - fp32| {diff:.3e}, bound {k} quantized tensors x quantization_error {qerr:.3e} x the largest "
+              f"logit = {k * qerr * largest:.3e}; {q_ms[0]:.4f} ms device, {q_ms[1]:.4f} ms host clock a request")
+        if q_launches != n_layers or not 0 < diff <= k * qerr * largest or not os.path.getsize(qpath) < os.path.getsize(path):
+            raise AssertionError(f"the {quant_mode} export: {q_launches} launches, difference {diff:.3e}, {os.path.getsize(qpath)} bytes")
+    del run, out, eager
+
+    # one traced step: the trace names K1's and K2's kernels and the annotated span
+    trace_dir = os.path.join(directory, "trace")
+    trained.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    with trace(trace_dir):
+        with annotate("lifecycle/hstu_train_step"):
+            trained.train_step(toks, tds, tgts)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        text = f.read()
+    need = {"K1": "hstu_rab_fwd_kernel", "K2": "bwd_fused_kernel<", "the annotated span": "lifecycle/hstu_train_step"}
+    missing = [k for k, key in need.items() if key not in text]
+    peak = device_memory_stats()[f"cuda:{torch.cuda.current_device()}"]["allocated_bytes.all.peak"]
+    print(f"  trace of one step: {len(text):,} bytes of Chrome trace naming " + ", ".join(f"{k} ({key!r})" for k, key in need.items() if k not in missing)
+          + f"; peak allocated over the step {peak / 1e9:.3f} GB (device_memory_stats)")
+    if missing:
+        raise AssertionError(f"the trace does not name {missing}")
+    take()
+    del trained
+    torch.cuda.empty_cache()
+    return total
+
+
+def lifecycle_ctr(directory):
+    """DeepFM at the Criteo-full geometry with sparse Adagrad on the prefetching loop (ArrayLoader): examples/s and
+    idle against synchronous copies; step checkpoints every 8 steps, one kept; resume against two straight runs."""
+    b, n_steps, every = CTR["batch"], LIFE["ctr_steps"], LIFE["ctr_every"]
+    x, y = ctr_data(n_steps * b, VOCABS_FULL, seed=12, zipf=True)
+    half = n_steps * b // 2
+    loaders = {"all": ArrayLoader(x, y, batch_size=b), "first": ArrayLoader({k: v[:half] for k, v in x.items()}, y[:half], batch_size=b),
+               "second": ArrayLoader({k: v[half:] for k, v in x.items()}, y[half:], batch_size=b)}
+
+    def build():
+        return CTRTrainer(ctr_model(VOCABS_FULL, seed=12, device=CARD), optimizer_params=CTR_OPT, sparse_embedding="adagrad")
+
+    tr = build()
+    tr.train_one_epoch(loaders["all"], log_interval=0)  # warm-up: the allocator, Adam's state, pinned buffers
+    # the loop's own prefetching, and synchronous copies (each host group copied when the loop takes it), epochs in turn
+    ways = {"prefetch_to_device two groups ahead": tr._groups, "synchronous copies": lambda loader: (tr._to_device(*group) for group in tr._iter_groups(loader))}
+    seconds = {name: [] for name in ways}
+    for _ in range(LIFE["ctr_epochs"]):
+        for name, groups in ways.items():
+            tr._groups = groups
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_one_epoch(loaders["all"], log_interval=0)
+            seconds[name].append(time.perf_counter() - t0)
+    for name, groups in ways.items():
+        tr._groups = groups
+        device = sum(ms for ms, _ in profile_kernels(lambda: tr.train_one_epoch(loaders["all"], log_interval=0), steps=1).values())
+        med = float(np.median(seconds[name]))
+        print(f"  DeepFM Criteo-full sparse adagrad on ArrayLoader, {name}: {n_steps * b / med:,.0f} examples/s, {med / n_steps * 1e3:.3f} ms per step "
+              f"(host clock, median of {LIFE['ctr_epochs']} epochs of {n_steps} steps, the two ways in turn; epochs {min(seconds[name]) * 1e3:.1f}-{max(seconds[name]) * 1e3:.1f} ms), "
+              f"an epoch's kernels {device:.3f} ms of device time, device idle {1 - device / (med * 1e3):.0%}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # the resume, bit for bit.  With index_add_'s float atomics two straight runs differ, and not by a stable spread:
+    # on the H100 they land in two clusters 2.7e-3 apart (on a BatchNorm bias, as Adam's step of a near-zero gradient
+    # goes either way) and 5e-6 to 6e-4 apart inside one, resumed runs in either (tools/ctr_lifecycle_diagnostics.py).
+    # Under torch.use_deterministic_algorithms every operation of the step is deterministic, so the straight runs
+    # agree bit for bit and the resumed run must equal them
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, resumed = lifecycle_ctr_runs(build, loaders, directory, every, n_steps)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    differ = {label: [k for k in run if not torch.equal(run[k], straight[0][k])] for label, run in (("the second straight run", straight[1]), ("the resumed run", resumed))}
+    print(f"  DeepFM Criteo-full, {n_steps} steps under torch.use_deterministic_algorithms: " + "; ".join(f"{label}: {len(d)} of {len(run)} tensors differ from the first straight run"
+                                                                                                       for (label, d), run in zip(differ.items(), (straight[1], resumed)))
+          + f" (the parameters, the fused table's accumulators)")
+    if any(differ.values()):
+        raise AssertionError(f"DeepFM Criteo-full: the runs differ under deterministic algorithms: {differ}")
+    del resumed, straight
+    torch.cuda.empty_cache()
+
+
+def lifecycle_ctr_runs(build, loaders, directory, every, n_steps):
+    """Two straight runs (the first checkpointing every ``every`` steps, one kept: the steps saved, the file kept,
+    bytes and seconds) and a resumed one (``every`` steps, its own checkpoint, a fresh trainer, ``maybe_resume``,
+    the rest); returns their ``params_of``."""
+    straight = []
+    for i in range(2):
+        tr = build()
+        if i == 0:  # checkpoints every 8 steps, one kept
+            ckpt_dir = os.path.join(directory, "ctr_straight")
+            ckpt = tr.enable_step_checkpointing(ckpt_dir, every_n_steps=every, max_to_keep=1)
+            saves, save = [], ckpt.save
+
+            def timed_save(step, state, save=save, saves=saves):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = save(step, state)
+                saves.append((step, time.perf_counter() - t0, os.path.getsize(path)))
+                return path
+
+            ckpt.save = timed_save
+        tr.train_one_epoch(loaders["all"], log_interval=0)
+        if i == 0:
+            kept = sorted(os.listdir(ckpt_dir))
+            print(f"  step checkpoints every {every} steps over {n_steps}, max_to_keep=1: saved at steps {[s for s, _, _ in saves]} "
+                  + ", ".join(f"{nb:,} bytes in {sec:.3f} s" for _, sec, nb in saves) + f" (the table, its row accumulators, the rest and its Adam state); kept {kept}")
+            if [s for s, _, _ in saves] != list(range(every, n_steps + 1, every)) or kept != [f"ckpt_{n_steps}.pt"]:
+                raise AssertionError(f"the CTR loop's checkpoints: saved {saves}, kept {kept}")
+            shutil.rmtree(ckpt_dir)
+        straight.append(params_of(tr))
+        del tr
+        torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(directory, "ctr_resume")
+    first = build()
+    first.enable_step_checkpointing(ckpt_dir, every_n_steps=every, max_to_keep=1)
+    first.train_one_epoch(loaders["first"], log_interval=0)  # checkpoints itself at step 8
+    del first
+    torch.cuda.empty_cache()
+    resumed = build()
+    resumed.enable_step_checkpointing(ckpt_dir, every_n_steps=every, max_to_keep=1)
+    t0 = time.perf_counter()
+    step = resumed.maybe_resume()
+    torch.cuda.synchronize()
+    print(f"  resumed at step {step} in {time.perf_counter() - t0:.3f} s")
+    if step != every:
+        raise AssertionError(f"the CTR run resumed at step {step}, not {every}")
+    resumed.train_one_epoch(loaders["second"], log_interval=0)
+    shutil.rmtree(ckpt_dir)
+    return straight, params_of(resumed)
+
+
+def lifecycle_phase(cycles_per_ms):
+    """The lifecycle phase: HSTU's resume, export and trace (K1, K2, K2a, K2b), then DeepFM's checkpoints on the
+    prefetching loop (none of the port's kernels); returns the HSTU part's launches."""
+    t0 = time.perf_counter()
+    os.makedirs(LIFECYCLE_DIR, exist_ok=True)
+    try:
+        launches = lifecycle_hstu(cycles_per_ms, LIFECYCLE_DIR)
+        print("  the HSTU lifecycle's launches (resume runs, a timed step, export and serving, the traced step): " + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        reset_counts()
+        lifecycle_ctr(LIFECYCLE_DIR)
+        if any(read_counts().values()):
+            raise AssertionError(f"the DeepFM lifecycle launched an HSTU kernel: {read_counts()}")
+    finally:
+        shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    print(f"  lifecycle phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -3593,6 +3954,11 @@ def main():
     print("bf16 HSTU phase (the full-width HSTU under SeqTrainer(precision=\"bf16\"): serving, training with three losses through the bf16 K1 and K2, "
           "a step through K2a-bf16 + K2b-bf16; card against CPU; fit):")
     launches.update(bf16_hstu_phase(cycles_per_ms))
+    print("lifecycle phase (the serving HSTU: 8 steps straight twice and 4 + a checkpoint + resume + 4, through K2 and through K2a + K2b; export, int8 and fp16 "
+          "export served one request each; the registered op's dispatch cost; a traced step.  DeepFM at the Criteo-full geometry with sparse Adagrad on the "
+          "prefetching loop: step checkpoints, resume):")
+    for name, n in lifecycle_phase(cycles_per_ms).items():
+        launches[name] += n
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
@@ -3604,7 +3970,7 @@ def main():
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving, training and sparse training paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
+        "launches": launches[name],  # serving, training, sparse training and lifecycle paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

@@ -166,7 +166,8 @@ def test_launches_pass_the_bucket_config(fake_card, cfg):
 
 
 def test_function_hands_the_config_to_the_forward_launch(monkeypatch):
-    """``_RabAttentionKernel`` calls ``_launch`` with the op's bucket config."""
+    """``_RabAttentionKernel`` hands the bucket config through the registered op ``rechub::hstu_rab_fwd``, which
+    takes it as four scalars, to the op's body ``_forward`` (which launches K1 on the card) whole."""
     c = tmod.BucketCfg(16, "log", 2.0, "seconds")
     q, k, v, pos_w, ts_w, ts, mask, maxl = small_inputs()
     seen = []
@@ -175,7 +176,7 @@ def test_function_hands_the_config_to_the_forward_launch(monkeypatch):
         seen.append(cfg)
         return tmod.dense_forward(q, k, v, pos_w, ts_w, ts, mask, alpha, max_seq_len, cfg, ts is not None)
 
-    monkeypatch.setattr(tmod, "_launch", fake_launch)
+    monkeypatch.setattr(tmod, "_forward", fake_launch)
     out = tmod._RabAttentionKernel.apply(q, k, v, pos_w, ts_w, ts, mask, tmod.compute_bucket_thresholds(c), 0.5, maxl, c)
     assert seen == [c]
     torch.testing.assert_close(out, tmod.dense_forward(q, k, v, pos_w, ts_w, ts, mask, 0.5, maxl, c, True), rtol=0, atol=0)

@@ -19,7 +19,7 @@ import torch_rechub_tpu_torch.trainers as port_trainers
 ROOT = Path(__file__).resolve().parents[1]
 TRAINERS = ("CTRTrainer", "MatchTrainer", "MTLTrainer", "RQVAETrainer", "SeqTrainer")
 # the JAX package's modules that declare ``__all__``, by their path below the package
-SURFACES = ("", ".basic", ".ops", ".utils")
+SURFACES = ("", ".basic", ".data", ".ops", ".utils")
 
 
 def parameters(cls):

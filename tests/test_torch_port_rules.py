@@ -25,13 +25,62 @@ def imported_modules(path):
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "rab_kernel_ablation.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "rab_kernel_ablation.py", ROOT / "tools" / "ctr_lifecycle_diagnostics.py"]
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_no_jax(path):
     bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# optional packages of the pipeline and the loggers: imported where they are used, never when a module is imported
+OPTIONAL = ("pyarrow", "tensorboardX", "wandb", "swanlab", "pandas")
+
+
+def top_level_modules(path):
+    """The modules a source imports in its module body (not inside a function or class)."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_no_optional_package_at_import_time(path):
+    bad = [m for m in top_level_modules(path) if m.split(".")[0] in OPTIONAL]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} when it is imported"
+
+
+def test_fake_evaluation_of_the_registered_op_builds_and_launches_nothing(monkeypatch):
+    """``torch.export`` evaluates ``rechub::hstu_rab_fwd`` on fake tensors (fake CUDA tensors when the model lies on
+    the card) and meta tensors: that takes the op's fake version, which starts no build, loads no library and
+    launches nothing, also where a CUDA device is named and none exists."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from torch_rechub_tpu_torch.ops.cuda import _build
+    from torch_rechub_tpu_torch.ops.cuda import hstu_rab_attention as rab
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel build or load was started")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    before = (rab.launches, rab.launches_bf16)
+    cfg = rab.BucketCfg(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        with FakeTensorMode():
+            q = torch.empty(2, 2, 16, 8, device="cuda", dtype=dtype)
+            pos_w, ts_w = torch.empty(31, 2, device="cuda"), torch.empty(9, 2, device="cuda")
+            ts, mask = torch.empty(2, 16, dtype=torch.int32, device="cuda"), torch.empty(2, 16, dtype=torch.bool, device="cuda")
+            out = rab.hstu_attention_rab(q, q, q, pos_w, ts_w, ts, mask, 0.35, 16, cfg, torch.empty(9, dtype=torch.int32, device="cuda"))
+            assert out.shape == (2, 2, 16, 8) and out.dtype == dtype and out.device.type == "cuda"
+        meta = torch.empty(2, 2, 16, 8, device="meta", dtype=dtype)
+        out = torch.ops.rechub.hstu_rab_fwd(meta, meta, meta, meta.new_empty(31, 2, dtype=torch.float32), meta.new_empty(9, 2, dtype=torch.float32), None, None, None, 0.35, 16, 8, "sqrt", 1.0, "minutes")
+        assert out.shape == (2, 2, 16, 8) and out.device.type == "meta"
+    assert (rab.launches, rab.launches_bf16) == before and not _build._loaded
 
 
 def test_importing_the_whole_port_loads_no_jax():

@@ -13,12 +13,15 @@ through ``MatchTrainer`` and exact top-k retrieval (``serving``); the
 multi-task models through ``MTLTrainer`` and RQ-VAE through
 ``RQVAETrainer``; HSTU, HLLM and TIGER through ``SeqTrainer`` and their own
 loops; sparse row-wise embedding updates and bf16 mixed precision
-(``basic/precision.py``) on every trainer.  Every TPU kernel of the JAX
+(``basic/precision.py``) on every trainer; the trainer lifecycle (step
+checkpoints with exact resume, ``torch.export`` and quantized export, the
+model summary, profiling hooks) and the Parquet input pipeline (``data``).
+Every TPU kernel of the JAX
 package is a CUDA kernel written for Hopper (``csrc/``), in fp32 and bf16:
 HSTU's rab attention forward (K1) and backward (K2, or the split K2a + K2b),
 and the materialised-bias attention ``ops.cuda.hstu_attention`` (K3).  Not
 ported yet: the device mesh (``mesh=`` raises), the approximate retrieval
-backends and the modules ROADMAP.md lists.
+backends and the benchmark registry and examples.
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,10 @@
 
 Counterpart of ``torch_rechub_tpu/basic/loss.py``: ``bce_with_logits``,
 ``mse_loss``, the list-wise ``softmax_cross_entropy`` and the pair-wise
-``bpr_loss`` with a per-example weight (a padded batch's padding rows weigh
-0), computed in float32; ``classify_param`` and ``RegularizationLoss``,
+``bpr_loss`` and ``hinge_loss`` (WARP-weighted with ``num_items``) with a
+per-example weight (a padded batch's padding rows weigh 0), computed in
+float32; ``nce_loss`` and ``in_batch_nce_loss``, temperature-scaled
+cross-entropy that ignores a target id; ``classify_param`` and ``RegularizationLoss``,
 which sort parameters by name into normalisation (exempt), embedding and
 dense.  The port's ``state_dict`` names keep the words that sort them
 (``EmbeddingCollection``, ``_table``, ``BatchNorm``).
@@ -68,6 +70,38 @@ def bpr_loss(pos_score: torch.Tensor, neg_score: torch.Tensor, weight: Optional[
             if weight is not None:
                 weight = weight[:, None].expand(diff.shape)
     return _weighted_mean(-torch.nn.functional.logsigmoid(diff), weight)
+
+
+def hinge_loss(pos_score: torch.Tensor, neg_score: torch.Tensor, margin: float = 2.0, num_items: Optional[int] = None, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pair-wise hinge ``max(max_j neg_j − pos + margin, 0)``; with ``num_items``, WARP's weight ``log(rank + 1)``,
+    the rank the share of negatives within the margin times ``num_items``."""
+    pos_score = pos_score.reshape(-1).to(torch.float32)
+    neg_score = neg_score.to(torch.float32)
+    neg_2d = neg_score if neg_score.ndim > 1 else neg_score[:, None]
+    loss = torch.clamp_min(torch.amax(neg_2d, dim=-1) - pos_score + margin, 0.0)
+    if num_items is not None:
+        impostors = (neg_2d - pos_score[:, None] + margin) > 0
+        rank = impostors.to(loss.dtype).mean(dim=-1) * num_items
+        loss = loss * torch.log(rank + 1.0)
+    return _weighted_mean(loss, weight)
+
+
+def nce_loss(logits: torch.Tensor, targets: torch.Tensor, temperature: float = 1.0, ignore_index: int = 0, reduction: str = "mean") -> torch.Tensor:
+    """Temperature-scaled cross-entropy over the last axis; targets equal to ``ignore_index`` count for nothing.
+    ``reduction``: ``"mean"`` over the counted targets, ``"sum"``, or ``"none"`` (the masked per-target losses)."""
+    log_probs = torch.log_softmax(logits.to(torch.float32) / temperature, dim=-1)
+    nll = -torch.gather(log_probs, -1, targets[..., None].to(torch.int64))[..., 0]
+    mask = (targets != ignore_index).to(nll.dtype)
+    if reduction == "none":
+        return nll * mask
+    if reduction == "sum":
+        return torch.sum(nll * mask)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def in_batch_nce_loss(embeddings: torch.Tensor, item_embeddings: torch.Tensor, targets: torch.Tensor, temperature: float = 0.1, ignore_index: int = 0, reduction: str = "mean") -> torch.Tensor:
+    """User-against-every-item NCE: :func:`nce_loss` of ``embeddings @ item_embeddings.T``."""
+    return nce_loss(embeddings @ item_embeddings.T, targets, temperature=temperature, ignore_index=ignore_index, reduction=reduction)
 
 
 _NORM_MARKERS = ("batchnorm", "layernorm", "groupnorm", "instancenorm", "_norm")

@@ -2,7 +2,8 @@
 
 Counterpart of ``torch_rechub_tpu/basic/metric.py``: the exact tie-aware
 AUC on the host (numpy), and the bucketed AUC whose per-batch score
-histograms add up on the device, so only one scalar reaches the host; the
+histograms add up on the device, so only one scalar reaches the host
+(``auc_score_bucketed`` in one call); the per-user AUC ``gauc_score``; the
 retrieval metrics of per-user recommendation lists (``topk_metrics``:
 NDCG, MRR, recall, hit and precision at K; diversity, coverage, novelty),
 on the host.
@@ -50,6 +51,35 @@ def auc_from_histogram(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """Tie-aware AUC from (pos, neg) histograms: exact for scores quantized to the bins."""
     neg_below = torch.cumsum(neg, 0) - neg  # negatives strictly below each bin
     return (pos * (neg_below + 0.5 * neg)).sum() / (pos.sum() * neg.sum())
+
+
+def auc_score_bucketed(y_true, y_score, n_bins: int = 65536) -> float:
+    """Histogram AUC in one call (labels and scores from the host, or tensors on their device)."""
+    y_true, y_score = (torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a) for a in (y_true, y_score))
+    pos, neg = auc_histogram(y_true, y_score, n_bins=n_bins)
+    return float(auc_from_histogram(pos, neg))
+
+
+def get_user_pred(y_true, y_pred, users):
+    """Labels and scores grouped by user id: ``{user: {"y_true": [...], "y_pred": [...]}}``."""
+    user_pred = {}
+    for t, p, u in zip(y_true, y_pred, users):
+        entry = user_pred.setdefault(u, {"y_true": [], "y_pred": []})
+        entry["y_true"].append(t)
+        entry["y_pred"].append(p)
+    return user_pred
+
+
+def gauc_score(y_true, y_pred, users, weights=None) -> float:
+    """Per-user AUC averaged with impression-count (or the given per-user) weights."""
+    if not len(y_true) == len(y_pred) == len(users):
+        raise ValueError(f"gauc_score: {len(y_true)} labels, {len(y_pred)} scores, {len(users)} users")
+    total, norm = 0.0, 0.0
+    for u, d in get_user_pred(y_true, y_pred, users).items():
+        w = len(d["y_true"]) if weights is None else weights[u]
+        total += auc_score(d["y_true"], d["y_pred"]) * w
+        norm += w
+    return total / norm
 
 
 def log_loss(y_true, y_pred) -> float:

@@ -38,6 +38,13 @@ Dispatch: a tensor on the CPU takes the plain PyTorch versions
 :func:`plain_backward_bf16`, at the kernels' rounding points).  A tensor on
 a CUDA device launches the kernels, or raises: there is no fallback and no
 cast between the two precisions.
+
+The forward is the registered op ``torch.ops.rechub.hstu_rab_fwd``
+(:func:`rab_forward`, with a fake version for tracing), so ``torch.export``
+records K1 as one call.  A forward that needs no gradient calls the op
+alone; a training forward calls it inside ``_RabAttentionKernel``, whose
+backward launches K2 or K2a + K2b (on the CPU in fp32, autograd of the
+plain version, as before).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ...utils.hstu_utils import bucketize_time
 from . import _build
@@ -523,8 +531,51 @@ def rab_backward_dkv(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: f
     return dk, dv
 
 
+@torch.library.custom_op("rechub::hstu_rab_fwd", mutates_args=())
+def rab_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_w: torch.Tensor, ts_w: torch.Tensor, timestamps: Optional[torch.Tensor], padding_mask: Optional[torch.Tensor],
+                thresholds: Optional[torch.Tensor], alpha: float, max_seq_len: int, num_buckets: int, fn: str, divisor: float, unit: str) -> torch.Tensor:
+    """K1 as the registered op ``torch.ops.rechub.hstu_rab_fwd``: ``(B, H, L, dv)`` in q's dtype.
+
+    A CPU tensor takes the plain version (:func:`dense_forward`, or
+    :func:`plain_forward_bf16` on bf16), a CUDA tensor launches K1 or its
+    bf16 variant (``thresholds`` on the card), any other device raises.
+    Being an op, it is what ``torch.export`` records: an exported HSTU
+    program holds this call, not the plain version's operations, and runs
+    the kernel wherever it is loaded on the card.  Its fake (meta) version
+    only makes the output's shape and dtype: tracing builds and launches
+    nothing.
+    """
+    return _forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, BucketCfg(num_buckets, fn, divisor, unit))
+
+
+def _forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg) -> torch.Tensor:
+    """The op's body, by device: the plain version on the CPU, K1 (or K1-bf16) on a CUDA device, else raise."""
+    if q.device.type == "cpu":
+        plain = plain_forward_bf16 if q.dtype == torch.bfloat16 else dense_forward
+        return plain(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None)
+    if q.device.type != "cuda":
+        raise ValueError(f"hstu_attention_rab runs on the CPU (plain version) or a CUDA device (kernel), not {q.device}")
+    return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
+
+
+@rab_forward.register_fake
+def _rab_forward_fake(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, num_buckets, fn, divisor, unit):
+    return q.new_empty((*q.shape[:3], v.shape[-1]))
+
+
+@register_flop_formula(torch.ops.rechub.hstu_rab_fwd)
+def _rab_forward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """Two products over every (query, key) pair, as PyTorch counts attention: ``2·B·H·L²·(dqk + dv)``."""
+    b, h, l, dqk = q_shape
+    return 2 * b * h * l * l * (dqk + v_shape[-1])
+
+
+def _op_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg) -> torch.Tensor:
+    return torch.ops.rechub.hstu_rab_fwd(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, float(alpha), int(max_seq_len), int(cfg.num_buckets), cfg.fn, float(cfg.divisor), cfg.unit)
+
+
 class _RabAttentionKernel(torch.autograd.Function):
-    """K1 forward; K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False.
+    """K1 forward (through the registered op); K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False.
 
     Saves the inputs, the tables, the stamps, the mask and the thresholds,
     and no ``(L, L)`` tensor: the backward kernels rebuild every tile.  On
@@ -536,9 +587,7 @@ class _RabAttentionKernel(torch.autograd.Function):
     def forward(ctx, q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg):
         ctx.save_for_backward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds)
         ctx.alpha, ctx.max_seq_len, ctx.cfg = alpha, max_seq_len, cfg
-        if q.device.type == "cpu" and q.dtype == torch.bfloat16:
-            return plain_forward_bf16(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, timestamps is not None)
-        return _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
+        return _op_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -573,8 +622,11 @@ def hstu_attention_rab(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: fl
     if l > max_seq_len:
         raise ValueError(f"seq_len ({l}) exceeds max_seq_len ({max_seq_len}).")
     has_time = timestamps is not None
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos_w, ts_w))
     if q.device.type == "cpu" and q.dtype != torch.bfloat16:
-        return dense_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
+        if needs_grad:  # autograd through the plain version
+            return dense_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, has_time)
+        return _op_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hstu_attention_rab runs on the CPU (plain version) or a CUDA device (kernel), not {q.device}")
     if ts_w.shape[0] != cfg.num_buckets + 1:
@@ -583,4 +635,6 @@ def hstu_attention_rab(q, k, v, pos_w, ts_w, timestamps, padding_mask, alpha: fl
         thresholds = compute_bucket_thresholds(cfg).to(q.device)
     if has_time:
         timestamps = timestamps.to(torch.int32).contiguous()
+    if not needs_grad:  # serving, and what torch.export records: the op alone
+        return _op_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)
     return _RabAttentionKernel.apply(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha, max_seq_len, cfg)

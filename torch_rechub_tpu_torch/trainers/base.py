@@ -8,7 +8,10 @@ optimizer's parameter groups (:func:`step_lr`).  ``precision=`` (None,
 ``"f32"``, ``"bf16"``; ``basic/precision.py``) is validated when a trainer is
 made, and every forward a trainer runs (the training step, evaluation,
 prediction, tower embeddings) runs under it: parameters and optimizer
-state stay float32.
+state stay float32.  ``TorchTrainer`` also carries the JAX trainer's
+lifecycle: the step count and full train state, step checkpoints and
+exact resume (``utils/checkpoint.py``), ``export`` / ``export_quantized``
+(``utils/export.py``) and ``visualization`` (``utils/model_utils.py``).
 """
 
 from __future__ import annotations
@@ -110,6 +113,15 @@ class SplitOptimizer:
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=set_to_none)
 
+    def state_dict(self) -> Dict:
+        return {"optimizers": [opt.state_dict() for opt in self.optimizers]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if len(state["optimizers"]) != len(self.optimizers):
+            raise ValueError(f"the state holds {len(state['optimizers'])} optimizers, this trainer {len(self.optimizers)}")
+        for opt, sd in zip(self.optimizers, state["optimizers"]):
+            opt.load_state_dict(sd)
+
 
 def make_optimizer(parameters: Iterable, optimizer_params: Optional[Dict] = None):
     """``(optimizer, lr0)``, the update of the JAX package's ``make_optimizer``.
@@ -161,7 +173,19 @@ class TorchTrainer:
     """What the concrete trainers share: the device, the optimizer, a seeded
     ``torch.Generator`` on the device (dropout masks, sampled negatives),
     the per-epoch learning rate, the training step over the subclass's
-    ``loss_fn`` and the ``state_dict`` checkpoint."""
+    ``loss_fn``, the ``state_dict`` checkpoint, and the lifecycle of the
+    JAX package's ``JaxTrainer``: the step count, the full train state with
+    step checkpoints and exact resume, export (full size or quantized) and
+    the model summary.
+
+    The train state is what the JAX package's ``TrainState`` holds: the
+    model's ``state_dict`` (parameters, and the BatchNorm statistics of
+    ``batch_stats``), the optimizer's state (optax's ``opt_state``), the
+    sparse tables' accumulators (the sparse ``opt_state``) and ``step``.
+    The generator's state is not part of it, as ``JaxTrainer._rng`` is not
+    part of ``TrainState``: a resumed run with dropout or sampled negatives
+    draws afresh, in both packages.
+    """
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = (), precision=None):
         # extra_params: ``(name, tensor)`` pairs outside the model that the dense optimizer steps too
@@ -189,6 +213,10 @@ class TorchTrainer:
         self.seed = seed
         self.loggers = loggers
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.step = 0  # optimizer steps taken (TrainState.step)
+        self._weights_loaded = False  # load() or load_train_state() gave the model its weights
+        self._ckpt = None
+        self._ckpt_every = 0
 
     def epoch_lr(self, epoch: int) -> float:
         return step_lr(self.lr0, epoch, self.scheduler_params)
@@ -213,7 +241,89 @@ class TorchTrainer:
         loss.backward()
         self.optimizer.step()
         apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows)
+        self.step += 1
         return loss.detach()
+
+    # -- the train state and step checkpoints (preemption-safe resume) --------
+    def train_state(self) -> Dict:
+        """The full train state, as references to the live tensors (``torch.save`` it, or copy it to keep it)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "sparse_accums": dict(self.sparse_accums), "step": self.step}
+
+    def load_train_state(self, state: Dict) -> None:
+        """Load a state of :meth:`train_state`'s structure into this trainer, in place."""
+        self.model.load_state_dict(state["model"])
+        check_optimizer_state(state["optimizer"], self.optimizer)
+        self.optimizer.load_state_dict(state["optimizer"])
+        with torch.no_grad():
+            for name, acc in self.sparse_accums.items():
+                acc.copy_(state["sparse_accums"][name])
+        self.step = int(state["step"])
+        self._weights_loaded = True
+
+    def enable_step_checkpointing(self, directory: str, every_n_steps: int = 100, max_to_keep: int = 3):
+        """Checkpoint the full train state every N steps (``maybe_step_checkpoint``); resume by ``maybe_resume``."""
+        from ..utils.checkpoint import TrainCheckpointer
+
+        self._ckpt = TrainCheckpointer(directory, max_to_keep=max_to_keep)
+        self._ckpt_every = every_n_steps
+        return self._ckpt
+
+    def maybe_step_checkpoint(self):
+        """Save the train state when step checkpoints are on and ``step`` is a positive multiple of ``every_n_steps``."""
+        if self._ckpt is not None and self.step > 0 and self.step % self._ckpt_every == 0:
+            self._ckpt.save(self.step, self.train_state())
+
+    def maybe_resume(self) -> Optional[int]:
+        """Restore the latest step checkpoint into this trainer; returns the resumed step, or None."""
+        if self._ckpt is None:
+            return None
+        restored, step = self._ckpt.restore(self.train_state())
+        if step is not None:
+            self.load_train_state(restored)
+            print(f"resumed from step checkpoint {step}")
+        return step
+
+    # -- export / visualization ------------------------------------------------
+    def _require_state(self, what: str) -> None:
+        if self.step == 0 and not self._weights_loaded:
+            raise RuntimeError(f"{what}() requires a trained/initialized model — call fit() first")
+
+    def export(self, output_path: str, example_input=None, mode: Optional[str] = None) -> str:
+        """``torch.export`` of the trained model's forward (``mode`` ``"user"`` / ``"item"``: one tower) at the
+        example's shapes, saved to ``<output_path>.pt2`` (``utils/export.py``); the example is
+        ``generate_dummy_input(model)`` when not given."""
+        self._require_state("export")
+        from ..utils.export import TorchExporter
+        from ..utils.model_utils import generate_dummy_input
+
+        if example_input is None:
+            example_input = generate_dummy_input(self.model)
+        return TorchExporter(self.model).export(output_path, example_input, mode=mode)
+
+    def export_quantized(self, output_path: str, example_input=None, mode: Optional[str] = None, quant_mode: str = "int8") -> str:
+        """The same export with int8 (per-channel scales) or fp16 weights, dequantized inside the program."""
+        self._require_state("export_quantized")
+        from ..utils.export import TorchExporter
+        from ..utils.model_utils import generate_dummy_input
+
+        if example_input is None:
+            example_input = generate_dummy_input(self.model)
+        return TorchExporter(self.model).export_quantized(output_path, example_input, mode=mode, quant_mode=quant_mode)
+
+    def visualization(self, x=None, save_path: Optional[str] = None) -> str:
+        """The model's summary (``utils/model_utils.model_summary``): a row per parameter, the totals and the
+        forward's FLOPs on ``x`` (``generate_dummy_input(model)`` when not given); written to ``save_path`` too."""
+        from ..utils.model_utils import generate_dummy_input, model_summary
+
+        if x is None:
+            x = generate_dummy_input(self.model)
+        summary = model_summary(self.model, x=x)
+        if save_path:
+            os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+            with open(save_path, "w") as f:
+                f.write(summary)
+        print(summary)
+        return summary
 
     def save(self, name: str = "model.pt") -> str:
         os.makedirs(self.model_path or ".", exist_ok=True)
@@ -226,6 +336,7 @@ class TorchTrainer:
         state = torch.load(target, map_location=self.device, weights_only=True)
         check_table_rows(state, self.model.state_dict(), target)
         self.model.load_state_dict(state)
+        self._weights_loaded = True
         return self.model
 
 
@@ -242,6 +353,7 @@ class DictBatchTrainer(TorchTrainer):
     """
 
     label_dtype = None
+    checkpoint_in_loop = False  # maybe_step_checkpoint after each group (CTRTrainer's loop, as in the JAX package)
 
     @property
     def hyperparams(self) -> Dict:
@@ -252,7 +364,7 @@ class DictBatchTrainer(TorchTrainer):
         return ({k: put(v) for k, v in x.items()},) + tuple(put(a) for a in arrays)
 
     def _iter_groups(self, data_loader):
-        """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` on the device."""
+        """Padded host batches stacked ``steps_per_call`` at a time, as ``(n, batch, ...)`` numpy arrays."""
         batch_size = data_loader.batch_size
         pending = []
 
@@ -260,7 +372,7 @@ class DictBatchTrainer(TorchTrainer):
             xs = {k: np.stack([b[0][k] for b in pending]) for k in pending[0][0]}
             ys = np.stack([b[1] for b in pending])
             ws = np.stack([b[2] for b in pending])
-            return self._to_device(xs, ys if self.label_dtype is None else ys.astype(self.label_dtype), ws)
+            return xs, ys if self.label_dtype is None else ys.astype(self.label_dtype), ws
 
         for x, y in data_loader:
             pending.append(pad_batch(x, y, batch_size))
@@ -270,17 +382,27 @@ class DictBatchTrainer(TorchTrainer):
         if pending:
             yield stacked()
 
+    def _groups(self, data_loader):
+        """The loader's groups on the device: a ``DeviceCachedLoader``'s own, else the host groups copied two
+        groups ahead of the step (``data/dataset.py`` ``prefetch_to_device``)."""
+        if hasattr(data_loader, "device_groups"):
+            return data_loader.device_groups()
+        from ..data.dataset import prefetch_to_device
+
+        return prefetch_to_device(self._iter_groups(data_loader), size=2, device=self.device)
+
     def train_one_epoch(self, data_loader, log_interval: int = 10, lr: Optional[float] = None) -> float:
         """One pass over ``data_loader``; returns the mean step loss (one host read at the end)."""
         self.set_lr(self.lr0 if lr is None else lr)
         losses = []
         n_seen = 0
         t0 = time.perf_counter()
-        groups = data_loader.device_groups() if hasattr(data_loader, "device_groups") else self._iter_groups(data_loader)
-        for gi, (xs, ys, ws) in enumerate(groups):
+        for gi, (xs, ys, ws) in enumerate(self._groups(data_loader)):
             for s in range(ws.shape[0]):  # a group of n batches runs as n single steps
                 losses.append(self.train_step({k: v[s] for k, v in xs.items()}, None if ys is None else ys[s], ws[s]))
             n_seen += int(ws.shape[0]) * int(ws.shape[1])
+            if self.checkpoint_in_loop:
+                self.maybe_step_checkpoint()
             if log_interval and (gi + 1) % log_interval == 0:
                 print(f"  train {n_seen} examples, loss {float(torch.stack(losses[-ws.shape[0]:]).mean()):.5f}, {n_seen / (time.perf_counter() - t0):,.0f} ex/s")
         return float(to_numpy(torch.stack(losses)).mean()) if losses else 0.0
@@ -311,6 +433,25 @@ class DictBatchTrainer(TorchTrainer):
         self.save()
         for logger in iter_loggers(self.loggers):
             logger.finish()
+
+
+def check_optimizer_state(state: Dict, optimizer) -> None:
+    """Raise a ``ValueError`` naming every per-parameter state tensor of an optimizer ``state_dict`` whose shape is
+    not its parameter's in ``optimizer`` (scalars such as Adam's ``step`` aside)."""
+    parts = getattr(optimizer, "optimizers", [optimizer])
+    dicts = state["optimizers"] if isinstance(optimizer, SplitOptimizer) else [state]
+    problems = []
+    for i, (opt, sd) in enumerate(zip(parts, dicts)):
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for idx, values in sd["state"].items():
+            if int(idx) >= len(params):
+                problems.append(f"optimizer {i} parameter {idx}: this optimizer has {len(params)} parameters")
+                continue
+            shape = params[int(idx)].shape
+            problems += [f"optimizer {i} parameter {idx} {key}: checkpoint {tuple(v.shape)} vs parameter {tuple(shape)}"
+                         for key, v in values.items() if isinstance(v, torch.Tensor) and v.ndim and v.shape != shape]
+    if problems:
+        raise ValueError("the optimizer state does not fit this trainer's parameters: " + "; ".join(problems))
 
 
 def check_table_rows(restored: Dict[str, torch.Tensor], template: Dict[str, torch.Tensor], target: str) -> None:

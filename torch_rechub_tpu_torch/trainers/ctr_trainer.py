@@ -7,10 +7,13 @@ by the padded batch's row weights (plus the regularization and, with
 optimizer.  Every batch is padded to the loader's ``batch_size`` by cycling
 its rows, so BatchNorm sees the same batch as in the JAX package.
 ``steps_per_call`` groups run as that many single steps, which the JAX
-package's scan equals.  ``fit`` runs epochs with StepLR and early stopping
-on the validation AUC; ``predict`` returns fp32 probabilities of the real
-rows; ``evaluate`` the exact AUC, or the bucketed one from histograms that
-add up on the device.
+package's scan equals.  Host batches reach the card through
+``prefetch_to_device`` two groups ahead (``data/dataset.py``), and after
+each group the loop takes a step checkpoint where
+``enable_step_checkpointing`` asked for one (``trainers/base.py``).
+``fit`` runs epochs with StepLR and early stopping on the validation AUC;
+``predict`` returns fp32 probabilities of the real rows; ``evaluate`` the
+exact AUC, or the bucketed one from histograms that add up on the device.
 
 ``sparse_embedding="sgd" | "adagrad"`` updates the fused tables row by row
 (``trainers/sparse.py``): Adam (and the regularization) cover the other
@@ -40,6 +43,7 @@ class CTRTrainer(DictBatchTrainer):
     """
 
     label_dtype = np.float32
+    checkpoint_in_loop = True  # maybe_step_checkpoint after each group, as the JAX package's loop
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
         if mesh is not None:

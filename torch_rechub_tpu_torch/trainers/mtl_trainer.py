@@ -121,7 +121,6 @@ class MTLTrainer(DictBatchTrainer):
         self.relax_factor = self.adaptive_params.get("relax_factor", 0.7)
         self.beta = self.adaptive_params.get("beta", 0.9)
         self.is_esmm = isinstance(model, ESMM)
-        self.n_steps = 0
         self.initial_task_loss = torch.zeros(self.n_task, dtype=torch.float32, device=self.device)
         named = list(self.model.named_parameters())
         self.gradnorm_leaf = gradnorm_leaf(named) if self.adaptive_method == "gradnorm" else None
@@ -152,7 +151,7 @@ class MTLTrainer(DictBatchTrainer):
         if self.adaptive_method == "metabalance":
             self._metabalance_grads(loss_list)
         else:
-            if self.n_steps == 0:  # set by the first step (the JAX package leaves it at 0 under MetaBalance)
+            if self.step == 0:  # set by the first step (the JAX package leaves it at 0 under MetaBalance)
                 self.initial_task_loss = loss_list.detach().clone()
             loss = _aggregate_losses(loss_list, self.loss_weight, self.adaptive_method, self.is_esmm)
             if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
@@ -166,8 +165,22 @@ class MTLTrainer(DictBatchTrainer):
         if self.adaptive_method == "gradnorm":
             with torch.no_grad():
                 self.loss_weight.mul_(self.n_task / torch.clamp_min(self.loss_weight.sum(), 1e-12))
-        self.n_steps += 1
+        self.step += 1
         return loss_list.detach()
+
+    def train_state(self):
+        """The base train state plus what ``MTLTrainState`` adds: ``loss_weight``, ``mb_norms`` and ``initial_task_loss``."""
+        return {**super().train_state(), "loss_weight": None if self.loss_weight is None else self.loss_weight.detach(), "mb_norms": self.mb_norms,
+                "initial_task_loss": self.initial_task_loss}
+
+    def load_train_state(self, state) -> None:
+        super().load_train_state(state)
+        with torch.no_grad():
+            if self.loss_weight is not None:
+                self.loss_weight.copy_(state["loss_weight"])
+            for name, norms in (self.mb_norms or {}).items():
+                norms.copy_(state["mb_norms"][name])
+            self.initial_task_loss.copy_(state["initial_task_loss"])
 
     def _gradnorm_norms(self, loss_list: torch.Tensor) -> torch.Tensor:
         """``‖d L_i / d leaf‖`` per task, from the step's graph (kept for the backward that follows)."""
@@ -196,8 +209,7 @@ class MTLTrainer(DictBatchTrainer):
         losses = []
         n_seen = 0
         t0 = time.perf_counter()
-        groups = data_loader.device_groups() if hasattr(data_loader, "device_groups") else self._iter_groups(data_loader)
-        for gi, (xs, ys, ws) in enumerate(groups):
+        for gi, (xs, ys, ws) in enumerate(self._groups(data_loader)):
             for s in range(ws.shape[0]):  # a group of n batches runs as n single steps
                 losses.append(self.train_step({k: v[s] for k, v in xs.items()}, ys[s], ws[s]))
             n_seen += int(ws.shape[0]) * int(ws.shape[1])

@@ -61,6 +61,7 @@ class RQVAETrainer(TorchTrainer):
         loss, _ = self.model.compute_loss(out, rq_loss, x)
         loss.backward()
         self.optimizer.step()
+        self.step += 1
         return loss.detach()
 
     def _iter_batches(self, data: np.ndarray, batch_size: int, shuffle: bool = True, epoch: int = 0):

@@ -216,5 +216,5 @@ def load_mtl_state(trainer, params: Mapping[str, Any], batch_stats: Optional[Map
         if initial_task_loss is not None:
             put(trainer.initial_task_loss, initial_task_loss)
     if step is not None:
-        trainer.n_steps = int(np.asarray(step))
+        trainer.step = int(np.asarray(step))
     return trainer
