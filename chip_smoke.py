@@ -187,7 +187,23 @@
    seconds); 8 + resume + 8 equal to two straight runs bit for bit under
    ``torch.use_deterministic_algorithms`` (``index_add_``'s atomics make
    the default runs differ); the files deleted.
-16. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+16. The (data, model) mesh (``mesh_phase``).  (a) This process as a world of
+   one over NCCL, the serving HSTU under ``torch.use_deterministic_algorithms``:
+   one step on the (1, 1) mesh has mesh=None's gradients bit for bit but
+   the rab tables' (K2a sums dpos and dts by float atomics); four steps
+   through K2a + K2b and through K2 within twice the spread of two
+   mesh=None runs.  Two gloo ranks sharing the card, started by
+   ``parallel.distributed.spawn`` (collectives on CUDA tensors staged
+   through the host): (b) the HSTU at V65,536 under (2, 1) and (1, 2) against each
+   rank's mesh=None run at ``tests/test_sharding.py:255``'s tolerances,
+   with each rank's launches, each step's CUDA-event time, the gradient
+   all-reduce's host clock and the token table's bytes; (c) DeepFM at the
+   Criteo-full geometry with sparse Adagrad under (1, 2), each rank's rows
+   against mesh=None's under deterministic algorithms; (d) exact top-10 of
+   2,048 users over 1M items split over the ranks, indices equal to the
+   unsharded call's.  The launches, summed over the ranks, join the
+   kernels line.
+17. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 outside the bf16 phases, TF32 off, and cuBLAS's bf16 GEMMs without
@@ -3856,6 +3872,273 @@ def lifecycle_phase(cycles_per_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. The (data, model) mesh: ranks started by parallel.distributed.spawn
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_mesh")
+MESH = dict(steps=4, vocab=65536, topk_items=1_000_000, topk_users=2048, topk_dim=64, topk_batch=512, k=10, ctr_steps=4)
+# tests/test_sharding.py's tolerances: HSTU (:255) loss rtol, parameters rtol / atol; the sparse DeepFM (:402)
+MESH_HSTU_TOL = (3e-4, 3e-3, 3e-4)
+MESH_CTR_TOL = (2e-4, 2e-3, 2.5e-3)
+# K2 and K2a add dpos and dts with float atomics (csrc/hstu_rab_bwd.cu): the rab tables' gradients vary run to run
+RAB_ATOMIC = ("rab.pos_w", "rab.ts_w")
+
+
+def mesh_hstu(vocab, seed):
+    return HSTUModel(**{**SERVE, "vocab_size": vocab}, generator=torch.Generator().manual_seed(seed), device=CARD)
+
+
+def mesh_state(trainer):
+    """The unsharded parameters and sparse accumulators of a trainer, on the card (a collective under a mesh)."""
+    st = trainer.train_state()
+    out = {k: v for k, v in st["model"].items() if k in dict(trainer.model.named_parameters())}
+    out.update({f"accum:{k}": v for k, v in st["sparse_accums"].items()})
+    return out
+
+
+def mesh_compare(label, got, ref, loss, ref_loss, tol, lr_steps=0.0):
+    """``got`` against ``ref``: the loss at rtol ``tol[0]``, every tensor at rtol / atol ``tol[1:]``; a Dense bias in
+    front of a BatchNorm (its exact gradient is 0: Adam moves it by noise) within ``lr_steps`` more."""
+    loss_rtol, rtol, atol = tol
+    bad = []
+    if not math.isclose(loss, ref_loss, rel_tol=loss_rtol):
+        bad.append(f"loss {loss} vs {ref_loss}")
+    worst = (0.0, "")
+    for k, r in ref.items():
+        g = got[k].to(r.device)
+        slack = lr_steps if k.endswith(".bias") and k.replace("Dense_", "BatchNorm_").replace(".bias", ".weight") in ref else 0.0
+        excess = float(((g - r).abs() - (atol + slack + rtol * r.abs())).max())
+        worst = max(worst, (float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30), k))
+        if excess > 0:
+            bad.append(f"{k} by {excess:.3e}")
+    print(f"    {label}: loss {loss:.7f} (mesh=None {ref_loss:.7f}); the largest difference {worst[0]:.3e} of a tensor's largest value ({worst[1]}); "
+          f"{len(ref)} tensors within rtol {rtol:g} atol {atol:g}: {'yes' if not bad else 'NO'}")
+    if bad:
+        raise AssertionError(f"{label} does not match mesh=None: {bad[:5]}")
+
+
+def mesh_world_of_one():
+    """(a) A world of one over NCCL, this process its rank: the serving HSTU under mesh=None and under the (1, 1)
+    mesh, all under ``torch.use_deterministic_algorithms`` (the embedding backward's atomics otherwise make two
+    mesh=None runs differ).  One step through K2a + K2b: every gradient equal bit for bit but the rab tables', which
+    K2a sums by float atomics (``RAB_ATOMIC``); four steps through K2a + K2b and through K2: within twice the spread
+    of two mesh=None runs.  Returns the mesh runs' launches."""
+    from torch_rechub_tpu_torch.parallel import create_mesh
+    from torch_rechub_tpu_torch.parallel import distributed as pdist
+
+    pdist.initialize(f"file://{os.path.join(MESH_DIR, 'store')}", 1, 0, backend="nccl")
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = create_mesh(1, 1)
+        print(f"  (a) {mesh}")
+        l, n_layers, steps = SERVE["max_seq_len"], SERVE["n_layers"], MESH["steps"]
+        data = serving_data(BATCH * steps, l, SERVE["vocab_size"], seed=13)
+        loaders = {1: SeqLoader(*(a[:BATCH] for a in data), batch_size=BATCH), steps: SeqLoader(*data, batch_size=BATCH)}
+        counts = {k: 0 for k in COUNTERS}
+
+        def run(with_mesh, n):
+            """(loss, parameters, gradients, ms a step of host clock) of ``n`` steps of a fresh trainer; the mesh
+            run's launches counted."""
+            tr = SeqTrainer(mesh_hstu(SERVE["vocab_size"], 13), vocab_chunk_size=8192, mesh=mesh if with_mesh else None, model_path=MESH_DIR)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = tr.train_one_epoch(loaders[n], log_interval=0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n * 1e3
+            if with_mesh:
+                for k, v in read_counts().items():
+                    counts[k] += v
+            return loss, params_of(tr), {k: p.grad for k, p in tr.model.named_parameters() if p.grad is not None}, ms
+
+        rab._FUSED_BWD[0] = False
+        try:
+            (_, _, g0, _), (_, _, g1, _), (_, _, gm, _) = run(False, 1), run(False, 1), run(True, 1)
+        finally:
+            rab._FUSED_BWD[0] = True
+        differ, straight = [k for k in g0 if not torch.equal(gm[k], g0[k])], [k for k in g0 if not torch.equal(g1[k], g0[k])]
+        print(f"    one step through K2a + K2b: the mesh's gradients against mesh=None's: {len(g0) - len(differ)} of {len(g0)} equal bit for bit; differ: {differ or 'none'} "
+              f"(between two mesh=None steps: {straight or 'none'})")
+        if any(not k.endswith(RAB_ATOMIC) for k in differ):
+            raise AssertionError(f"(a) the (1, 1) mesh's gradients differ from mesh=None's beyond the rab tables: {differ}")
+        for fused, kernels in ((False, "K2a + K2b"), (True, "K2")):
+            rab._FUSED_BWD[0] = fused
+            try:
+                straight = [run(False, steps) for _ in range(2)]
+                loss, got, _, ms = run(True, steps)
+            finally:
+                rab._FUSED_BWD[0] = True
+            (spread, at_s), (diff, at_d) = rel_diff(straight[1][1], straight[0][1]), min(rel_diff(got, straight[0][1]), rel_diff(got, straight[1][1]))
+            print(f"    {steps} steps through {kernels}: loss {loss:.7f} (mesh=None {straight[0][0]:.7f}, {straight[1][0]:.7f}); a step {ms:.2f} ms of host clock with the mesh, "
+                  f"{straight[1][3]:.2f} without; the mesh run against the nearer mesh=None run {diff:.3e} ({at_d}), the two mesh=None runs {spread:.3e} ({at_s})")
+            if diff > SPREAD_FACTOR * spread:
+                raise AssertionError(f"(a) through {kernels}, the (1, 1) mesh differs from mesh=None by {diff:.3e}, beyond {SPREAD_FACTOR:g} x the spread {spread:.3e}")
+        expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * (1 + 2 * steps), "hstu_rab_bwd": n_layers * steps, "hstu_rab_bwd_dq": n_layers * (1 + steps), "hstu_rab_bwd_dkv": n_layers * (1 + steps)}
+        print("    (a) launches of the mesh runs: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        if counts != expected:
+            raise AssertionError(f"(a) the mesh runs did not launch each kernel once per layer per step: {counts}, expected {expected}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+        torch.distributed.destroy_process_group()
+    return counts
+
+
+def mesh_ranks(rank, out_path, shapes=((2, 1), (1, 2))):
+    """(b)-(d) on the ranks of ``shapes`` (two gloo ranks sharing the card by default): the HSTU at a vocab of 65,536
+    under each mesh against the same rank's mesh=None run; DeepFM at the Criteo-full geometry with sparse Adagrad under
+    the last mesh; exact top-k over 1M items split over the ranks against the unsharded call."""
+    from torch_rechub_tpu_torch.parallel import create_mesh
+    from torch_rechub_tpu_torch.parallel import distributed as pdist
+    from torch_rechub_tpu_torch.parallel.mesh import reshard, row_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {shape: create_mesh(*shape) for shape in shapes}
+    first = meshes[shapes[0]]
+    staged = pdist.host_staged(torch.zeros(1, device=CARD), first.data_group)
+    if rank == 0:
+        print(f"  (b) {first.size} ranks, backend {first.backend}, rank 0 on {torch.cuda.get_device_name(CARD)}; collectives on CUDA tensors "
+              f"{'staged through host memory (parallel.distributed.host_staged: gloo)' if staged else 'on the card'}")
+    counts = {k: 0 for k in COUNTERS}
+    n_layers, steps, vocab = SERVE["n_layers"], MESH["steps"], MESH["vocab"]
+    data = SeqLoader(*serving_data(BATCH * steps, SERVE["max_seq_len"], vocab, seed=14), batch_size=BATCH)
+
+    # (b) HSTU: the rank's own mesh=None run is the reference
+    ref_tr = SeqTrainer(mesh_hstu(vocab, 14), vocab_chunk_size=8192, model_path=MESH_DIR)
+    ref_loss = ref_tr.train_one_epoch(data, log_interval=0)
+    ref = params_of(ref_tr)
+    del ref_tr
+    for shape, mesh in meshes.items():
+        tr = SeqTrainer(mesh_hstu(vocab, 14), vocab_chunk_size=8192, mesh=mesh, model_path=MESH_DIR)
+        step_ms, reduce_ms = [], []
+        inner_step, inner_reduce = tr.train_step, pdist.all_reduce_gradients
+
+        def timed_step(*batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner_step(*batch)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return out
+
+        def timed_reduce(params, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner_reduce(params, group)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        tr.train_step, pdist.all_reduce_gradients = timed_step, timed_reduce
+        reset_counts()
+        try:
+            loss = tr.train_one_epoch(data, log_interval=0)
+        finally:
+            pdist.all_reduce_gradients = inner_reduce
+        mine = read_counts()
+        for k, v in mine.items():
+            counts[k] += v
+        table = tr.model.token_embedding
+        grads = sum(p.numel() for p in tr.model.parameters() if row_shard(p) is None) + sum(p.numel() for p in tr.model.parameters() if row_shard(p) is not None)
+        print(f"    (b) {shape} rank {rank} at {(mesh.data_index, mesh.model_index)}: {BATCH // shape[0]} rows a step; token table {tuple(table.shape)} {table.numel() * 4:,} bytes"
+              f"{' (a row shard)' if row_shard(table) is not None else ''}; launches " + ", ".join(f"{k} {v}" for k, v in mine.items() if v)
+              + f"; CUDA-event ms a step " + ", ".join(f"{t:.2f}" for t in step_ms) + f"; gradient all-reduce ({grads * 4:,} bytes) ms a step, host clock " + ", ".join(f"{t:.2f}" for t in reduce_ms))
+        got = mesh_state(tr)
+        if rank == 0:
+            mesh_compare(f"(b) HSTU V{vocab} under {shape}", got, ref, loss, ref_loss, MESH_HSTU_TOL)
+        expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * steps, "hstu_rab_bwd": n_layers * steps}
+        if mine != expected:
+            raise AssertionError(f"(b) {shape}: rank {rank} did not launch K1 and K2 once per layer per step: {mine}, expected {expected}")
+        del tr, got
+    del ref
+    torch.cuda.empty_cache()
+
+    # (c) DeepFM at the Criteo-full geometry, sparse Adagrad, under the last mesh, against the rank's mesh=None run;
+    # both under torch.use_deterministic_algorithms (index_add_'s atomics otherwise split runs into two clusters, §15)
+    mesh = meshes[shapes[-1]]
+    b = CTR["batch"]
+    x, y = ctr_data(MESH["ctr_steps"] * b, VOCABS_FULL, seed=16, zipf=True)
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for label, m in (("none", None), ("mesh", mesh)):
+            tr = CTRTrainer(ctr_model(VOCABS_FULL, seed=16, device=CARD), optimizer_params=CTR_OPT, sparse_embedding="adagrad", mesh=m, model_path=MESH_DIR)
+            (name,) = tr.sparse_tables
+            table = tr.sparse_tables[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_one_epoch(ArrayLoader(x, y, batch_size=b), log_interval=0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / MESH["ctr_steps"] * 1e3
+            print(f"    (c) DeepFM Criteo-full {'mesh=None' if m is None else shapes[-1]} rank {rank}: {name} {tuple(table.shape)} {table.numel() * 4:,} bytes"
+                  f"{' (a row shard)' if row_shard(table) is not None else ''}; {ms:.1f} ms a step of host clock (B{b}, {MESH['ctr_steps']} steps)")
+            runs[label] = (loss, tr)
+        (loss, tr), (ref_loss, ref_tr) = runs["mesh"], runs["none"]
+        params = dict(tr.model.named_parameters())
+        got = {k: v for k, v in tr.model.state_dict().items() if k in params}
+        got.update({f"accum:{k}": v for k, v in tr.sparse_accums.items()})
+        ref = {k: reshard(v, params[k]) for k, v in ref_tr.model.state_dict().items() if k in params}
+        ref.update({f"accum:{k}": reshard(v, tr.sparse_tables[k]) for k, v in ref_tr.sparse_accums.items()})
+        mesh_compare(f"(c) DeepFM Criteo-full under {shapes[-1]}, rank {rank}'s rows", got, ref, loss, ref_loss, MESH_CTR_TOL, lr_steps=2 * CTR_OPT["lr"] * MESH["ctr_steps"])
+        del runs, tr, ref_tr, got, ref, params
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    torch.cuda.empty_cache()
+
+    # (d) exact top-k over a 1M-item corpus split over the two ranks, against the unsharded call
+    rng = np.random.default_rng(17)
+    users = torch.as_tensor(rng.normal(size=(MESH["topk_users"], MESH["topk_dim"])).astype(np.float32), device=CARD)
+    items = torch.as_tensor(rng.normal(size=(MESH["topk_items"], MESH["topk_dim"])).astype(np.float32), device=CARD)
+    timings = {}
+    for label, m in (("unsharded", None), ("split", first)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timings[label] = brute_force_topk(users, items, MESH["k"], batch_size=MESH["topk_batch"], mesh=m) + ((time.perf_counter() - t0) * 1e3,)
+    (idx0, val0, ms0), (idx1, val1, ms1) = timings["unsharded"], timings["split"]
+    same = int((idx0 == idx1).all(axis=1).sum())
+    print(f"    (d) rank {rank}: top-{MESH['k']} of {MESH['topk_users']} users over {MESH['topk_items']:,} items: the split call {ms1:.1f} ms, the unsharded {ms0:.1f} ms "
+          f"(host clock, every rank at once); {same} of {MESH['topk_users']} users' indices equal; scores max |d| {float(np.abs(val0 - val1).max()):.3e}")
+    if same != MESH["topk_users"]:
+        raise AssertionError(f"(d) the split top-k differs from the unsharded one for {MESH['topk_users'] - same} users")
+    np.savez(out_path.replace(".npz", f"_rank{rank}.npz"), **counts)
+    torch.distributed.barrier()
+
+
+def mesh_phase():
+    """(a) a world of one over NCCL (this process), (b)-(d) two gloo ranks sharing the card; returns the launches,
+    summed over the ranks, of the mesh trainers' runs."""
+    from torch_rechub_tpu_torch.parallel import distributed as pdist
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    torch.cuda.empty_cache()
+    try:
+        launches = mesh_world_of_one()
+        t1 = time.perf_counter()
+        pdist.spawn(mesh_ranks, 2, args=(os.path.join(MESH_DIR, "two.npz"),), backend="gloo", timeout_s=420)
+        for rank in range(2):
+            for k, v in np.load(os.path.join(MESH_DIR, f"two_rank{rank}.npz")).items():
+                launches[k] += int(v)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"  the mesh phase's launches, summed over ranks: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; (a) {t1 - t0:.1f} s, (b)-(d) {time.perf_counter() - t1:.1f} s, the processes' start included")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -3959,6 +4242,11 @@ def main():
           "prefetching loop: step checkpoints, resume):")
     for name, n in lifecycle_phase(cycles_per_ms).items():
         launches[name] += n
+    print("mesh phase ((a) the serving HSTU on a (1, 1) mesh over NCCL against mesh=None through K2a + K2b and K2; two gloo ranks sharing the card: (b) the HSTU at "
+          "V65,536 under (2, 1) and (1, 2), (c) DeepFM at the Criteo-full geometry with sparse Adagrad under (1, 2), (d) exact top-10 over 1M items split over the ranks):")
+    print("  " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    for name, n in mesh_phase().items():
+        launches[name] += n
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
@@ -3970,7 +4258,7 @@ def main():
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving, training, sparse training and lifecycle paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
+        "launches": launches[name],  # serving, training, sparse training, lifecycle and mesh paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

@@ -395,7 +395,7 @@ def test_loss_mode_false_adds_the_aux_loss(tmp_path):
 
 def test_unported_options_raise():
     model = deepfm()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is taken (tests/test_torch_mesh_train.py); anything else raises
         CTRTrainer(model, device="cpu", mesh=object())
     # precision is ported (tests/test_torch_precision.py): bf16 is taken, an unknown name raises
     assert CTRTrainer(model, precision="bf16", device="cpu").precision == "bf16"

@@ -2,8 +2,8 @@
 batch of ``ParquetIterableDataset`` (its boundaries across files, the label column, the dtypes, fixed-width list
 columns) and of each ``shard``, and ``pa_array_to_numpy``; a ragged list column raises in both.
 ``prefetch_to_device`` hands over the iterator's values in its order (on the CPU here; the card's pinned copy
-stream is in ``test_torch_cuda_lifecycle.py``), refuses a mesh layout by its roadmap item and defaults to the
-card; ``CTRTrainer``'s loop gives the same losses through it as through synchronous copies.
+stream is in ``test_torch_cuda_lifecycle.py``), refuses a ``sharding`` that is not a mesh layout and defaults to
+the card; ``CTRTrainer``'s loop gives the same losses through it as through synchronous copies.
 """
 
 import numpy as np
@@ -95,7 +95,7 @@ def test_prefetch_to_device_keeps_values_and_order():
         for (x, y, none), (rx, ry, _) in zip(out, items):
             assert none is None and isinstance(y, torch.Tensor) and np.array_equal(y.numpy(), ry)
             assert all(x[k].dtype == torch.from_numpy(rx[k]).dtype and np.array_equal(x[k].numpy(), rx[k]) for k in rx)
-    with pytest.raises(NotImplementedError, match=r"item 14\(f\)"):
+    with pytest.raises(TypeError, match="BatchSharding"):  # a mesh layout is taken (tests/test_torch_mesh_train.py); anything else raises
         next(prefetch_to_device(iter(items), sharding=object(), device="cpu"))
     with pytest.raises(ValueError, match="size >= 1"):
         next(prefetch_to_device(iter(items), size=0, device="cpu"))

@@ -159,7 +159,7 @@ def test_match_trainer_rejects_what_is_not_ported(tmp_path):
         MatchTrainer(model, mode=3, device="cpu")
     with pytest.raises(ValueError, match="neg_pool"):
         MatchTrainer(model, neg_pool="shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is taken (tests/test_torch_mesh_train.py); anything else raises
         MatchTrainer(model, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="precision"):  # bf16 is ported (tests/test_torch_precision.py)
         MatchTrainer(model, precision="fp8", device="cpu")

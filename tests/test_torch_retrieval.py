@@ -136,7 +136,7 @@ def test_builder_factory_raises_for_the_backends_not_ported():
         tserving.builder_factory("scann")
     with pytest.raises(ValueError):
         tserving.builder_factory("bruteforce", metric="cosine", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is taken (tests/test_torch_mesh_train.py); anything else raises
         tserving.brute_force_topk(corpus(2), corpus(3), 1, mesh=object(), device="cpu")
 
 

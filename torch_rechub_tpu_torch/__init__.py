@@ -19,9 +19,12 @@ model summary, profiling hooks) and the Parquet input pipeline (``data``).
 Every TPU kernel of the JAX
 package is a CUDA kernel written for Hopper (``csrc/``), in fp32 and bf16:
 HSTU's rab attention forward (K1) and backward (K2, or the split K2a + K2b),
-and the materialised-bias attention ``ops.cuda.hstu_attention`` (K3).  Not
-ported yet: the device mesh (``mesh=`` raises), the approximate retrieval
-backends and the benchmark registry and examples.
+and the materialised-bias attention ``ops.cuda.hstu_attention`` (K3).  The
+(data, model) mesh of ``torch.distributed`` ranks (``parallel``) trains
+``SeqTrainer``, ``CTRTrainer`` and ``MatchTrainer`` and splits exact
+retrieval.  Not ported yet: ``mesh=`` on ``MTLTrainer`` and
+``RQVAETrainer``, the approximate retrieval backends and the benchmark
+registry and examples.
 """
 
 __version__ = "0.1.0"

@@ -32,6 +32,7 @@ from .activation import activation_layer
 from .hstu import dropout
 from .initializers import linear, param, torch_linear_init, uniform, xavier_normal, zeros
 from .precision import cast_compute, promote, sigmoid, softmax, weak
+from ..parallel.distributed import data_group, group_size, sum_partitioned
 
 
 def prediction(x: torch.Tensor, task_type: str = "classification") -> torch.Tensor:
@@ -64,6 +65,11 @@ class BatchNorm(nn.Module):
     drift by n/(n−1)).  The statistics are unweighted: every row of the
     batch counts.  The running ``mean`` starts at 0 and ``var`` at 1; in eval
     they normalise.  ``weight`` and ``bias`` are flax's ``scale`` and ``bias``.
+
+    Inside a training step under a device mesh (``parallel.distributed.data_parallel``)
+    the statistics are the global batch's, as in the JAX package's global
+    program: Σx and Σx² are summed over the data group, whose ranks hold the
+    batch's parts, and the running statistics are equal on every rank.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5, device=None):
@@ -78,8 +84,13 @@ class BatchNorm(nn.Module):
         x = x.to(torch.float32)
         if self.training:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
-            var = torch.clamp_min((flat * flat).mean(0) - mean * mean, 0.0)
+            group = data_group()
+            if group is None or group_size(group) == 1:
+                mean, mean_sq = flat.mean(0), (flat * flat).mean(0)
+            else:  # the global batch's moments: this rank's sums, summed over the data group
+                sums = sum_partitioned(torch.stack([flat.sum(0), (flat * flat).sum(0)]), group)
+                mean, mean_sq = sums / (flat.shape[0] * group_size(group))
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)

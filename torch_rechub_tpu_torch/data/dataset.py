@@ -18,6 +18,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import BatchSharding
 from .convert import pa_array_to_numpy
 
 
@@ -125,10 +126,14 @@ def prefetch_to_device(iterator, size: int = 2, sharding=None, device=None):
     the device buffer is marked as used on that stream (``record_stream``),
     so the allocator does not hand its memory to the copy stream again while
     the consumer still reads it.  Values and order are the iterator's.
-    ``sharding`` (a mesh layout) is not ported yet.
+    ``sharding`` (``parallel.mesh.batch_sharding`` / ``scan_batch_sharding``
+    of a mesh) keeps this rank's rows of each array, before the packing: only
+    they are copied.
     """
     if sharding is not None:
-        raise NotImplementedError("prefetch_to_device(sharding=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14(f)")
+        if not isinstance(sharding, BatchSharding):
+            raise TypeError(f"sharding must be a parallel.mesh.BatchSharding (batch_sharding(mesh) / scan_batch_sharding(mesh)) or None, got {type(sharding).__name__}")
+        iterator = (_tree_map(sharding.local, batch) for batch in iterator)
     if size < 1:
         raise ValueError(f"prefetch_to_device needs size >= 1, got {size}")
     from ..trainers.base import resolve_device  # the trainers import this module

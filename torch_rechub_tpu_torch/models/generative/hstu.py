@@ -12,6 +12,11 @@ updates: inside ``ops.sparse_update.record_rows`` they read the rows as a
 recorded leaf (``SeqTrainer(sparse_embedding=...)``).  A tied table also
 takes a dense gradient through the output projection, so it has no hook.
 
+Under a device mesh the token table and the output projection may be row
+shards (``parallel.mesh``): their rows are read through ``table_rows`` /
+the hooks, and the logits of a shard's vocab columns are gathered over the
+model group.
+
 Under the bf16 policy the embeddings (f32 tables) are cast to bf16 after
 the dropout and the stack runs in bf16; the logits are formed in bf16 and
 returned in f32, as in the JAX package.
@@ -28,10 +33,15 @@ from ...basic.hstu import HSTUBlock, dropout
 from ...basic.initializers import xavier_uniform_
 from ...basic.precision import compute_dtype
 from ...ops.sparse_update import gather_rows
+from ...parallel.distributed import gather_replicated, replicated_input
+from ...parallel.mesh import row_shard, table_rows, with_row_shard
 from ...utils.hstu_utils import bucketize_time
 
 
 class HSTUModel(nn.Module):
+    # the vocab tables a device mesh may row-shard: every read of them is shard-aware
+    row_shardable = ("token_embedding", "output_projection")
+
     def __init__(self, vocab_size: int, d_model: int = 512, n_heads: int = 8, n_layers: int = 4, dqk: int = 64, dv: int = 64, max_seq_len: int = 256, dropout: float = 0.1, use_time_embedding: bool = True, num_time_buckets: int = 128, time_bucket_fn: str = "sqrt", time_bucket_divisor: float = 1.0, time_bucket_unit: str = "minutes", tie_embeddings: bool = True, score_norm: str = "none", temperature: float = 1.0, use_output_bias: bool = True, scale_input_embedding: bool = False, l2_norm_eps: float = 1e-6, use_fused_kernel: bool = True, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if score_norm not in ("none", "l2"):
@@ -67,7 +77,7 @@ class HSTUModel(nn.Module):
         x = x.to(torch.int64)
         padding_mask = x != 0
 
-        token_emb = self.token_embedding[x] if self.tie_embeddings else gather_rows(self.token_embedding, x)
+        token_emb = table_rows(self.token_embedding, x) if self.tie_embeddings else gather_rows(self.token_embedding, x)
         if self.scale_input_embedding:
             token_emb = token_emb * (self.d_model**0.5)
         emb = token_emb + self.position_embedding[None, :l, :]
@@ -85,14 +95,19 @@ class HSTUModel(nn.Module):
         else:
             weight, bias = self.output_projection, self.output_projection_bias
         if self.score_norm == "l2":  # the norms in f32
-            out, weight = self._l2(out.to(torch.float32)).to(out.dtype), self._l2(weight)
+            out, weight = self._l2(out.to(torch.float32)).to(out.dtype), with_row_shard(self._l2(weight), weight)
 
         if return_hidden:
             # for the chunked large-vocab CE: score-normalised hidden states
             # and output table; the caller folds in self.temperature
             return {"hidden": out, "weight": weight, "bias": bias}
 
+        shard = row_shard(weight)
+        if shard is not None:  # the hidden states enter this rank's vocab columns
+            out = replicated_input(out, shard.group)
         logits = torch.einsum("bld,vd->blv", out, weight.to(out.dtype)).to(torch.float32)
+        if shard is not None:  # every owner's columns, in order
+            logits = gather_replicated(logits, shard.group, dim=-1)
         if bias is not None:
             logits = logits + bias
         if self.temperature != 1.0:
@@ -107,5 +122,5 @@ class HSTUModel(nn.Module):
         L2-normalised under ``score_norm="l2"``: the sampled softmax's
         candidate rows.  An untied table's gather is a hook of the sparse
         row-wise updates, as the token gather is."""
-        rows = self.token_embedding[ids] if self.tie_embeddings else gather_rows(self.output_projection, ids)
+        rows = table_rows(self.token_embedding, ids) if self.tie_embeddings else gather_rows(self.output_projection, ids)
         return self._l2(rows) if self.score_norm == "l2" else rows

@@ -12,6 +12,13 @@ the partition function.
 The sampled softmax estimates the partition from the target and
 ``num_negatives`` shared uniform negatives; the negatives come from a
 ``torch.Generator`` the caller owns (the trainer's).
+
+Under a device mesh the output table may be a row shard
+(``parallel.mesh.RowShard``): each rank of the model group runs the chunks
+of its own vocab rows, and the log-partitions combine by a max and a sum of
+exponentials over the group; the target rows are read through
+``table_rows``.  Inside a training step (``parallel.distributed.data_parallel``)
+the masked means are the global batch's.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..basic.precision import weak
+from ..parallel.distributed import all_reduce, gather_replicated, mean_over_data, replicated_input, sum_replicated
+from ..parallel.mesh import row_shard, table_rows
 
 _NEG_INF = -1e30
 
@@ -52,8 +61,22 @@ def chunked_logsumexp(hidden: torch.Tensor, weight: torch.Tensor, bias: Optional
         ignore_index: vocab column left out of the partition (``None`` keeps all).
         chunk_size: vocab tile; peak memory is ``prod(batch dims) * chunk_size``.
 
-    Returns ``(...,)`` float32 log-partition values.
+    Returns ``(...,)`` float32 log-partition values.  A row-shard ``weight``
+    gives the whole vocab's, combined over its model group.
     """
+    shard = row_shard(weight)
+    if shard is None:
+        return _local_logsumexp(hidden, weight, bias, temperature, ignore_index, chunk_size)
+    n = weight.shape[0]
+    # the hidden states and the bias enter this rank's vocab rows: their gradients sum over the model group
+    local_bias = None if bias is None else replicated_input(bias, shard.group)[shard.start: shard.start + n]
+    local_ignore = ignore_index - shard.start if ignore_index is not None and shard.start <= ignore_index < shard.start + n else None
+    lse = _local_logsumexp(replicated_input(hidden, shard.group), weight, local_bias, temperature, local_ignore, chunk_size)
+    top = all_reduce(lse, shard.group, torch.distributed.ReduceOp.MAX)  # a constant: the result does not depend on it
+    return top + torch.log(sum_replicated(torch.exp(lse - top), shard.group))
+
+
+def _local_logsumexp(hidden, weight, bias, temperature, ignore_index, chunk_size):
     v = weight.shape[0]
     chunk_size = min(chunk_size, v)
     weight = weight.to(hidden.dtype)  # the products in the compute dtype; the accumulators in f32
@@ -86,7 +109,7 @@ def chunked_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor, seq_toke
     L2-normalises); ``temperature`` is the combined logits divisor.
     """
     next_tokens = shifted_labels(seq_tokens, targets, ignore_index)
-    w_t = weight[next_tokens].to(hidden.dtype)
+    w_t = table_rows(weight, next_tokens).to(hidden.dtype)
     logit_t = torch.einsum("bld,bld->bl", hidden, w_t).to(torch.float32)
     if bias is not None:
         logit_t = logit_t + bias[next_tokens]
@@ -95,12 +118,15 @@ def chunked_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor, seq_toke
     lse = chunked_logsumexp(hidden, weight, bias, temperature, ignore_index, chunk_size)
     nll = lse - logit_t
     mask = (next_tokens != ignore_index).to(nll.dtype)
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return mean_over_data(torch.sum(nll * mask), torch.sum(mask), 1.0)
 
 
 def chunked_last_logits(hidden_last: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, temperature: float = 1.0) -> torch.Tensor:
-    """Dense ``(B, V)`` logits for the last position only (eval / top-k)."""
+    """Dense ``(B, V)`` logits for the last position only (eval / top-k); a row-shard ``weight``'s columns are
+    gathered over its model group."""
     logits = (hidden_last @ weight.to(hidden_last.dtype).T).to(torch.float32)
+    if row_shard(weight) is not None:
+        logits = gather_replicated(logits, row_shard(weight).group, dim=-1)
     if bias is not None:
         logits = logits + bias
     return logits / temperature
@@ -141,7 +167,7 @@ def sampled_loss_from_rows(hidden, w_pos, w_neg, b_pos, b_neg, next_tokens, negs
     logits = torch.cat([logits_pos[..., None], logits_neg], dim=-1)
     logp_target = torch.log_softmax(logits, dim=-1)[..., 0]
     mask = (next_tokens != ignore_index).to(torch.float32)
-    return -torch.sum(logp_target * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return mean_over_data(-torch.sum(logp_target * mask), torch.sum(mask), 1.0)
 
 
 def sampled_next_token_loss(hidden, weight, seq_tokens, targets, generator: Optional[torch.Generator], bias=None, temperature: float = 1.0, ignore_index: int = 0, num_negatives: int = 1024, remove_accidental_hits: bool = True, logq_correction: bool = True) -> torch.Tensor:
@@ -151,4 +177,4 @@ def sampled_next_token_loss(hidden, weight, seq_tokens, targets, generator: Opti
     next_tokens, negs = sampled_candidates(seq_tokens, targets, generator, v, num_negatives, ignore_index)
     b_pos = bias[next_tokens] if bias is not None else None
     b_neg = bias[negs] if bias is not None else None
-    return sampled_loss_from_rows(hidden, weight[next_tokens], weight[negs], b_pos, b_neg, next_tokens, negs, v, temperature, ignore_index, remove_accidental_hits, logq_correction)
+    return sampled_loss_from_rows(hidden, table_rows(weight, next_tokens), table_rows(weight, negs), b_pos, b_neg, next_tokens, negs, v, temperature, ignore_index, remove_accidental_hits, logq_correction)

@@ -22,6 +22,11 @@ table).  Ids of at least the table's rows are the caller's error.  The
 ``padding_idx`` row is masked by a multiply, so it reads as zero and takes
 no gradient.
 
+Under a device mesh a table may be a row shard (``parallel.mesh.RowShard``,
+placed by ``parallel.mesh.shard_params``): the gathers read each owner's
+rows and sum them over the model group, and ``table()`` gathers the whole
+table.
+
 Inside a sparse step (``ops.sparse_update.record_rows``) the fused gather
 is the hook of the sparse row-wise updates: the rows come from the
 detached table as a leaf that takes their gradient, and the recorder keeps
@@ -40,6 +45,7 @@ from torch import nn
 
 from ..basic.features import DenseFeature, Feature, SequenceFeature, SparseFeature, table_name
 from ..basic.precision import compute_dtype
+from ..parallel.mesh import row_shard
 from .sparse_update import gather_rows, outside_hooks
 
 # The process-wide default of EmbeddingCollection.fused.
@@ -162,7 +168,11 @@ def _ids(x: Mapping[str, torch.Tensor], feature) -> torch.Tensor:
 
 
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(table, ids, axis=0)`` for ids in [-rows, rows): negative ids count from the end."""
+    """``jnp.take(table, ids, axis=0)`` for ids in [-rows, rows): negative ids count from the end (of the whole
+    table, for a row shard)."""
+    shard = row_shard(table)
+    if shard is not None:
+        return shard.read(table, ids)
     return F.embedding(torch.where(ids < 0, ids + table.shape[0], ids), table)
 
 
@@ -197,10 +207,21 @@ class EmbeddingCollection(nn.Module):
         takes no gradient there, as in the JAX package's sparse step.
         """
         v = self.layout.specs[name].vocab_size
+        off = 0
         if name in self.layout.offsets:
             dim, off = self.layout.offsets[name]
-            return outside_hooks(getattr(self, f"fused_d{dim}_table"))[off: off + v]
-        return outside_hooks(getattr(self, f"{name}_table"))[:v]
+            param = getattr(self, f"fused_d{dim}_table")
+        else:
+            param = getattr(self, f"{name}_table")
+        table = outside_hooks(param)
+        if row_shard(param) is not None:  # a row shard: the whole table, every owner's rows
+            table = row_shard(param).gather(table)
+        return table[off: off + v]
+
+    @property
+    def row_shardable(self):
+        """The tables this module reads only through shard-aware gathers: all of them (``parallel.mesh.shard_params``)."""
+        return tuple(name for name, _ in self.named_parameters(recurse=False))
 
     def lookup(self, x: Mapping[str, torch.Tensor], feature) -> torch.Tensor:
         """Gather the rows of one sparse or sequence feature; the padding_idx row reads as 0."""

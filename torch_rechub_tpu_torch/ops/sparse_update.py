@@ -37,6 +37,8 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import row_shard, table_rows
+
 TABLE_PREFIX = "fused_d"
 TABLE_SUFFIX = "_table"
 
@@ -91,11 +93,20 @@ def sparse_sgd_update(table: torch.Tensor, flat_ids: torch.Tensor, flat_grads: t
 
     A dense SGD step gives the same table (duplicates add up as a dense
     gradient's would).  ``weight_decay`` decays the touched rows lazily, once
-    per occurrence of an id, from the rows before the step.
+    per occurrence of an id, from the rows before the step.  On a row shard
+    (``parallel.mesh.RowShard``) the ids are the whole table's and only the
+    shard's own rows move.
     """
-    rows = _wrap(flat_ids.reshape(-1).to(torch.int64), table.shape[0])
+    shard = row_shard(table)
+    rows = _wrap(flat_ids.reshape(-1).to(torch.int64), table.shape[0] if shard is None else shard.rows)
+    grads = flat_grads.reshape(rows.shape[0], flat_grads.shape[-1])
+    if shard is not None:
+        rows, owned = shard.own(rows, table.shape[0])
+        grads = grads * owned[:, None].to(grads.dtype)
     decay = table.index_select(0, rows) if weight_decay else None
-    table.index_add_(0, rows, (-lr * flat_grads.reshape(rows.shape[0], flat_grads.shape[-1])).to(table.dtype))
+    if weight_decay and shard is not None:
+        decay = decay * owned[:, None].to(decay.dtype)
+    table.index_add_(0, rows, (-lr * grads).to(table.dtype))
     if weight_decay:
         table.index_add_(0, rows, (-lr * weight_decay * decay).to(table.dtype))
     return table
@@ -114,6 +125,10 @@ def rowwise_adagrad_update(table: torch.Tensor, accum: torch.Tensor, flat_ids: t
             which a fused table always leaves spare.  A recorded id equal to
             it is treated as fill: its row and accumulator do not change.
 
+    On a row shard (``parallel.mesh.RowShard``) ``table`` and ``accum`` are the
+    shard's, the ids and ``spare_row`` the whole table's; the dedup runs
+    over every id, and only the shard's own rows and accumulators move.
+
     Per distinct id ``u`` with summed gradient ``s``: ``accum[u] += mean(s²)``,
     then ``W[u] -= lr / (sqrt(accum[u]) + eps) · s`` (plus
     ``lr · weight_decay · W[u]`` from the rows before the step).
@@ -122,11 +137,17 @@ def rowwise_adagrad_update(table: torch.Tensor, accum: torch.Tensor, flat_ids: t
     ids = flat_ids.reshape(-1).to(torch.int64)
     n = ids.shape[0]
     grads = flat_grads.reshape(n, flat_grads.shape[-1])
-    fill = table.shape[0] - 1 if spare_row < 0 else spare_row
+    shard = row_shard(table)
+    total = table.shape[0] if shard is None else shard.rows
+    fill = total - 1 if spare_row < 0 else spare_row
     u, inv = unique_with_fill(ids, fill)
     seg = torch.zeros((n, grads.shape[1]), dtype=grads.dtype, device=grads.device).index_add_(0, inv, grads)
-    valid = (u != fill).to(table.dtype)
-    rows = _wrap(u, table.shape[0])
+    valid = u != fill
+    rows = _wrap(u, total)
+    if shard is not None:
+        rows, owned = shard.own(rows, table.shape[0])
+        valid = valid & owned
+    valid = valid.to(table.dtype)
     accum.index_add_(0, rows, torch.mean(seg * seg, dim=-1) * valid)
     scale = lr / (torch.sqrt(accum.index_select(0, rows)) + eps) * valid
     upd = -scale[:, None] * seg
@@ -152,8 +173,12 @@ class RowRecorder:
         return id(table) in self.names
 
     def gather(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """``table[ids]`` as a leaf that takes the rows' gradient; ``ids`` are recorded unwrapped."""
-        rows = F.embedding(_wrap(ids, table.shape[0]), table.detach()).requires_grad_()
+        """``table[ids]`` as a leaf that takes the rows' gradient; ``ids`` are recorded unwrapped.
+
+        A row shard's leaf holds the whole table's rows (``RowShard.read``).
+        """
+        shard = row_shard(table)
+        rows = (F.embedding(_wrap(ids, table.shape[0]), table.detach()) if shard is None else shard.read(table.detach(), ids)).requires_grad_()
         self.records.append((self.names[id(table)], ids, rows))
         return rows
 
@@ -167,12 +192,12 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, gather=None) -> torch.Te
 
     Inside a :func:`record_rows` of this thread that owns ``table``, the
     recorded leaf (:meth:`RowRecorder.gather`); else ``gather(table, ids)``,
-    plain indexing by default.
+    plain indexing (of a row shard's whole table) by default.
     """
     rec = getattr(_STATE, "recorder", None)
     if rec is not None and rec.owns(table):
         return rec.gather(table, ids)
-    return table[ids] if gather is None else gather(table, ids)
+    return table_rows(table, ids) if gather is None else gather(table, ids)
 
 
 def outside_hooks(table: torch.Tensor) -> torch.Tensor:

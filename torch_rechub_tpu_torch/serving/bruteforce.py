@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from .base import BaseBuilder, BaseIndexer, simple_context
+from ..parallel.mesh import check_mesh
 from ..trainers.base import resolve_device
-from .retrieval import _no_mesh, as_matrix, brute_force_topk
+from .retrieval import as_matrix, brute_force_topk
 
 
 def _normalized(x: torch.Tensor) -> torch.Tensor:
@@ -27,7 +28,7 @@ def _normalized(x: torch.Tensor) -> torch.Tensor:
 
 class BruteForceIndexer(BaseIndexer):
     def __init__(self, embeddings: np.ndarray, metric: str = "ip", mesh=None, device=None):
-        _no_mesh(mesh)
+        check_mesh(mesh)
         self.embeddings = np.asarray(embeddings, dtype=np.float32)
         self.metric, self.mesh = metric, mesh
         self.device = resolve_device(device)
@@ -44,9 +45,9 @@ class BruteForceIndexer(BaseIndexer):
         if self.metric == "angular":
             q = _normalized(q)
         if self.metric == "l2":
-            idx, scores = brute_force_topk(torch.cat([q, torch.ones_like(q[:, :1])], dim=1), self._items, top_k, device=self.device)
+            idx, scores = brute_force_topk(torch.cat([q, torch.ones_like(q[:, :1])], dim=1), self._items, top_k, mesh=self.mesh, device=self.device)
             return idx, (q * q).sum(1, keepdim=True).cpu().numpy() - 2 * scores
-        return brute_force_topk(q, self._items, top_k, device=self.device)
+        return brute_force_topk(q, self._items, top_k, mesh=self.mesh, device=self.device)
 
     def save(self, file_path) -> None:
         np.save(str(file_path), self.embeddings)
@@ -56,7 +57,7 @@ class BruteForceBuilder(BaseBuilder):
     def __init__(self, metric: str = "ip", mesh=None, device=None):
         if metric not in ("ip", "l2", "angular", "dot"):
             raise ValueError(f"unsupported metric {metric!r}")
-        _no_mesh(mesh)
+        check_mesh(mesh)
         self.metric = "ip" if metric == "dot" else metric
         self.mesh, self.device = mesh, device
 

@@ -12,8 +12,14 @@ exact top-k, ``topk_metrics``, without pandas.
 
 Inputs may be numpy arrays or tensors; the work runs on ``device``, the
 card unless the caller names another (with no card and no device it
-raises), and the results come back as numpy.  The sharded corpus of the
-JAX package (``mesh=``) waits for the mesh, ROADMAP queue 1 item 14.
+raises), and the results come back as numpy.
+
+With ``mesh=`` (every rank of it calls with the same inputs) the corpus is
+split over all the mesh's ranks when its rows divide evenly, else
+replicated, as in the JAX package: each rank takes the top k of its rows,
+and the ranks' k candidates, gathered, merge in ``jax.lax.top_k``'s order,
+the lower index first among equal scores (among the candidates: a tie at a
+rank's k-th score is cut by ``torch.topk``).  Every rank gets the result.
 """
 
 from __future__ import annotations
@@ -23,12 +29,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import all_gather
+from ..parallel.mesh import check_mesh
 from ..trainers.base import resolve_device
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("retrieval over a device mesh is not ported yet: it comes with ROADMAP queue 1, item 14")
 
 
 def as_matrix(x, device) -> torch.Tensor:
@@ -42,14 +45,30 @@ def topk_scores(users: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[torch
     return ids, scores
 
 
+def merge_topk(ids: torch.Tensor, scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` best of ``(U, n)`` candidate ``(ids, scores)``, equal scores in ascending id order."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    ids, scores = torch.gather(ids, 1, order), torch.gather(scores, 1, order)
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    return torch.gather(ids, 1, order)[:, :k], scores[:, :k]
+
+
 def brute_force_topk(user_emb, item_emb, k: int, batch_size: int = 8192, mesh=None, device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Exact top-k items per user by inner product: ``(ids int64, scores float32)``, each ``(U, k)``."""
-    _no_mesh(mesh)
+    check_mesh(mesh)
     device = resolve_device(device)
     users, items = as_matrix(user_emb, device), as_matrix(item_emb, device)
+    split = mesh is not None and items.shape[0] % mesh.size == 0
+    offset = 0
+    if split:
+        n = items.shape[0] // mesh.size
+        offset = torch.distributed.get_rank() * n
+        items = items[offset: offset + n]
     ids, scores = [], []
     for start in range(0, users.shape[0], batch_size):
         i, s = topk_scores(users[start:start + batch_size], items, k)
+        if split:  # every rank's candidates, merged
+            i, s = merge_topk(all_gather(i + offset, None, dim=1), all_gather(s, None, dim=1), k)
         ids.append(i)
         scores.append(s)
     return torch.cat(ids).cpu().numpy(), torch.cat(scores).cpu().numpy()

@@ -12,6 +12,16 @@ state stay float32.  ``TorchTrainer`` also carries the JAX trainer's
 lifecycle: the step count and full train state, step checkpoints and
 exact resume (``utils/checkpoint.py``), ``export`` / ``export_quantized``
 (``utils/export.py``) and ``visualization`` (``utils/model_utils.py``).
+
+``mesh=`` (a ``parallel.mesh.DeviceMesh``, every rank of it running the
+same trainer on the same loader) trains as ``mesh=None`` does over the same
+global batches: the parameters are placed at construction
+(``parallel.mesh.shard_params``: tables row-sharded over the model axis,
+the rest replicated), each step keeps this rank's rows of the batch, the
+losses and BatchNorm's statistics are the global batch's, and the
+gradients are summed over the data group before the optimizer; the sparse
+row updates dedup over the global batch.  ``train_state()`` is the
+unsharded state, so a checkpoint moves between meshes; rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from ..basic.loss import classify_param
 from ..basic.precision import _resolve, precision_scope
 from ..basic.tracking import iter_loggers
 from ..ops.sparse_update import record_rows
+from ..parallel import distributed as pdist
+from ..parallel import mesh as mesh_lib
 from ..utils.data import pad_batch
 from .sparse import apply_sparse_table_updates, init_sparse_opt_state, validate_method
 
@@ -187,13 +199,14 @@ class TorchTrainer:
     draws afresh, in both packages.
     """
 
-    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = (), precision=None):
+    def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", seed: int = 0, loggers=None, device=None, sparse_embedding=None, sparse_names: Tuple[str, ...] = (), spare_rows: Optional[Dict[str, int]] = None, extra_params: Tuple[Tuple[str, torch.Tensor], ...] = (), precision=None, mesh=None):
         # extra_params: ``(name, tensor)`` pairs outside the model that the dense optimizer steps too
         # (MTLTrainer's loss weights)
         _resolve(precision)  # validated before anything moves
+        self.mesh = mesh_lib.check_mesh(mesh)
         self.precision = precision
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = mesh_lib.shard_params(model.to(self.device), mesh)  # placed before the optimizer state is made
         # sparse_embedding: the tables the row-wise updates own, their
         # accumulators and fill rows (trainers/sparse.py); the dense optimizer
         # covers the other parameters
@@ -236,21 +249,70 @@ class TorchTrainer:
         """
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        with record_rows(self.sparse_tables) as rec:
+        with record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
             loss = self.loss_fn(*batch)
         loss.backward()
+        group = None if self.mesh is None else self.mesh.data_group
+        if group is not None:
+            pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], group)
         self.optimizer.step()
-        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows)
+        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
         self.step += 1
         return loss.detach()
 
+    def penalty(self, reg_loss_fn, named_parameters) -> torch.Tensor:
+        """``reg_loss_fn`` over ``named_parameters``; under a mesh its value is the whole model's (a row shard's part
+        summed over the model group) and its gradient is carried by data index 0 alone, so that the data group's
+        gradient sum counts it once."""
+        if self.mesh is None:
+            return reg_loss_fn(named_parameters)
+        named = list(named_parameters)
+        shards = [(n, p) for n, p in named if mesh_lib.row_shard(p) is not None]
+        total = reg_loss_fn([(n, p) for n, p in named if mesh_lib.row_shard(p) is None])
+        if shards:
+            total = total + pdist.sum_replicated(reg_loss_fn(shards), self.mesh.model_group)
+        return total if self.mesh.data_index == 0 else total.detach()
+
+    def _writes(self) -> bool:
+        """Whether this process writes files (checkpoints, the model): always without a mesh, rank 0 under one."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _check_no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what}() under a mesh: load train_state() into a trainer without one and call it there")
+
     # -- the train state and step checkpoints (preemption-safe resume) --------
     def train_state(self) -> Dict:
-        """The full train state, as references to the live tensors (``torch.save`` it, or copy it to keep it)."""
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "sparse_accums": dict(self.sparse_accums), "step": self.step}
+        """The full train state, as references to the live tensors (``torch.save`` it, or copy it to keep it).
+
+        Under a mesh the row shards are gathered (every rank calls it): the
+        state is the unsharded one, which loads under any mesh or none.
+        """
+        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "sparse_accums": dict(self.sparse_accums), "step": self.step}
+        if self.mesh is None:
+            return state
+        return self._map_shards(state, mesh_lib.unshard)
+
+    def _map_shards(self, state: Dict, fn) -> Dict:
+        """``state`` with ``fn(tensor, parameter)`` applied to each tensor that belongs to a parameter (its value,
+        its optimizer state, its sparse accumulator)."""
+        params = dict(self.model.named_parameters())
+        model = {k: fn(v, params[k]) if k in params else v for k, v in state["model"].items()}
+        parts = getattr(self.optimizer, "optimizers", [self.optimizer])
+        dicts = state["optimizer"]["optimizers"] if isinstance(self.optimizer, SplitOptimizer) else [state["optimizer"]]
+        mapped = []
+        for opt, sd in zip(parts, dicts):
+            plist = [p for g in opt.param_groups for p in g["params"]]
+            mapped.append({**sd, "state": {i: {k: fn(v, plist[int(i)]) if isinstance(v, torch.Tensor) and v.ndim else v for k, v in st.items()} for i, st in sd["state"].items()}})
+        optimizer = {"optimizers": mapped} if isinstance(self.optimizer, SplitOptimizer) else mapped[0]
+        accums = {k: fn(v, self.sparse_tables[k]) for k, v in state["sparse_accums"].items()}
+        return {**state, "model": model, "optimizer": optimizer, "sparse_accums": accums}
 
     def load_train_state(self, state: Dict) -> None:
-        """Load a state of :meth:`train_state`'s structure into this trainer, in place."""
+        """Load a state of :meth:`train_state`'s structure into this trainer, in place (under a mesh, this rank's
+        rows of each row shard's whole-table tensors)."""
+        if self.mesh is not None:
+            state = self._map_shards(state, mesh_lib.reshard)
         self.model.load_state_dict(state["model"])
         check_optimizer_state(state["optimizer"], self.optimizer)
         self.optimizer.load_state_dict(state["optimizer"])
@@ -271,7 +333,11 @@ class TorchTrainer:
     def maybe_step_checkpoint(self):
         """Save the train state when step checkpoints are on and ``step`` is a positive multiple of ``every_n_steps``."""
         if self._ckpt is not None and self.step > 0 and self.step % self._ckpt_every == 0:
-            self._ckpt.save(self.step, self.train_state())
+            state = self.train_state()  # a collective under a mesh: every rank gathers
+            if self._writes():
+                self._ckpt.save(self.step, state)
+            if self.mesh is not None:
+                torch.distributed.barrier()  # no rank reads the step before it is written
 
     def maybe_resume(self) -> Optional[int]:
         """Restore the latest step checkpoint into this trainer; returns the resumed step, or None."""
@@ -293,6 +359,7 @@ class TorchTrainer:
         example's shapes, saved to ``<output_path>.pt2`` (``utils/export.py``); the example is
         ``generate_dummy_input(model)`` when not given."""
         self._require_state("export")
+        self._check_no_mesh("export")
         from ..utils.export import TorchExporter
         from ..utils.model_utils import generate_dummy_input
 
@@ -303,6 +370,7 @@ class TorchTrainer:
     def export_quantized(self, output_path: str, example_input=None, mode: Optional[str] = None, quant_mode: str = "int8") -> str:
         """The same export with int8 (per-channel scales) or fp16 weights, dequantized inside the program."""
         self._require_state("export_quantized")
+        self._check_no_mesh("export_quantized")
         from ..utils.export import TorchExporter
         from ..utils.model_utils import generate_dummy_input
 
@@ -325,17 +393,35 @@ class TorchTrainer:
         print(summary)
         return summary
 
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict``, unsharded under a mesh (a collective: every rank calls it)."""
+        state = self.model.state_dict()
+        if self.mesh is None:
+            return state
+        params = dict(self.model.named_parameters())
+        return {k: mesh_lib.unshard(v, params[k]) if k in params else v for k, v in state.items()}
+
     def save(self, name: str = "model.pt") -> str:
         os.makedirs(self.model_path or ".", exist_ok=True)
         target = os.path.join(self.model_path or ".", name)
-        torch.save(self.model.state_dict(), target)
+        state = self.model_state()
+        if self._writes():
+            torch.save(state, target)
+        if self.mesh is not None:
+            torch.distributed.barrier()
         return target
 
-    def load(self, name: str = "model.pt") -> torch.nn.Module:
-        target = self.model_path if os.path.isfile(self.model_path) else os.path.join(self.model_path, name)
+    def load_weights(self, target: str) -> None:
+        """Load the ``state_dict`` file ``target`` into the model (under a mesh, this rank's rows of each row shard)."""
         state = torch.load(target, map_location=self.device, weights_only=True)
+        if self.mesh is not None:
+            params = dict(self.model.named_parameters())
+            state = {k: mesh_lib.reshard(v, params[k]) if k in params else v for k, v in state.items()}
         check_table_rows(state, self.model.state_dict(), target)
         self.model.load_state_dict(state)
+
+    def load(self, name: str = "model.pt") -> torch.nn.Module:
+        self.load_weights(self.model_path if os.path.isfile(self.model_path) else os.path.join(self.model_path, name))
         self._weights_loaded = True
         return self.model
 
@@ -384,12 +470,15 @@ class DictBatchTrainer(TorchTrainer):
 
     def _groups(self, data_loader):
         """The loader's groups on the device: a ``DeviceCachedLoader``'s own, else the host groups copied two
-        groups ahead of the step (``data/dataset.py`` ``prefetch_to_device``)."""
+        groups ahead of the step (``data/dataset.py`` ``prefetch_to_device``).  Under a mesh, this rank's rows
+        of each group."""
+        sharding = mesh_lib.scan_batch_sharding(self.mesh)
         if hasattr(data_loader, "device_groups"):
-            return data_loader.device_groups()
+            groups = data_loader.device_groups()
+            return groups if sharding is None else (({k: sharding.local(v) for k, v in xs.items()}, None if ys is None else sharding.local(ys), sharding.local(ws)) for xs, ys, ws in groups)
         from ..data.dataset import prefetch_to_device
 
-        return prefetch_to_device(self._iter_groups(data_loader), size=2, device=self.device)
+        return prefetch_to_device(self._iter_groups(data_loader), size=2, sharding=sharding, device=self.device)
 
     def train_one_epoch(self, data_loader, log_interval: int = 10, lr: Optional[float] = None) -> float:
         """One pass over ``data_loader``; returns the mean step loss (one host read at the end)."""

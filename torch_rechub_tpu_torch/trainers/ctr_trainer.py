@@ -18,6 +18,12 @@ exact AUC, or the bucketed one from histograms that add up on the device.
 ``sparse_embedding="sgd" | "adagrad"`` updates the fused tables row by row
 (``trainers/sparse.py``): Adam (and the regularization) cover the other
 parameters only, the per-feature tables included.
+
+``mesh=`` trains over a (data, model) mesh of ranks (``trainers/base.py``,
+``parallel/mesh.py``): each rank steps on its rows of every global batch,
+the fused tables (and tables of at least 65,536 rows) are row-sharded over
+the model axis, and the result is that of ``mesh=None``.  ``predict`` and
+``evaluate`` run the whole batch on every rank, which must all call them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from ..basic.callback import EarlyStopper
 from ..basic.loss import RegularizationLoss, bce_with_logits
 from ..basic.metric import auc_from_histogram, auc_histogram, auc_score
+from ..parallel.distributed import mean_over_data
 from ..utils.data import pad_batch
 from .base import DictBatchTrainer, to_numpy, under_precision
 
@@ -38,7 +45,7 @@ class CTRTrainer(DictBatchTrainer):
     (``device="cpu"``); with no card and no device it raises.
 
     ``precision="bf16"`` computes in bf16 (``basic/precision.py``); ``mesh``
-    is not ported yet and raises; ``batch_size_hint`` is accepted and
+    takes a ``parallel.mesh.DeviceMesh``; ``batch_size_hint`` is accepted and
     unused, as in the JAX package.
     """
 
@@ -46,9 +53,7 @@ class CTRTrainer(DictBatchTrainer):
     checkpoint_in_loop = True  # maybe_step_checkpoint after each group, as the JAX package's loop
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, loss_mode: bool = True, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, batch_size_hint=None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("CTRTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision, mesh=mesh)
         self.loss_mode = loss_mode
         self.reg_loss_fn = RegularizationLoss(**(regularization_params or {}))
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -65,9 +70,11 @@ class CTRTrainer(DictBatchTrainer):
         aux = 0.0
         if not self.loss_mode:
             out, aux = out
+            if self.mesh is not None:  # the model's mean over this rank's rows: the mean of the ranks' means
+                aux = mean_over_data(aux * y.shape[0], torch.tensor(float(y.shape[0]), device=y.device), 1.0)
         loss = bce_with_logits(out, y, w) + aux
         if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
-            loss = loss + self.reg_loss_fn((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables)
+            loss = loss + self.penalty(self.reg_loss_fn, ((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables))
         return loss
 
     # -- evaluation ----------------------------------------------------------

@@ -15,9 +15,16 @@ A step is eager PyTorch on ``TorchTrainer.train_step``; ``steps_per_call``
 groups run as that many single steps.  ``sparse_embedding="sgd" |
 "adagrad"`` updates the fused tables row by row (``trainers/sparse.py``):
 the gather hooks record inside the towers on the in-batch path as on the
-others.  ``neg_pool`` is ``"global"`` or ``"local"``; without a device mesh
-both mean the whole batch, as in the JAX package.  ``inference_embedding``
-streams a tower's embeddings from the best checkpoint.
+others.  ``inference_embedding`` streams a tower's embeddings from the best
+checkpoint.
+
+``mesh=`` trains over a (data, model) mesh of ranks (``trainers/base.py``).
+``neg_pool="global"`` (the default) scores this rank's users against the
+item tower gathered over the data group (its gradient summed back), so the
+pool, and the uniform draws, are ``mesh=None``'s; ``"local"`` scores each
+data rank's own ``(b, b)`` block with negatives from that rank's generator
+(``utils.match.local_inbatch_loss``).  Without a data axis both mean the
+whole batch, as in the JAX package.
 
 The uniform in-batch draws and MIND's routing start come from the
 trainer's generators, not JAX's streams.
@@ -35,8 +42,9 @@ from ..basic.callback import EarlyStopper
 from ..basic.loss import RegularizationLoss, bce_with_logits, bpr_loss, softmax_cross_entropy
 from ..basic.metric import auc_score
 from ..utils.data import pad_batch
-from ..utils.match import gather_inbatch_logits, inbatch_negative_sampling
-from .base import DictBatchTrainer, check_table_rows, to_numpy, under_precision
+from ..parallel.distributed import gather_partitioned, global_batch_seed
+from ..utils.match import gather_inbatch_logits, inbatch_negative_sampling, local_inbatch_loss
+from .base import DictBatchTrainer, to_numpy, under_precision
 
 
 def _flat_tower(emb: torch.Tensor) -> torch.Tensor:
@@ -49,22 +57,24 @@ class MatchTrainer(DictBatchTrainer):
     (``device="cpu"``); with no card and no device it raises.
 
     ``precision="bf16"`` computes in bf16 (``basic/precision.py``); scores and
-    tower embeddings are read in f32.  ``mesh`` is not ported yet and raises.
+    tower embeddings are read in f32.  ``mesh`` takes a ``parallel.mesh.DeviceMesh``.
     """
 
     def __init__(self, model: torch.nn.Module, mode: int = 0, in_batch_neg: bool = False, in_batch_neg_ratio: Optional[int] = None, hard_negative: bool = False, neg_pool: str = "global", sampler_seed: Optional[int] = None, optimizer_params=None, regularization_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("MatchTrainer(mesh=...) is not ported yet: the data / model mesh, and with it the local negative pool, come with ROADMAP queue 1, item 14")
         if mode not in (0, 1, 2):
             raise ValueError(f"mode only contain value in [0, 1, 2], but got {mode}")
         if neg_pool not in ("global", "local"):
             raise ValueError(f"neg_pool must be 'global' or 'local', got {neg_pool!r}")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, precision=precision, mesh=mesh)
         self.mode = mode
         self.in_batch_neg, self.in_batch_neg_ratio, self.hard_negative = in_batch_neg, in_batch_neg_ratio, hard_negative
         self.neg_pool = neg_pool
         self.sampler_seed = sampler_seed if sampler_seed is not None else seed
         self.sampler = torch.Generator(device=self.device).manual_seed(self.sampler_seed)
+        # the local pool differs from the global one only where the batch splits over a data axis
+        self.local_pool = neg_pool == "local" and mesh is not None and mesh.shape["data"] > 1
+        if self.local_pool:  # each data rank draws from a stream of its own
+            self.sampler = torch.Generator(device=self.device).manual_seed(global_batch_seed(self.sampler_seed, 1 + mesh.data_index))
         self.reg_loss_fn = RegularizationLoss(**(regularization_params or {}))
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
         self.steps_per_call = int(steps_per_call)
@@ -79,9 +89,14 @@ class MatchTrainer(DictBatchTrainer):
         model, gen = self.model, self.generator
         if self.in_batch_neg:
             user, item = (_flat_tower(e) for e in model.towers(x, generator=gen))
-            scores = user @ item.T  # (B, B)
-            neg_idx = inbatch_negative_sampling(scores, self.in_batch_neg_ratio, self.hard_negative, generator=self.sampler)
-            logits = gather_inbatch_logits(scores, neg_idx)
+            if self.local_pool:
+                return local_inbatch_loss(user, item, w, self.sampler, self.mesh, self.mode, self.in_batch_neg_ratio, self.hard_negative)
+            offset = 0
+            if self.mesh is not None:  # the global batch's items; this rank's users are its rows from offset on
+                item, offset = gather_partitioned(item, self.mesh.data_group), self.mesh.data_index * user.shape[0]
+            scores = user @ item.T  # (b, B)
+            neg_idx = inbatch_negative_sampling(scores, self.in_batch_neg_ratio, self.hard_negative, generator=self.sampler, row_offset=offset)
+            logits = gather_inbatch_logits(scores, neg_idx, row_offset=offset)
             if self.mode == 1:
                 return bpr_loss(logits[:, 0], logits[:, 1:], w)
             return softmax_cross_entropy(logits, torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device), w)
@@ -95,7 +110,7 @@ class MatchTrainer(DictBatchTrainer):
     def loss_fn(self, x, y: Optional[torch.Tensor], w: torch.Tensor) -> torch.Tensor:
         loss = self._mode_loss(x, y, w)
         if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
-            loss = loss + self.reg_loss_fn((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables)
+            loss = loss + self.penalty(self.reg_loss_fn, ((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables))
         return loss
 
     # -- evaluation ----------------------------------------------------------
@@ -145,7 +160,5 @@ class MatchTrainer(DictBatchTrainer):
         assert mode in ("user", "item"), f"Invalid mode={mode}."
         target = os.path.join(model_path or ".", "model.pt")
         if model_path and os.path.exists(target):
-            state = torch.load(target, map_location=self.device, weights_only=True)
-            check_table_rows(state, self.model.state_dict(), target)
-            self.model.load_state_dict(state)
+            self.load_weights(target)
         return to_numpy(self._outputs(data_loader, lambda out, n: out[:n], mode=mode)[0])

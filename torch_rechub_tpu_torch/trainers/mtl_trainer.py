@@ -91,7 +91,7 @@ class MTLTrainer(DictBatchTrainer):
 
     def __init__(self, model: torch.nn.Module, task_types, optimizer_params=None, regularization_params=None, scheduler_params=None, adaptive_params=None, n_epoch: int = 10, earlystop_taskid: int = 0, earlystop_patience: int = 10, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
         if mesh is not None:
-            raise NotImplementedError("MTLTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
+            raise NotImplementedError("MTLTrainer(mesh=...) is not ported yet: GradNorm / MetaBalance over the global per-task gradients come with ROADMAP queue 1, item 14(f), the rest")
         self.adaptive_params = adaptive_params or {}
         self.adaptive_method = None
         if adaptive_params is not None:

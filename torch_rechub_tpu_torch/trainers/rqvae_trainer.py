@@ -39,7 +39,7 @@ class RQVAETrainer(TorchTrainer):
 
     def __init__(self, model: RQVAEModel, optimizer_params=None, scheduler_params=None, n_epoch: int = 100, eval_step: int = 5, model_path: str = "./", use_sk: bool = True, model_logger=None, mesh=None, seed: int = 0, device=None):
         if mesh is not None:
-            raise NotImplementedError("RQVAETrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
+            raise NotImplementedError("RQVAETrainer(mesh=...) is not ported yet: k-means and Sinkhorn over the global batch come with ROADMAP queue 1, item 14(f), the rest")
         super().__init__(model, optimizer_params, scheduler_params, n_epoch, 10, model_path, seed, model_logger, device)
         self.eval_step = eval_step
         self.use_sk = use_sk

@@ -24,6 +24,15 @@ the forward, so it takes no update.
 ``precision="bf16"`` runs the model in bf16 (``basic/precision.py``): on
 the card the attention goes through the bf16 kernels; the logits and the
 losses are read in f32.
+
+``mesh=`` trains over a (data, model) mesh of ranks (``trainers/base.py``,
+``parallel/mesh.py``): each rank runs the layers (on the card K1, then K2 or
+K2a + K2b) on its rows of every global batch; a vocab table of at least
+65,536 rows is row-sharded over the model axis, the chunked CE runs each
+rank's vocab chunks and combines the log-partitions over the model group,
+and the sampled softmax's negatives are drawn at the global shape on every
+rank, so they are ``mesh=None``'s.  ``evaluate`` and ``predict_logits`` run
+the whole batch on every rank, which must all call them.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from ..basic.callback import EarlyStopper
 from ..basic.tracking import iter_loggers
 from ..ops import chunked_ce
 from ..ops.chunked_ce import chunked_last_logits, chunked_next_token_loss, sampled_loss_from_rows, shifted_labels
+from ..parallel.distributed import mean_over_data
+from ..parallel.mesh import batch_sharding, scan_batch_sharding
 from .base import TorchTrainer, to_numpy, under_precision
 from .sparse import validate_method
 
@@ -49,17 +60,15 @@ def next_token_loss(logits: torch.Tensor, seq_tokens: torch.Tensor, targets: tor
     log_probs = torch.log_softmax(logits / temperature, dim=-1)
     nll = -torch.gather(log_probs, -1, next_tokens[..., None])[..., 0]
     mask = (next_tokens != ignore_index).to(nll.dtype)
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return mean_over_data(torch.sum(nll * mask), torch.sum(mask), 1.0)
 
 
 class SeqTrainer(TorchTrainer):
     """Trains and evaluates a sequence model on ``device``: the CUDA card
     unless the caller passes another (``device="cpu"``); with no card and
-    no device it raises.  ``mesh`` is not ported yet and raises."""
+    no device it raises.  ``mesh`` takes a ``parallel.mesh.DeviceMesh``."""
 
     def __init__(self, model: torch.nn.Module, optimizer_params=None, scheduler_params=None, n_epoch: int = 10, earlystop_patience: int = 10, model_path: str = "./", loss_type: str = "cross_entropy", loss_params: Optional[dict] = None, model_logger=None, mesh=None, seed: int = 0, vocab_chunk_size: Optional[int] = None, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("SeqTrainer(mesh=...) is not ported yet: the data / model mesh comes with ROADMAP queue 1, item 14")
         if loss_type not in ("cross_entropy", "nce", "sampled_softmax"):
             raise ValueError(f"loss_type must be cross_entropy|nce|sampled_softmax, got {loss_type!r}")
         if validate_method(sparse_embedding) and getattr(model, "tie_embeddings", False):
@@ -73,7 +82,7 @@ class SeqTrainer(TorchTrainer):
         # the sampled softmax the output projection too (only its candidate
         # rows are read there, where the full CE reads every row)
         sparse_names = ("token_embedding", "output_projection") if loss_type == "sampled_softmax" else ("token_embedding",)
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, sparse_names, spare_rows={"token_embedding": 0, "output_projection": 0}, precision=precision)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, sparse_names, spare_rows={"token_embedding": 0, "output_projection": 0}, precision=precision, mesh=mesh)
         self.loss_type = loss_type
         if loss_type == "nce":
             self.loss_params = loss_params or {"temperature": 0.1, "ignore_index": 0}
@@ -151,6 +160,9 @@ class SeqTrainer(TorchTrainer):
         n_seen = 0
         t0 = time.perf_counter()
         for gi, (toks, tds, tgts) in enumerate(self._iter_groups(data_loader)):
+            if self.mesh is not None:  # this rank's rows: axis 1 of a stacked group, else axis 0
+                sharding = (scan_batch_sharding if toks.ndim == 3 else batch_sharding)(self.mesh)
+                toks, tds, tgts = sharding.local(toks), sharding.local(tds), sharding.local(tgts)
             toks, tds, tgts = self._to_device(toks, tds, tgts)
             # a stacked (n, B, L) group runs as n single steps
             for s_toks, s_tds, s_tgts in (zip(toks, tds, tgts) if toks.ndim == 3 else [(toks, tds, tgts)]):

@@ -24,6 +24,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from ..ops import sparse_update as su
+from ..parallel.distributed import all_gather
 
 
 def validate_method(method):
@@ -52,7 +53,7 @@ def init_sparse_opt_state(model: torch.nn.Module, extra_names: Tuple[str, ...] =
     return tables, su.init_accumulators(tables), list(rest.items())
 
 
-def apply_sparse_table_updates(tables: Mapping[str, torch.Tensor], accums: Dict[str, torch.Tensor], records, method: Optional[str], lr, spare_rows: Optional[Mapping[str, int]] = None) -> None:
+def apply_sparse_table_updates(tables: Mapping[str, torch.Tensor], accums: Dict[str, torch.Tensor], records, method: Optional[str], lr, spare_rows: Optional[Mapping[str, int]] = None, data_group=None) -> None:
     """Group the recorded row gradients by table and update each table once, in place.
 
     Every call site of one table (e.g. the sampled softmax's label rows and
@@ -61,10 +62,17 @@ def apply_sparse_table_updates(tables: Mapping[str, torch.Tensor], accums: Dict[
     tables use their spare last row).  A named table's fill row must take no
     update, e.g. HSTU's PAD row 0, masked out of the forward.  No records,
     no update.
+
+    Under a mesh (``data_group``, the trainer's data group) each call site's
+    ids and row gradients are first gathered over the data group, in data
+    order, so the dedup runs over the global batch; a row-shard table then
+    updates its own rows (``ops/sparse_update.py``).
     """
     spare_rows = spare_rows or {}
     by_table: Dict[str, list] = {}
     for name, ids, grads in su.pair_sparse_grads(records):
+        if data_group is not None:
+            ids, grads = all_gather(ids, data_group), all_gather(grads, data_group)
         by_table.setdefault(name, []).append((ids, grads))
     for name, parts in by_table.items():
         ids = torch.cat([p[0].to(torch.int64) for p in parts])

@@ -16,8 +16,12 @@ a tied score matrix gives the JAX package's hard negatives.  The uniform
 keys come from a ``torch.Generator``, so the draws differ from JAX's
 (``keys=`` takes given keys instead).
 
-``local_inbatch_loss`` (a per-shard pool under a device mesh) waits for the
-mesh, ROADMAP queue 1 item 14.
+Under a device mesh the global pool's scores are this rank's users against
+every item of the global batch (``row_offset``: the row of this rank's first
+user); the uniform keys are drawn at the global batch's shape and this
+rank's rows taken, so the draws are ``mesh=None``'s.
+``local_inbatch_loss`` is the per-shard pool: each data rank's own ``(b, b)``
+block, combined exactly over the data group.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import global_mean
 from .data import df_to_dict, pad_sequences
 
 
@@ -158,34 +163,36 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
-def inbatch_negative_sampling(scores: torch.Tensor, neg_ratio: Optional[int] = None, hard_negative: bool = False, generator: Optional[torch.Generator] = None, keys: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(B, neg_ratio)`` int64 negative columns per row of a ``(B, B)`` score matrix, never the row's own.
+def inbatch_negative_sampling(scores: torch.Tensor, neg_ratio: Optional[int] = None, hard_negative: bool = False, generator: Optional[torch.Generator] = None, keys: Optional[torch.Tensor] = None, row_offset: int = 0) -> torch.Tensor:
+    """``(b, neg_ratio)`` int64 negative columns per row of a ``(b, B)`` score matrix, never the row's own.
 
-    ``neg_ratio`` is clamped to ``B − 1`` (``None`` or ``<= 0`` take all
-    ``B − 1``).  Hard mode: the top scores with the diagonal masked.
-    Uniform mode: ``neg_ratio`` distinct columns, the top-k of U[0, 1) keys
-    drawn from ``generator`` (or the given ``keys (B, B)``) with the
-    diagonal masked.  Neither takes a gradient.
+    Row ``i`` is the batch's row ``row_offset + i`` and its own column is that
+    one (a square matrix at offset 0 masks the diagonal).  ``neg_ratio`` is
+    clamped to ``B − 1`` (``None`` or ``<= 0`` take all ``B − 1``).  Hard
+    mode: the top scores with the own column masked.  Uniform mode:
+    ``neg_ratio`` distinct columns, the top-k of U[0, 1) keys with the own
+    column masked: the given ``keys (b, B)``, else ``(B, B)`` keys drawn from
+    ``generator`` and these rows taken.  Neither takes a gradient.
     """
     if scores.ndim != 2:
         raise ValueError(f"inbatch_negative_sampling expects 2D scores, got shape {tuple(scores.shape)}")
-    batch_size = scores.shape[0]
+    rows, batch_size = scores.shape
     if batch_size <= 1:
         raise ValueError("In-batch negative sampling requires batch_size > 1")
     max_neg = batch_size - 1
     if neg_ratio is None or neg_ratio <= 0 or neg_ratio > max_neg:
         neg_ratio = max_neg
-    eye = torch.eye(batch_size, dtype=torch.bool, device=scores.device)
+    own = torch.arange(batch_size, device=scores.device)[None, :] == (row_offset + torch.arange(rows, device=scores.device))[:, None]
     if hard_negative:
         ranked = scores.detach()
     else:
-        ranked = keys if keys is not None else torch.rand((batch_size, batch_size), generator=generator, device=scores.device)
-    return stable_topk(ranked.masked_fill(eye, -float("inf")), neg_ratio)[1]
+        ranked = keys if keys is not None else torch.rand((batch_size, batch_size), generator=generator, device=scores.device)[row_offset: row_offset + rows]
+    return stable_topk(ranked.masked_fill(own, -float("inf")), neg_ratio)[1]
 
 
-def gather_inbatch_logits(scores: torch.Tensor, neg_indices: torch.Tensor) -> torch.Tensor:
-    """``(B, 1 + K)`` logits: the diagonal positive, then the gathered negatives."""
-    return torch.cat([torch.diagonal(scores)[:, None], torch.gather(scores, 1, neg_indices)], dim=1)
+def gather_inbatch_logits(scores: torch.Tensor, neg_indices: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """``(b, 1 + K)`` logits: each row's own column (the diagonal at ``row_offset``), then the gathered negatives."""
+    return torch.cat([torch.diagonal(scores, offset=row_offset)[:, None], torch.gather(scores, 1, neg_indices)], dim=1)
 
 
 def inbatch_loss_from_logits(logits: torch.Tensor, mode: int, weight: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,3 +206,22 @@ def inbatch_loss_from_logits(logits: torch.Tensor, mode: int, weight: Optional[t
         per_sample = -torch.log_softmax(logits, dim=-1)[:, 0]
     w = torch.ones_like(per_sample) if weight is None else weight.to(per_sample.dtype).reshape(per_sample.shape)
     return (per_sample * w).sum(), w.sum()
+
+
+def local_inbatch_loss(user_emb: torch.Tensor, item_emb: torch.Tensor, weight: Optional[torch.Tensor], rng: Optional[torch.Generator], mesh, mode: int, neg_ratio: Optional[int] = None, hard_negative: bool = False, data_axis: str = "data", keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In-batch loss with a PER-SHARD negative pool (the reference's per-process semantics).
+
+    Each rank passes its own rows: ``user_emb``, ``item_emb`` ``(b, D)``, the
+    weights ``(b,)``.  It scores its ``(b, b)`` block, samples negatives from
+    its own generator ``rng`` (or the given ``keys (b, b)``), and the data
+    group's loss sums and weight sums combine exactly:
+    ``Σ loss_sum / max(Σ w_sum, 1e-12)``, the global value on every rank with
+    this rank's share of the gradient (``parallel.distributed.global_mean``).
+    ``mesh=None`` takes the whole batch as one block.
+    """
+    scores = user_emb @ item_emb.T
+    neg_idx = inbatch_negative_sampling(scores, neg_ratio=neg_ratio, hard_negative=hard_negative, generator=rng, keys=keys)
+    loss_sum, w_sum = inbatch_loss_from_logits(gather_inbatch_logits(scores, neg_idx), mode, weight=weight)
+    if mesh is None:
+        return loss_sum / torch.clamp_min(w_sum, 1e-12)
+    return global_mean(loss_sum, w_sum, mesh.group(data_axis), 1e-12)
