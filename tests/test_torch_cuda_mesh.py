@@ -1,10 +1,11 @@
 """The (data, model) mesh: the scenarios a job of ranks runs, and the mesh on the card.
 
 ``mesh_worker`` is what each rank of a spawned job runs: every scenario of
-``SPECS`` under each of its meshes (``(2, 1)`` and ``(1, 2)`` on two ranks),
-the ``local_inbatch_loss`` blocks, sharded exact retrieval, the sharded
-prefetch and a checkpoint round trip; rank 0 writes the results to an
-``.npz``.  It imports torch and numpy only, so the job's ranks import no JAX:
+``SPECS`` under each of its meshes (``(2, 1)`` and ``(1, 2)`` on two ranks;
+the sequence, CTR, matching, multi-task and RQ-VAE trainers), the
+``local_inbatch_loss`` blocks, sharded exact retrieval, the sharded prefetch
+and a checkpoint round trip; rank 0 writes the results to an ``.npz``.  It
+imports torch and numpy only, so the job's ranks import no JAX:
 ``tests/test_torch_mesh_train.py`` builds the inputs from the JAX package's
 weights, spawns one two-rank gloo job on the CPU and holds the results
 against the JAX package.
@@ -20,6 +21,7 @@ under ``(1, 2)`` restored under ``mesh=None`` and back.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -28,13 +30,14 @@ import torch
 from torch_rechub_tpu_torch.basic import layers
 from torch_rechub_tpu_torch.data import prefetch_to_device
 from torch_rechub_tpu_torch.models.generative import HSTUModel
+from torch_rechub_tpu_torch.models.generative import rqvae as trqvae
 from torch_rechub_tpu_torch.ops import chunked_ce
 from torch_rechub_tpu_torch.ops import embedding as temb
 from torch_rechub_tpu_torch.parallel import create_mesh, scan_batch_sharding
 from torch_rechub_tpu_torch.parallel import distributed as pdist
 from torch_rechub_tpu_torch.parallel.mesh import row_shard
 from torch_rechub_tpu_torch.serving import brute_force_topk
-from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, SeqTrainer, match_trainer
+from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, MTLTrainer, RQVAETrainer, SeqTrainer, match_trainer, mtl_trainer
 from torch_rechub_tpu_torch.utils.checkpoint import flat_tensors
 from torch_rechub_tpu_torch.utils.data import ArrayLoader, SeqLoader
 from torch_rechub_tpu_torch.utils.match import local_inbatch_loss
@@ -49,6 +52,11 @@ MATCH_VOCAB, MATCH_N, MATCH_BATCH, MATCH_D = 64, 128, 64, 8
 # tests/test_sharding.py:133, and a corpus that does not split over two ranks
 TOPK = dict(users=32, items=400, dim=16, k=10)
 LOCAL_POOL = dict(b=16, d=8, k=5)  # a rank's block of tests/test_sharding.py:165
+# tests/test_sharding.py:_mtl_losses: four fields of 30 ids at d6 and one dense field, two tasks, B64, 4 steps
+MTL_VOCAB, MTL_N, MTL_BATCH, MTL_TASKS = 30, 256, 64, ("classification", "classification")
+# tests/test_sharding.py:_rqvae_run: 256 rows of 10 clusters in 32-d, two stages of 16 codes at e_dim 8, B64, 2 epochs
+RQ_KW = dict(in_dim=32, num_emb_list=(16, 16), e_dim=8, layers=(16,), kmeans_init=True, kmeans_iters=2, dropout_prob=0.0)
+RQ_N, RQ_BATCH, RQ_EPOCHS, RQ_SEED, RQ_SIDS = 256, 64, 2, 3, 40
 
 SPECS = {
     # SeqTrainer: the tied table row-sharded under (1, 2), the chunked CE (tests/test_sharding.py:235)
@@ -68,8 +76,28 @@ SPECS = {
     # uniform negatives drawn per rank at the local shape: must NOT match
     "dssm_global_uniform_per_rank": dict(kind="match", trainer=dict(mode=2, in_batch_neg=True, in_batch_neg_ratio=7, seed=3), patch="per_rank_negatives", meshes=((2, 1),)),
     "dssm_local_hard": dict(kind="match", trainer=dict(mode=2, in_batch_neg=True, in_batch_neg_ratio=7, hard_negative=True, neg_pool="local", seed=3)),
+    # MTLTrainer: MMOE under the mean and each adaptive method (tests/test_sharding.py:304)
+    **{f"mmoe_{m or 'mean'}": dict(kind="mtl", model="MMOE", method=m, trainer=dict(seed=9)) for m in (None, "uwl", "metabalance")},
+    # GradNorm over two epochs (8 steps), so that the loss weights have moved by more than their tolerance
+    "mmoe_gradnorm": dict(kind="mtl", model="MMOE", method="gradnorm", trainer=dict(seed=9), epochs=2),
+    # every table fused, sparse Adagrad under the mean: the fused table row-sharded under (1, 2)
+    "mmoe_fused_adagrad": dict(kind="mtl", model="MMOE", method=None, fused=True, trainer=dict(seed=9, sparse_embedding="adagrad"), meshes=((1, 2),)),
+    # a row-sharded fused table as GradNorm's leaf (SharedBottom's table sorts last) and among MetaBalance's norms
+    "sharedbottom_fused_gradnorm": dict(kind="mtl", model="SharedBottom", method="gradnorm", fused=True, trainer=dict(seed=9), meshes=((1, 2),)),
+    "mmoe_fused_metabalance": dict(kind="mtl", model="MMOE", method="metabalance", fused=True, trainer=dict(seed=9), meshes=((1, 2),)),
+    # GradNorm's norms taken from the rank's own share of the leaf's gradient: must NOT match
+    "mmoe_gradnorm_per_rank": dict(kind="mtl", model="MMOE", method="gradnorm", trainer=dict(seed=9), epochs=2, patch="per_rank_gradnorm", meshes=((2, 1),)),
+    # RQVAETrainer with the k-means init (tests/test_sharding.py:344), without Sinkhorn and with it on the last stage
+    "rqvae": dict(kind="rqvae", sk=(0.0, 0.0), meshes=((2, 1),)),
+    "rqvae_sinkhorn": dict(kind="rqvae", sk=(0.0, 0.1), meshes=((2, 1),)),
+    # Sinkhorn over the rank's rows with the local batch size: must NOT match
+    "rqvae_sinkhorn_local": dict(kind="rqvae", sk=(0.0, 0.1), patch="local_sinkhorn", meshes=((2, 1),)),
 }
-EPOCHS = {"seq": 1, "ctr": 1, "match": 2}
+EPOCHS = {"seq": 1, "ctr": 1, "match": 2, "mtl": 1, "rqvae": RQ_EPOCHS}
+
+
+def epochs_of(spec):
+    return spec.get("epochs", EPOCHS[spec["kind"]])
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +144,43 @@ def dssm(feat, matching):
                          user_params={"dims": (16, d)}, item_params={"dims": (16, d)})
 
 
+def mtl_data(n=MTL_N, seed=11):
+    """tests/test_sharding.py:_mtl_losses's rows: uniform ids, a normal dense field, two random 0/1 tasks."""
+    rng = np.random.default_rng(seed)
+    x = {f"C{i}": rng.integers(0, MTL_VOCAB, n).astype(np.int32) for i in range(4)}
+    x["I0"] = rng.normal(size=n).astype(np.float32)
+    return x, rng.integers(0, 2, (n, 2)).astype(np.float32)
+
+
+def mtl_model(feat, mt, name):
+    """tests/test_sharding.py:_mtl_losses's MMOE (3 experts of 16, towers of 8), or a SharedBottom of the same widths."""
+    feats = tuple(feat.SparseFeature(f"C{i}", vocab_size=MTL_VOCAB, embed_dim=6) for i in range(4)) + (feat.DenseFeature("I0"),)
+    towers = ({"dims": (8,), "dropout": 0.0}, {"dims": (8,), "dropout": 0.0})
+    if name == "SharedBottom":
+        return mt.SharedBottom(features=feats, task_types=MTL_TASKS, bottom_params={"dims": (16,), "dropout": 0.0}, tower_params_list=towers)
+    return mt.MMOE(features=feats, task_types=MTL_TASKS, n_expert=3, expert_params={"dims": (16,), "dropout": 0.0}, tower_params_list=towers)
+
+
+def rq_data(n=RQ_N, seed=5):
+    """tests/test_sharding.py:_rqvae_run's rows: 10 clusters in 32-d at noise 0.1."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(10, RQ_KW["in_dim"])) * 3
+    return (centers[rng.integers(0, 10, n)] + rng.normal(size=(n, RQ_KW["in_dim"])) * 0.1).astype(np.float32)
+
+
 def build(spec):
     """The port's model of a scenario (random weights; the caller loads the scenario's)."""
     from torch_rechub_tpu_torch.basic import features as feat
-    from torch_rechub_tpu_torch.models import matching, ranking
+    from torch_rechub_tpu_torch.models import matching, multi_task, ranking
 
     if spec["kind"] == "seq":
         return HSTUModel(**HSTU_KW, **spec["model"])
-    if spec["kind"] == "ctr":
-        old = temb.set_fused_default(spec["fused"])
+    if spec["kind"] == "rqvae":
+        return trqvae.RQVAEModel(**RQ_KW, sk_epsilons=spec["sk"])
+    if spec["kind"] in ("ctr", "mtl"):
+        old = temb.set_fused_default(spec.get("fused", "auto"))
         try:
-            return deepfm(feat, ranking)
+            return deepfm(feat, ranking) if spec["kind"] == "ctr" else mtl_model(feat, multi_task, spec["model"])
         finally:
             temb.set_fused_default(old)
     return dssm(feat, matching)
@@ -137,20 +191,28 @@ def loader(spec):
         return SeqLoader(*hstu_data(), batch_size=HSTU_BATCH, shuffle=False)
     if spec["kind"] == "ctr":
         return ArrayLoader(*ctr_data(), batch_size=CTR_BATCH, shuffle=False)
+    if spec["kind"] == "mtl":
+        return ArrayLoader(*mtl_data(), batch_size=MTL_BATCH, shuffle=False)
     return ArrayLoader(*match_data(), batch_size=MATCH_BATCH, shuffle=False)
 
 
 def trainer_of(spec, model, mesh, device, model_path):
+    if spec["kind"] == "mtl":
+        adaptive = {"method": spec["method"]} if spec["method"] else None
+        return MTLTrainer(model, MTL_TASKS, adaptive_params=adaptive, n_epoch=1, model_path=model_path, mesh=mesh, device=device, **spec["trainer"])
+    if spec["kind"] == "rqvae":
+        return RQVAETrainer(model, n_epoch=RQ_EPOCHS, eval_step=10, model_path=model_path, mesh=mesh, seed=RQ_SEED, device=device)
     cls = {"seq": SeqTrainer, "ctr": CTRTrainer, "match": MatchTrainer}[spec["kind"]]
     return cls(model, n_epoch=1, model_path=model_path, mesh=mesh, device=device, **spec["trainer"])
 
 
 class patched:
-    """A scenario's patch, undone on exit: the injected negatives, BatchNorm's statistics per rank, or the uniform
-    in-batch keys drawn per rank at the local shape."""
+    """A scenario's patch, undone on exit: the injected negatives, BatchNorm's statistics per rank, the uniform
+    in-batch keys drawn per rank at the local shape, GradNorm's norms of the rank's share, or Sinkhorn over the
+    rank's rows.  Every RQ-VAE run records the codes of each Sinkhorn call (``codes``: this rank's rows)."""
 
     def __init__(self, spec):
-        self.spec, self.undo = spec, []
+        self.spec, self.undo, self.codes = spec, [], []
 
     def set(self, module, name, value):
         self.undo.append((module, name, getattr(module, name)))
@@ -165,6 +227,19 @@ class patched:
         if self.spec.get("patch") == "per_rank_negatives":
             sample = match_trainer.inbatch_negative_sampling
             self.set(match_trainer, "inbatch_negative_sampling", lambda scores, ratio, hard, generator=None, row_offset=0: sample(scores, ratio, hard, keys=torch.rand(scores.shape, generator=generator, device=scores.device), row_offset=row_offset))
+        if self.spec.get("patch") == "per_rank_gradnorm":  # sum_tensors the identity for the trainer alone
+            self.set(mtl_trainer, "pdist", types.SimpleNamespace(**{**vars(pdist), "sum_tensors": lambda tensors, group: list(tensors)}))
+        if self.spec.get("patch") == "local_sinkhorn":
+            self.set(trqvae, "_batch_group", lambda: None)
+        if self.spec["kind"] == "rqvae":
+            sinkhorn = trqvae.sinkhorn_algorithm
+
+            def recorded(*args):
+                q = sinkhorn(*args)
+                self.codes.append(torch.argmax(q, dim=-1))
+                return q
+
+            self.set(trqvae, "sinkhorn_algorithm", recorded)
         return self
 
     def __exit__(self, *exc):
@@ -179,10 +254,12 @@ def run_spec(spec, state, mesh, device, model_path):
     model = build(spec)
     if state is not None:
         model.load_state_dict(state)
+    if spec["kind"] == "rqvae":
+        return run_rqvae(spec, model, mesh, device, model_path)
     with patched(spec):
         trainer = trainer_of(spec, model, mesh, device, model_path)
         data = loader(spec)
-        losses = [trainer.train_one_epoch(data, log_interval=0) for _ in range(EPOCHS[spec["kind"]])]
+        losses = [trainer.train_one_epoch(data, log_interval=0) for _ in range(epochs_of(spec))]
         st = trainer.train_state()
         out = {"loss": np.asarray(losses), "sharded": np.asarray([n for n, p in trainer.model.named_parameters() if row_shard(p) is not None] or [""])}
         out.update({f"param/{k}": v.detach().cpu().numpy() for k, v in st["model"].items()})
@@ -193,6 +270,30 @@ def run_spec(spec, state, mesh, device, model_path):
             out["evaluate"] = np.asarray(trainer.evaluate(SeqLoader(*hstu_data(n=8, seed=9), batch_size=8)))
         elif spec["kind"] == "ctr":
             out["predict"] = trainer.predict(trainer.model, ArrayLoader(ctr_data(n=100, seed=9)[0], batch_size=CTR_BATCH))
+        elif spec["kind"] == "mtl":
+            out["predict"] = trainer.predict(trainer.model, ArrayLoader(mtl_data(n=100, seed=9)[0], batch_size=MTL_BATCH))
+            if trainer.loss_weight is not None:  # every rank's, one row a rank
+                weights = trainer.loss_weight.detach()[None]
+                out["loss_weight"] = (weights if mesh is None else pdist.all_gather(weights, None)).cpu().numpy()
+    return out
+
+
+def run_rqvae(spec, model, mesh, device, model_path):
+    """``fit`` with the k-means init under ``mesh`` (every rank holds the data); the best loss, the parameters, the
+    codes of every Sinkhorn call in training over the global batch (``sk_codes``, one row a call) and the codes of
+    ``generate_semantic_ids`` over the first ``RQ_SIDS`` rows."""
+    data = rq_data()
+    with patched(spec) as p:
+        trainer = trainer_of(spec, model, mesh, device, model_path)
+        best_loss, _ = trainer.fit(data, batch_size=RQ_BATCH)
+        codes = np.zeros((0, RQ_BATCH), np.int64)
+        if p.codes:
+            codes = torch.stack(p.codes)
+            codes = (codes if mesh is None else pdist.all_gather(codes, mesh.data_group, dim=1)).cpu().numpy()
+    out = {"loss": np.asarray(best_loss), "sharded": np.asarray([""]), "sk_codes": codes}
+    out.update({f"param/{k}": v.detach().cpu().numpy() for k, v in trainer.train_state()["model"].items()})
+    sids = trainer.generate_semantic_ids(data[:RQ_SIDS], batch_size=RQ_BATCH, max_retries=2)
+    out["sids"] = np.asarray([sids[i] for i in range(RQ_SIDS)])
     return out
 
 

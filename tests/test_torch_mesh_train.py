@@ -8,9 +8,11 @@ which imports no JAX) that runs every scenario under ``(2, 1)`` and
 local negative pool under a two-device JAX mesh).  Tolerances are those of
 the matching ``tests/test_sharding.py`` test, named at each.
 
-Two tests show what the mesh must get right beyond a per-rank program:
-BatchNorm's statistics left per rank, and uniform in-batch negatives drawn
-per rank, each fail the comparison that the real implementation passes.
+Four tests show what the mesh must get right beyond a per-rank program:
+BatchNorm's statistics left per rank, uniform in-batch negatives drawn per
+rank, GradNorm's norms taken from the rank's share of the gradient, and
+Sinkhorn over the rank's rows each fail the comparison that the real
+implementation passes.
 """
 
 import threading
@@ -24,14 +26,18 @@ import torch
 import test_torch_cuda_mesh as M
 from torch_rechub_tpu.basic import features as jfeat
 from torch_rechub_tpu.models import matching as jmatching
+from torch_rechub_tpu.models import multi_task as jmt
 from torch_rechub_tpu.models import ranking as jranking
 from torch_rechub_tpu.models.generative import HSTUModel as JHSTUModel
+from torch_rechub_tpu.models.generative import rqvae as jrq
 from torch_rechub_tpu.ops import chunked_ce as jce
 from torch_rechub_tpu.ops import embedding as jemb
 from torch_rechub_tpu.parallel import create_mesh as jcreate_mesh
 from torch_rechub_tpu.serving import brute_force_topk as jbrute_force_topk
 from torch_rechub_tpu.trainers import CTRTrainer as JCTRTrainer
 from torch_rechub_tpu.trainers import MatchTrainer as JMatchTrainer
+from torch_rechub_tpu.trainers import MTLTrainer as JMTLTrainer
+from torch_rechub_tpu.trainers import RQVAETrainer as JRQVAETrainer
 from torch_rechub_tpu.trainers.seq_trainer import SeqTrainer as JSeqTrainer
 from torch_rechub_tpu.utils import data as jdata
 from torch_rechub_tpu.utils import match as jmatch
@@ -42,6 +48,9 @@ from torch_rechub_tpu_torch.utils.jax_weights import flax_to_state_dict, load_fl
 SEQ_TOL = dict(loss_rtol=3e-4, loss_atol=0.0, rtol=3e-3, atol=3e-4)  # :255 and :438
 CTR_TOL = dict(loss_rtol=2e-4, loss_atol=1e-5, rtol=2e-3, atol=2.5e-3)  # :58 and :402
 MATCH_TOL = dict(loss_rtol=2e-4, loss_atol=1e-5, rtol=2e-3, atol=2.5e-3)  # :100 (losses), parameters as :58
+MTL_TOL = dict(loss_rtol=5e-4, loss_atol=1e-5, rtol=3e-3, atol=5e-4)  # :308-328
+LOSS_WEIGHT_TOL = dict(rtol=1e-3, atol=1e-4)  # :311
+RQ_TOL = dict(loss_rtol=1e-4, loss_atol=0.0, rtol=2e-3, atol=2e-4)  # :351 and :369
 LOCAL_POOL_RTOL = 1e-5  # :165
 TOPK_RTOL = 1e-5  # :133
 JAX_KEY = 11
@@ -62,45 +71,81 @@ class fused_default:
         jemb.set_fused_default(self.old)
 
 
-def jax_trainer(name, spec):
-    """The JAX package's trainer and loader of a scenario (the local pool under a two-device data mesh)."""
-    kw = dict(spec["trainer"])
+def jax_trainer(name, spec, model_path):
+    """The JAX package's trainer and loader of a scenario (the local pool under a two-device data mesh), writing
+    under ``model_path``."""
+    kw = dict(spec["trainer"], model_path=model_path)
     if spec["kind"] == "seq":
-        return JSeqTrainer(JHSTUModel(**M.HSTU_KW, **spec["model"]), n_epoch=1, model_path="/tmp/rechub_mesh_jax", **kw), jdata.SeqLoader(*M.hstu_data(), batch_size=M.HSTU_BATCH, shuffle=False)
+        return JSeqTrainer(JHSTUModel(**M.HSTU_KW, **spec["model"]), n_epoch=1, **kw), jdata.SeqLoader(*M.hstu_data(), batch_size=M.HSTU_BATCH, shuffle=False)
     if spec["kind"] == "ctr":
-        return JCTRTrainer(M.deepfm(jfeat, jranking), n_epoch=1, model_path="/tmp/rechub_mesh_jax", **kw), jdata.ArrayLoader(*M.ctr_data(), batch_size=M.CTR_BATCH, shuffle=False)
+        return JCTRTrainer(M.deepfm(jfeat, jranking), n_epoch=1, **kw), jdata.ArrayLoader(*M.ctr_data(), batch_size=M.CTR_BATCH, shuffle=False)
+    if spec["kind"] == "mtl":
+        adaptive = {"method": spec["method"]} if spec["method"] else None
+        return (JMTLTrainer(M.mtl_model(jfeat, jmt, spec["model"]), M.MTL_TASKS, adaptive_params=adaptive, n_epoch=1, **kw),
+                jdata.ArrayLoader(*M.mtl_data(), batch_size=M.MTL_BATCH, shuffle=False))
     mesh = jcreate_mesh(data=2, model=1, devices=jax.devices()[:2]) if kw.get("neg_pool") == "local" else None
-    return JMatchTrainer(M.dssm(jfeat, jmatching), n_epoch=1, model_path="/tmp/rechub_mesh_jax", mesh=mesh, **kw), jdata.ArrayLoader(*M.match_data(), batch_size=M.MATCH_BATCH, shuffle=False)
+    return JMatchTrainer(M.dssm(jfeat, jmatching), n_epoch=1, mesh=mesh, **kw), jdata.ArrayLoader(*M.match_data(), batch_size=M.MATCH_BATCH, shuffle=False)
 
 
 class JaxRun:
     """A scenario's JAX trainer: its initial weights as the port's ``state_dict``, then its training."""
 
-    def __init__(self, name, spec):
-        self.spec = spec
+    def __init__(self, name, spec, model_path):
+        self.spec, self.model_path = spec, model_path
+        if spec["kind"] == "rqvae":
+            self._init_rqvae()
+            return
         with fused_default(spec.get("fused", "auto")):
-            self.trainer, self.loader = jax_trainer(name, spec)
+            self.trainer, self.loader = jax_trainer(name, spec, model_path)
             self.trainer._ensure_ready(self.loader)
         state = self.trainer.state
         self.init = load_flax_params(M.build(spec), np_tree(state.params), np_tree(state.batch_stats) if state.batch_stats else None).state_dict()
 
+    def _init_rqvae(self):
+        """The trainer's state from ``init_state_from_data`` (the k-means codebooks), and the weights it started
+        from before the k-means, for the port to run its own k-means init from."""
+        self.data = M.rq_data()
+        self.trainer = JRQVAETrainer(jrq.RQVAEModel(**M.RQ_KW, sk_epsilons=self.spec["sk"]), n_epoch=M.RQ_EPOCHS, eval_step=10, model_path=self.model_path, seed=M.RQ_SEED)
+        init_rng, _ = jax.random.split(jax.random.PRNGKey(M.RQ_SEED))  # the trainer's first split (trainers/base.py)
+        variables = np_tree(self.trainer.model.init({"params": init_rng, "dropout": init_rng}, jnp.asarray(self.data[:512]), training=False))
+        self.trainer.init_state_from_data(self.data)
+        state = flax_to_state_dict(np_tree(self.trainer.state.params))
+        before = flax_to_state_dict(variables["params"])
+        for k, v in before.items():  # the same weights but the codebooks, which the k-means replaced
+            if "vq_layers" not in k:
+                np.testing.assert_array_equal(state[k].numpy(), v.numpy(), err_msg=k)
+        self.init = load_flax_params(M.build(self.spec), variables["params"], variables["batch_stats"]).state_dict()
+
     def train(self):
+        if self.spec["kind"] == "rqvae":
+            self.loss = np.asarray(self.trainer.fit(self.data, batch_size=M.RQ_BATCH)[0])
+            sids = self.trainer.generate_semantic_ids(self.data[:M.RQ_SIDS], batch_size=M.RQ_BATCH, max_retries=2)
+            self.sids = np.asarray([sids[i] for i in range(M.RQ_SIDS)])
+            self.params = {k: v.numpy() for k, v in flax_to_state_dict(np_tree(self.trainer.state.params)).items()}
+            return
         with fused_default(self.spec.get("fused", "auto")):
-            self.loss = np.asarray([self.trainer.train_one_epoch(self.loader, log_interval=0) for _ in range(M.EPOCHS[self.spec["kind"]])])
+            self.loss = np.asarray([self.trainer.train_one_epoch(self.loader, log_interval=0) for _ in range(M.epochs_of(self.spec))])
             if self.spec["kind"] == "seq":
                 self.predict = self.trainer.predict_logits(jdata.SeqLoader(*M.hstu_data(n=8, seed=9), batch_size=8))
                 self.evaluate = np.asarray(self.trainer.evaluate(jdata.SeqLoader(*M.hstu_data(n=8, seed=9), batch_size=8)))
             elif self.spec["kind"] == "ctr":
                 self.predict = self.trainer.predict(self.trainer.model, jdata.ArrayLoader(M.ctr_data(n=100, seed=9)[0], batch_size=M.CTR_BATCH))
+            elif self.spec["kind"] == "mtl":
+                self.predict = self.trainer.predict(self.trainer.model, jdata.ArrayLoader(M.mtl_data(n=100, seed=9)[0], batch_size=M.MTL_BATCH))
         state = self.trainer.state
+        if getattr(state, "loss_weight", None) is not None:
+            self.loss_weight = np.asarray(state.loss_weight)
         self.params = {k: v.numpy() for k, v in flax_to_state_dict(np_tree(state.params)).items()}
         if self.spec["trainer"].get("sparse_embedding") == "adagrad":
             self.accums = {k: v.numpy() for k, v in flax_to_state_dict(np_tree(state.opt_state[1])).items()}
 
 
 JAX_SCENARIOS = ("hstu_chunked", "hstu_sampled_sparse", "deepfm_dense", "deepfm_fused_adagrad", "dssm_global_hard", "dssm_local_hard")
+MTL_SCENARIOS = ("mmoe_mean", "mmoe_uwl", "mmoe_gradnorm", "mmoe_metabalance", "mmoe_fused_adagrad", "sharedbottom_fused_gradnorm", "mmoe_fused_metabalance")
+RQ_SCENARIOS = ("rqvae", "rqvae_sinkhorn")
 # the port-only scenarios start from a JAX scenario's weights
-SAME_WEIGHTS = {"hstu_sampled_drawn": "hstu_sampled_sparse", "deepfm_dense_per_rank_bn": "deepfm_dense", "dssm_global_uniform": "dssm_global_hard", "dssm_global_uniform_per_rank": "dssm_global_hard"}
+SAME_WEIGHTS = {"hstu_sampled_drawn": "hstu_sampled_sparse", "deepfm_dense_per_rank_bn": "deepfm_dense", "dssm_global_uniform": "dssm_global_hard", "dssm_global_uniform_per_rank": "dssm_global_hard",
+                "mmoe_gradnorm_per_rank": "mmoe_gradnorm", "rqvae_sinkhorn_local": "rqvae_sinkhorn"}
 
 
 def local_pool_inputs():
@@ -118,7 +163,7 @@ def job(tmp_path_factory):
     directory = tmp_path_factory.mktemp("mesh_job")
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    runs = {name: JaxRun(name, M.SPECS[name]) for name in JAX_SCENARIOS}
+    runs = {name: JaxRun(name, M.SPECS[name], str(directory / "jax" / name)) for name in JAX_SCENARIOS + MTL_SCENARIOS + RQ_SCENARIOS}
     states = {name: run.init for name, run in runs.items()}
     states.update({name: states[src] for name, src in SAME_WEIGHTS.items()})
     rng = np.random.default_rng(0)
@@ -153,7 +198,7 @@ def job(tmp_path_factory):
             finally:
                 jce.sampled_candidates = jsample
         # the port without a mesh, for the scenarios whose draws JAX's streams cannot pin
-        for name in ("hstu_sampled_drawn", "dssm_global_uniform"):
+        for name in ("hstu_sampled_drawn", "dssm_global_uniform", "rqvae_sinkhorn"):
             draws[name] = M.run_spec(M.SPECS[name], states[name], None, "cpu", str(directory / "none"))
     finally:
         ranks.join(timeout=900)
@@ -185,8 +230,8 @@ def assert_trained_like(res, prefix, loss, params, tol, steps):
 
 
 def steps_of(spec):
-    n, b = {"seq": (M.HSTU_N, M.HSTU_BATCH), "ctr": (M.CTR_N, M.CTR_BATCH), "match": (M.MATCH_N, M.MATCH_BATCH)}[spec["kind"]]
-    return M.EPOCHS[spec["kind"]] * n // b
+    n, b = {"seq": (M.HSTU_N, M.HSTU_BATCH), "ctr": (M.CTR_N, M.CTR_BATCH), "match": (M.MATCH_N, M.MATCH_BATCH), "mtl": (M.MTL_N, M.MTL_BATCH), "rqvae": (M.RQ_N, M.RQ_BATCH)}[spec["kind"]]
+    return M.epochs_of(spec) * n // b
 
 
 @pytest.mark.parametrize("shape", M.MESHES, ids=str)
@@ -241,6 +286,58 @@ def test_per_rank_batchnorm_would_fail(job):
     run = job["runs"]["deepfm_dense"]
     with pytest.raises(AssertionError):
         assert_trained_like(job["res"], key("deepfm_dense_per_rank_bn", (2, 1)), run.loss, run.params, CTR_TOL, steps_of(M.SPECS["deepfm_dense"]))
+
+
+MTL_CASES = [(name, shape) for name in MTL_SCENARIOS for shape in M.SPECS[name].get("meshes", M.MESHES)]
+
+
+@pytest.mark.parametrize("name,shape", MTL_CASES, ids=[f"{n}-{s}" for n, s in MTL_CASES])
+def test_mtl_mesh_trains_as_the_jax_package(job, name, shape):
+    """MTLTrainer under the mesh against the JAX package's mesh=None run at tests/test_sharding.py:304's tolerances:
+    the task losses, every parameter (the Dense biases in front of a BatchNorm within 2 lr a step), every rank's
+    loss weights (UWL, GradNorm), the sparse accumulators and the trained model's predictions.  Under (1, 2) a fused
+    table is row-sharded: GradNorm's leaf (SharedBottom), one of MetaBalance's norms, the sparse Adagrad table."""
+    spec, run, res, prefix = M.SPECS[name], job["runs"][name], job["res"], key(name, shape)
+    assert_trained_like(res, prefix, run.loss, run.params, MTL_TOL, steps_of(spec))
+    if hasattr(run, "loss_weight"):
+        for rank, weights in enumerate(res[prefix + "loss_weight"]):
+            np.testing.assert_allclose(weights, run.loss_weight, **LOSS_WEIGHT_TOL, err_msg=f"{prefix}loss_weight of rank {rank}")
+    for k, v in getattr(run, "accums", {}).items():
+        np.testing.assert_allclose(res[prefix + "accum/" + k], v, rtol=MTL_TOL["rtol"], atol=MTL_TOL["atol"] * max(float(v.max()), 1e-12), err_msg=prefix + k)
+    np.testing.assert_allclose(res[prefix + "predict"], run.predict, rtol=MTL_TOL["rtol"], atol=MTL_TOL["atol"], err_msg=prefix + "predict")
+    sharded = set(res[prefix + "sharded"]) - {""}
+    assert sharded == ({"embedding.fused_d6_table"} if spec.get("fused") and shape == (1, 2) else set()), sharded
+
+
+@pytest.mark.parametrize("name", RQ_SCENARIOS)
+def test_rqvae_mesh_trains_as_the_jax_package(job, name):
+    """RQVAETrainer under (2, 1), the k-means init run by each rank, against the JAX package's mesh=None run at
+    tests/test_sharding.py:351 and :369's tolerances (the best loss, every parameter), and the codes of
+    ``generate_semantic_ids`` equal; with Sinkhorn on the last stage, each training call's codes over the global
+    batch equal the port's mesh=None run's."""
+    run, res, prefix = job["runs"][name], job["res"], key(name, (2, 1))
+    assert_trained_like(res, prefix, run.loss, run.params, RQ_TOL, steps_of(M.SPECS[name]))
+    np.testing.assert_array_equal(res[prefix + "sids"], run.sids)
+    if name == "rqvae_sinkhorn":
+        ref = job["draws"][name]["sk_codes"]
+        assert ref.shape == (steps_of(M.SPECS[name]), M.RQ_BATCH)
+        np.testing.assert_array_equal(res[prefix + "sk_codes"], ref)
+
+
+def test_per_rank_gradnorm_would_fail(job):
+    """MMOE under GradNorm with each rank's norms taken from its own share of the leaf's gradient: the ranks' loss
+    weights part, and leave tests/test_sharding.py:311's tolerance of the JAX package's."""
+    run, got = job["runs"]["mmoe_gradnorm"], job["res"][key("mmoe_gradnorm_per_rank", (2, 1)) + "loss_weight"]
+    assert not np.array_equal(got[0], got[1])
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, np.broadcast_to(run.loss_weight, got.shape), **LOSS_WEIGHT_TOL)
+
+
+def test_local_sinkhorn_would_fail(job):
+    """RQ-VAE under (2, 1) with Sinkhorn over each rank's rows and its local batch size: its codes in training
+    differ from the mesh=None run's."""
+    got, ref = job["res"][key("rqvae_sinkhorn_local", (2, 1)) + "sk_codes"], job["draws"]["rqvae_sinkhorn"]["sk_codes"]
+    assert got.shape == ref.shape and (got != ref).any()
 
 
 @pytest.mark.parametrize("mode", (1, 2))

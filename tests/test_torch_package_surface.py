@@ -1,6 +1,6 @@
 """The port's package surface against the JAX package's: the trainers take the
 same parameters in the same order (plus a trailing ``device``), a device mesh
-is taken or refused by name, every name of the JAX package's ``__all__`` lists imports
+is taken and anything else refused by name, every name of the JAX package's ``__all__`` lists imports
 from its counterpart in the port, and importing the port builds nothing."""
 
 import importlib
@@ -33,15 +33,11 @@ def test_trainer_takes_the_jax_parameters_then_device(name):
 
 @pytest.mark.parametrize("name", TRAINERS)
 def test_trainer_refuses_a_mesh_naming_the_roadmap_item(name):
-    """MTLTrainer and RQVAETrainer refuse a mesh by the roadmap item that brings it; the trainers that take one
-    (tests/test_torch_mesh_train.py) refuse anything that is not a mesh."""
+    """Every trainer takes a device mesh (tests/test_torch_mesh_train.py) and refuses anything that is not one,
+    naming the type it takes."""
     args = (torch.nn.Linear(2, 2), ["classification"]) if name == "MTLTrainer" else (torch.nn.Linear(2, 2),)
-    if name in ("MTLTrainer", "RQVAETrainer"):
-        with pytest.raises(NotImplementedError, match=rf"{name}\(mesh=\.\.\.\) is not ported yet: .*item 14\(f\), the rest"):
-            getattr(port_trainers, name)(*args, mesh=object(), device="cpu")
-    else:
-        with pytest.raises(TypeError, match="DeviceMesh"):
-            getattr(port_trainers, name)(*args, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        getattr(port_trainers, name)(*args, mesh=object(), device="cpu")
 
 
 def surface_names():

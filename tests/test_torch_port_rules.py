@@ -25,7 +25,7 @@ def imported_modules(path):
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "rab_kernel_ablation.py", ROOT / "tools" / "ctr_lifecycle_diagnostics.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -34,8 +34,9 @@ def test_port_source_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# optional packages of the pipeline and the loggers: imported where they are used, never when a module is imported
-OPTIONAL = ("pyarrow", "tensorboardX", "wandb", "swanlab", "pandas")
+# optional packages of the pipeline, the loggers and the retrieval backends: imported where they are used, never when a
+# module is imported
+OPTIONAL = ("pyarrow", "tensorboardX", "wandb", "swanlab", "pandas", "annoy", "faiss", "pymilvus")
 
 
 def top_level_modules(path):
@@ -97,6 +98,32 @@ def test_importing_the_whole_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 15  # every module of the port was imported
+
+
+def test_importing_serving_builds_and_loads_nothing():
+    """``serving`` and every backend module import with ``subprocess`` and ``ctypes.CDLL`` refused (after torch, which
+    loads its own libraries): the native HNSW
+    builds and loads at its first use, and no optional package (annoy, faiss, pymilvus) is imported."""
+    code = (
+        "import ctypes, importlib, subprocess, sys, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'started while importing: {a}')\n"
+        "subprocess.Popen = subprocess.run = ctypes.CDLL = refuse\n"
+        "import torch_rechub_tpu_torch.serving as s\n"
+        "for name in ('annoy', 'faiss', 'milvus', 'hnsw', 'bruteforce', 'retrieval', 'base'):\n"
+        "    importlib.import_module('torch_rechub_tpu_torch.serving.' + name)\n"
+        "import torch_rechub_tpu_torch.utils.match\n"
+        "from torch_rechub_tpu_torch.serving import hnsw\n"
+        "assert hnsw._lib is None\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('annoy', 'faiss', 'pymilvus'))\n"
+        "assert not bad, bad\n"
+        "for name in ('annoy', 'faiss', 'milvus', 'hnsw', 'bruteforce'):\n"
+        "    s.builder_factory(name)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
 def test_seq_trainer_without_a_card_raises():

@@ -3,7 +3,8 @@
 ``angular`` metrics with its ``.npy`` save and load, ``multi_interest_topk``,
 ``match_evaluation`` and the retrieval metrics (``topk_metrics``,
 ``diversity_score``, ``coverage_score``, ``novelty_score``), on the CPU;
-``builder_factory``'s backends that are not ported yet; and the port's
+``builder_factory``'s backends (the approximate ones in
+``tests/test_torch_serving_ann.py``); and the port's
 mirrors of ``tests/test_retrieval.py`` and the brute-force cases of
 ``tests/test_serving.py``.  Ids are compared exactly on data without ties,
 scores at rtol 1e-5 / atol 1e-5 (a dot product of 8-16 fp32 terms, summed in
@@ -129,9 +130,13 @@ def test_topk_metrics_match_jax():
 
 
 def test_builder_factory_raises_for_the_backends_not_ported():
-    for name in ("annoy", "faiss", "milvus", "hnsw"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tserving.builder_factory(name)
+    """Every backend is ported: the factory returns each one's builder class, as the JAX package's does (the
+    optional packages are imported at the first build, not here); an unknown name, a metric a backend does not
+    take and anything but a mesh raise."""
+    for name in ("annoy", "faiss", "milvus", "hnsw", "bruteforce"):
+        builder, ref = tserving.builder_factory(name), jserving.builder_factory(name)
+        assert type(builder).__name__ == type(ref).__name__ and type(builder).__module__ == f"torch_rechub_tpu_torch.serving.{name}"
+        assert isinstance(builder, tserving.BaseBuilder)
     with pytest.raises(NotImplementedError):
         tserving.builder_factory("scann")
     with pytest.raises(ValueError):

@@ -18,16 +18,14 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from ..parallel.distributed import data_group, mean_over_data
+from ..parallel.distributed import mean_over_batch, mean_over_data
 
 
 def _weighted_mean(loss: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
     """``Σ w·ℓ / max(Σ w, 1e-12)`` (the plain mean without weights); inside a step under a device mesh, the global
     batch's (``parallel.distributed.mean_over_data``)."""
     if weight is None:
-        if data_group() is None:
-            return loss.mean()
-        return mean_over_data(loss.sum(), torch.tensor(float(loss.numel()), device=loss.device), 1e-12)
+        return mean_over_batch(loss)
     weight = weight.to(loss.dtype)
     return mean_over_data((loss * weight).sum(), weight.sum(), 1e-12)
 

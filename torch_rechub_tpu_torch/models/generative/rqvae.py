@@ -15,6 +15,15 @@ setting of ``RQVAETrainer.generate_semantic_ids``) ``exp(−d/ε)`` of the
 centred distances overflows, every entry of the plan becomes NaN and
 ``argmax`` returns code 0 for every row: a quirk of the reference that the
 port keeps (``ROADMAP.md`` queue 3).
+
+Inside a training step under a device mesh (``parallel.distributed.data_parallel``)
+each rank holds its rows of the global batch, and every reduction over the
+batch is the global batch's, as in the JAX package's single program: the
+quantizers' and the reconstruction's means (``mean_over_batch``), and
+Sinkhorn's balance: the largest and smallest distance of
+:func:`center_distances`, the plan's total and column sums, and the batch
+size ``b`` are taken over the data group (a row's sum stays the rank's).
+Outside a scope (evaluation, ``generate_semantic_ids``) nothing is gathered.
 """
 
 from __future__ import annotations
@@ -23,26 +32,48 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ...basic.initializers import param
 from ...basic.layers import MLP
+from ...parallel import distributed as pdist
+from ...parallel.distributed import mean_over_batch
+
+
+def _batch_group():
+    """The data group of the open ``data_parallel`` scope when it holds more than one rank, else None."""
+    group = pdist.data_group()
+    return None if group is None or pdist.group_size(group) == 1 else group
 
 
 def sinkhorn_algorithm(distances: torch.Tensor, epsilon: float, iterations: int) -> torch.Tensor:
-    """The entropy-regularized balanced assignment of ``(B, K)`` distances."""
+    """The entropy-regularized balanced assignment of ``(B, K)`` distances (this rank's rows of the global
+    batch inside a ``data_parallel`` scope: the total, the column sums and ``B`` are the global batch's)."""
+    group = _batch_group()
     q = torch.exp(-distances / epsilon)
     b, k = q.shape
-    q = q / q.sum()
+    if group is None:
+        q = q / q.sum()
+    else:
+        b = b * pdist.group_size(group)
+        q = q / pdist.all_reduce(q.sum(), group)
     for _ in range(iterations):
         q = q / q.sum(dim=1, keepdim=True) / b
-        q = q / q.sum(dim=0, keepdim=True) / k
+        cols = q.sum(dim=0, keepdim=True)
+        q = q / (cols if group is None else pdist.all_reduce(cols, group)) / k
     return q * b
 
 
 def center_distances(d: torch.Tensor) -> torch.Tensor:
-    """Distances normalised to [-1, 1] by their middle and half range (plus 1e-5)."""
-    mx, mn = d.max(), d.min()
+    """Distances normalised to [-1, 1] by their middle and half range (plus 1e-5); the global batch's largest and
+    smallest inside a ``data_parallel`` scope."""
+    group = _batch_group()
+    if group is None:
+        mx, mn = d.max(), d.min()
+    else:  # one collective: the max of (max, -min)
+        mx, neg_mn = pdist.all_reduce(torch.stack([d.max(), -d.min()]), group, op=dist.ReduceOp.MAX)
+        mn = -neg_mn
     middle = (mx + mn) / 2
     amplitude = mx - middle + 1e-5
     return (d - middle) / amplitude
@@ -67,8 +98,8 @@ class VectorQuantizer(nn.Module):
         else:
             indices = torch.argmax(sinkhorn_algorithm(center_distances(d.detach()), eps, self.sk_iters), dim=-1)
         x_q = emb[indices].reshape(x.shape)
-        commitment = ((x_q.detach() - x) ** 2).mean()
-        codebook = ((x_q - x.detach()) ** 2).mean()
+        commitment = mean_over_batch((x_q.detach() - x) ** 2)
+        codebook = mean_over_batch((x_q - x.detach()) ** 2)
         loss = codebook + self.beta * commitment
         x_q = x + (x_q - x).detach()  # straight-through
         return x_q, loss, indices.reshape(x.shape[:-1])
@@ -136,9 +167,9 @@ class RQVAEModel(nn.Module):
     def compute_loss(self, out: torch.Tensor, quant_loss: torch.Tensor, xs: torch.Tensor):
         """``(recon + quant_loss_weight · quant_loss, recon)``, recon the MSE or L1 of ``out`` against ``xs``."""
         if self.loss_type == "mse":
-            recon = ((out - xs) ** 2).mean()
+            recon = mean_over_batch((out - xs) ** 2)
         elif self.loss_type == "l1":
-            recon = (out - xs).abs().mean()
+            recon = mean_over_batch((out - xs).abs())
         else:
             raise ValueError("incompatible loss type")
         return recon + self.quant_loss_weight * quant_loss, recon

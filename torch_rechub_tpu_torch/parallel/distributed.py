@@ -40,7 +40,7 @@ import tempfile
 import threading
 import time
 import warnings
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -268,18 +268,32 @@ def mean_over_data(num: torch.Tensor, den: torch.Tensor, floor: float) -> torch.
     return global_mean(num, den, group, floor)
 
 
+def mean_over_batch(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()``, or inside a :func:`data_parallel` scope the mean over the global batch, of which ``x`` holds
+    this rank's rows (:func:`global_mean`)."""
+    if data_group() is None:
+        return x.mean()
+    return mean_over_data(x.sum(), torch.tensor(float(x.numel()), device=x.device), 1.0)
+
+
+def sum_tensors(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each of ``tensors`` summed over ``group`` (new tensors, in order), one flat buffer per dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
 def all_reduce_gradients(parameters: Sequence[torch.Tensor], group) -> None:
     """Sum the ``.grad`` of ``parameters`` over ``group`` in place, one flat buffer per dtype."""
-    by_dtype: Dict[torch.dtype, list] = {}
-    for p in parameters:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset: offset + g.numel()].view_as(g))
-            offset += g.numel()
+    grads = [p.grad for p in parameters if p.grad is not None]
+    for g, total in zip(grads, sum_tensors(grads, group)):
+        g.copy_(total)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Counterpart of ``torch_rechub_tpu/serving/base.py``: a ``BaseBuilder`` owns
 the build-time configuration and yields a ``BaseIndexer`` through the
 context-managed ``from_embeddings`` / ``from_index_file``; an indexer answers
-``query(embeddings, top_k) -> (ids, distances)`` and ``save(path)``.  Arrays
-at this boundary are numpy.
+``query(embeddings, top_k) -> (ids, distances)`` and ``save(path)``.  The
+results are numpy; embeddings may be numpy arrays or tensors, which a host
+index (HNSW, annoy, faiss, milvus) reads through :func:`as_host` and the
+brute-force index moves to its device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,14 @@ import contextlib
 from typing import ContextManager, Tuple
 
 import numpy as np
+import torch
+
+
+def as_host(x) -> np.ndarray:
+    """``x`` (a numpy array, a list, or a tensor on any device, copied to the host) as a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, dtype=np.float32)
 
 
 class BaseIndexer(abc.ABC):

@@ -6,9 +6,9 @@ exact; the reference the approximate backends are measured against.
 Metrics: ``ip`` (inner product), ``angular`` (both sides L2-normalised, the
 scores cosines) and ``l2``: ``argmin |q − i|² = argmax (q·i − |i|²/2)``, so the
 items take a bias column ``−|i|²/2`` and the queries a column of ones, and
-the distances come back as ``|q|² − 2·score``.  The corpus is prepared and
-moved to the device once per indexer; ``save`` writes the raw embeddings as
-``.npy``.
+the distances come back as ``|q|² − 2·score``.  The corpus (numpy, or a
+tensor on any device) is prepared and moved to the device once per indexer,
+the raw one kept where it came from; ``save`` writes it as ``.npy``.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import BaseBuilder, BaseIndexer, simple_context
+from .base import BaseBuilder, BaseIndexer, as_host, simple_context
 from ..parallel.mesh import check_mesh
 from ..trainers.base import resolve_device
 from .retrieval import as_matrix, brute_force_topk
@@ -29,10 +29,10 @@ def _normalized(x: torch.Tensor) -> torch.Tensor:
 class BruteForceIndexer(BaseIndexer):
     def __init__(self, embeddings: np.ndarray, metric: str = "ip", mesh=None, device=None):
         check_mesh(mesh)
-        self.embeddings = np.asarray(embeddings, dtype=np.float32)
         self.metric, self.mesh = metric, mesh
         self.device = resolve_device(device)
-        items = as_matrix(self.embeddings, self.device)
+        self.embeddings = embeddings  # the raw corpus where it came from, for save
+        items = as_matrix(embeddings, self.device)
         if metric == "angular":
             items = _normalized(items)
         elif metric == "l2":
@@ -50,7 +50,7 @@ class BruteForceIndexer(BaseIndexer):
         return brute_force_topk(q, self._items, top_k, mesh=self.mesh, device=self.device)
 
     def save(self, file_path) -> None:
-        np.save(str(file_path), self.embeddings)
+        np.save(str(file_path), as_host(self.embeddings))
 
 
 class BruteForceBuilder(BaseBuilder):

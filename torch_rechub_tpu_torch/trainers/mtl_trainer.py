@@ -27,6 +27,18 @@ refuse it.  ``steps_per_call`` groups run as single steps.  ``fit``
 early-stops on task ``earlystop_taskid``'s validation score, restores the
 best weights (the BatchNorm statistics too) and saves
 ``model_{mode}_{seed}.pt``.
+
+``mesh=`` trains over a (data, model) mesh of ranks as ``CTRTrainer`` does
+(``trainers/base.py``): each rank steps on its rows of every global batch,
+the task losses are global means and BatchNorm's statistics the global
+batch's, and the model's gradients are summed over the data group.  The
+adaptive methods read the global gradients, as the JAX package's single
+program does: GradNorm sums each task's gradient of its leaf over the data
+group before its norm, MetaBalance each task's gradient dict before
+``metabalance_scale``; a row shard's squared norms are summed over its model
+group too.  ``loss_weight``'s gradient is not summed: it is computed from the
+global losses' values (UWL) or from the global norms (GradNorm), so every
+rank holds all of it already.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ from ..basic.metric import auc_score
 from ..basic.tracking import iter_loggers
 from ..models.multi_task import ESMM
 from ..ops.sparse_update import record_rows
+from ..parallel import distributed as pdist
+from ..parallel.mesh import row_shard
 from ..utils.data import pad_batch
 from ..utils.mtl import gradnorm_leaf, gradnorm_weight_grads, metabalance_scale, shared_task_mask
 from .base import DictBatchTrainer, resolve_device, to_numpy, under_precision
@@ -75,7 +89,14 @@ def _task_loss(pred: torch.Tensor, y: torch.Tensor, task_type: str, weight: torc
         loss = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
     else:
         loss = (pred - y) ** 2
-    return (loss * weight).sum() / torch.clamp_min(weight.sum(), 1e-12)
+    return pdist.mean_over_data((loss * weight).sum(), weight.sum(), 1e-12)
+
+
+def _norms(grads: List[torch.Tensor], shard) -> torch.Tensor:
+    """The ``(n,)`` norms of ``n`` gradients of one parameter; where the parameter is a row shard (``shard``), the
+    whole table's: the squares summed over the shard's model group."""
+    norms = torch.stack([torch.linalg.vector_norm(g.reshape(-1)) for g in grads])
+    return norms if shard is None else torch.sqrt(pdist.all_reduce(norms * norms, shard.group))
 
 
 class MTLTrainer(DictBatchTrainer):
@@ -83,15 +104,14 @@ class MTLTrainer(DictBatchTrainer):
     unless the caller passes another (``device="cpu"``); with no card and no device it raises.
 
     ``precision="bf16"`` computes in bf16 (``basic/precision.py``); the task
-    losses and predictions are read in f32.  ``mesh`` is not ported yet and
-    raises.
+    losses and predictions are read in f32.  ``mesh`` takes a
+    ``parallel.mesh.DeviceMesh``; ``predict`` and ``evaluate`` then run the
+    whole batch on every rank, which must all call them.
     """
 
     label_dtype = np.float32
 
     def __init__(self, model: torch.nn.Module, task_types, optimizer_params=None, regularization_params=None, scheduler_params=None, adaptive_params=None, n_epoch: int = 10, earlystop_taskid: int = 0, earlystop_patience: int = 10, model_path: str = "./", model_logger=None, mesh=None, seed: int = 0, steps_per_call: int = 1, sparse_embedding=None, precision=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("MTLTrainer(mesh=...) is not ported yet: GradNorm / MetaBalance over the global per-task gradients come with ROADMAP queue 1, item 14(f), the rest")
         self.adaptive_params = adaptive_params or {}
         self.adaptive_method = None
         if adaptive_params is not None:
@@ -112,7 +132,7 @@ class MTLTrainer(DictBatchTrainer):
         start = {"uwl": 0.0, "gradnorm": 1.0}.get(self.adaptive_method)
         self.loss_weight = None if start is None else torch.full((self.n_task,), start, dtype=torch.float32, device=device, requires_grad=True)
         extra = () if self.loss_weight is None else (("loss_weight", self.loss_weight),)
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, extra_params=extra, precision=precision)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, earlystop_patience, model_path, seed, model_logger, device, sparse_embedding, extra_params=extra, precision=precision, mesh=mesh)
         self.steps_per_call = int(steps_per_call)
         self.earlystop_taskid = earlystop_taskid
         self.early_stopper = EarlyStopper(patience=earlystop_patience)
@@ -145,9 +165,10 @@ class MTLTrainer(DictBatchTrainer):
         """One optimizer step on one padded batch; returns the ``(n_task,)`` losses on the device (no host sync)."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        with record_rows(self.sparse_tables) as rec:
+        group = None if self.mesh is None else self.mesh.data_group
+        with record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
             out = self.model(x, generator=self.generator)
-        loss_list = self.task_losses(out, ys, w)
+            loss_list = self.task_losses(out, ys, w)
         if self.adaptive_method == "metabalance":
             self._metabalance_grads(loss_list)
         else:
@@ -155,13 +176,15 @@ class MTLTrainer(DictBatchTrainer):
                 self.initial_task_loss = loss_list.detach().clone()
             loss = _aggregate_losses(loss_list, self.loss_weight, self.adaptive_method, self.is_esmm)
             if self.reg_loss_fn:  # the sparse tables take none, as in the JAX package
-                loss = loss + self.reg_loss_fn((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables)
+                loss = loss + self.penalty(self.reg_loss_fn, ((n, p) for n, p in self.model.named_parameters() if n not in self.sparse_tables))
             norms = self._gradnorm_norms(loss_list) if self.adaptive_method == "gradnorm" else None
             loss.backward()
+            if group is not None:  # the model's shares; loss_weight's gradient is whole on every rank
+                pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"] if p is not self.loss_weight], group)
             if norms is not None:
                 self.loss_weight.grad = gradnorm_weight_grads(norms, self.loss_weight.detach(), loss_list.detach(), self.initial_task_loss, self.alpha)
         self.optimizer.step()
-        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows)
+        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
         if self.adaptive_method == "gradnorm":
             with torch.no_grad():
                 self.loss_weight.mul_(self.n_task / torch.clamp_min(self.loss_weight.sum(), 1e-12))
@@ -183,23 +206,33 @@ class MTLTrainer(DictBatchTrainer):
             self.initial_task_loss.copy_(state["initial_task_loss"])
 
     def _gradnorm_norms(self, loss_list: torch.Tensor) -> torch.Tensor:
-        """``‖d L_i / d leaf‖`` per task, from the step's graph (kept for the backward that follows)."""
+        """``‖d L_i / d leaf‖`` per task, from the step's graph (kept for the backward that follows); under a mesh
+        the norms of the global gradients (the ranks' shares summed over the data group)."""
         leaf = dict(self.model.named_parameters())[self.gradnorm_leaf]
-        norms = []
+        grads = []
         for i in range(self.n_task):
             (g,) = torch.autograd.grad(loss_list[i], leaf, retain_graph=True, allow_unused=True)
-            norms.append(torch.linalg.vector_norm((torch.zeros_like(leaf) if g is None else g).reshape(-1)))
-        return torch.stack(norms)
+            grads.append(torch.zeros_like(leaf) if g is None else g)
+        if self.mesh is not None:
+            grads = pdist.sum_tensors(grads, self.mesh.data_group)
+        return _norms(grads, row_shard(leaf))
 
     def _metabalance_grads(self, loss_list: torch.Tensor) -> None:
         """Set each parameter's ``.grad``: every task's gradient (no regularization), the norm-scaled sum on
-        shared parameters, the plain sum on task ones; the moving norms advance."""
+        shared parameters, the plain sum on task ones; the moving norms advance.  Under a mesh the gradients are
+        the global ones, so nothing is summed after."""
         named = list(self.model.named_parameters())
         grads_list = []
         for i in range(self.n_task):
             gs = torch.autograd.grad(loss_list[i], [p for _, p in named], retain_graph=i < self.n_task - 1, allow_unused=True)
             grads_list.append({n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, gs)})
-        scaled, self.mb_norms = metabalance_scale(grads_list, self.mb_norms, self.relax_factor, self.beta)
+        task_norms = None
+        if self.mesh is not None:  # the global gradients: the ranks' shares summed over the data group
+            totals = iter(pdist.sum_tensors([g[n] for g in grads_list for n, _ in named], self.mesh.data_group))
+            grads_list = [{n: next(totals) for n, _ in named} for _ in grads_list]
+            if any(row_shard(p) is not None for _, p in named):
+                task_norms = {n: _norms([g[n] for g in grads_list], row_shard(p)) for n, p in named}
+        scaled, self.mb_norms = metabalance_scale(grads_list, self.mb_norms, self.relax_factor, self.beta, task_norms)
         for n, p in named:
             p.grad = scaled[n] if self.shared_mask[n] else sum(g[n] for g in grads_list)
 

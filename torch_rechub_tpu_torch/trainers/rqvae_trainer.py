@@ -17,6 +17,16 @@ re-codes the colliding groups' last stage with Sinkhorn, up to
 changes no code the later ones would repeat it and are not run.  At the
 retry epsilon of 0.003 the reference's Sinkhorn overflows and gives code 0
 (``models/generative/rqvae.py``), which the port keeps.
+
+``mesh=`` trains over a (data, model) mesh of ranks (``trainers/base.py``):
+every rank holds the same data and computes the same k-means codebooks on
+the host, which are then checked equal across the ranks; each rank steps on
+its rows of every global batch, inside the ``data_parallel`` scope where the
+losses, BatchNorm's statistics and Sinkhorn's sums are the global batch's,
+and the gradients are summed over the data group.  The model has no table
+that shards, so the model axis replicates it.  ``evaluate`` and
+``generate_semantic_ids`` run the whole data on every rank, which must all
+call them.
 """
 
 from __future__ import annotations
@@ -30,17 +40,17 @@ import torch
 
 from ..basic.tracking import iter_loggers
 from ..models.generative.rqvae import RQVAEModel, kmeans_init_codebooks
+from ..parallel import distributed as pdist
+from ..parallel.mesh import shard_batch
 from .base import TorchTrainer, to_numpy
 
 
 class RQVAETrainer(TorchTrainer):
     """Trains ``model`` on ``device``: the CUDA card unless the caller passes another (``device="cpu"``);
-    with no card and no device it raises.  ``mesh`` is not ported yet and raises."""
+    with no card and no device it raises.  ``mesh`` takes a ``parallel.mesh.DeviceMesh``."""
 
     def __init__(self, model: RQVAEModel, optimizer_params=None, scheduler_params=None, n_epoch: int = 100, eval_step: int = 5, model_path: str = "./", use_sk: bool = True, model_logger=None, mesh=None, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError("RQVAETrainer(mesh=...) is not ported yet: k-means and Sinkhorn over the global batch come with ROADMAP queue 1, item 14(f), the rest")
-        super().__init__(model, optimizer_params, scheduler_params, n_epoch, 10, model_path, seed, model_logger, device)
+        super().__init__(model, optimizer_params, scheduler_params, n_epoch, 10, model_path, seed, model_logger, device, mesh=mesh)
         self.eval_step = eval_step
         self.use_sk = use_sk
         self.best_loss = np.inf
@@ -51,18 +61,22 @@ class RQVAETrainer(TorchTrainer):
         """The codebooks' k-means init from the first 8,192 rows, once, where the model asks for it."""
         if self.model.kmeans_init:
             kmeans_init_codebooks(self.model, np.asarray(data[: min(len(data), 8192)]), num_iters=self.model.kmeans_iters, seed=self.seed)
+            if self.mesh is not None:
+                self._check_codebooks_agree()
         self.initialised = True
 
-    def train_step(self, x: torch.Tensor) -> torch.Tensor:
-        """One Adam step on a batch of rows; returns the loss on the device (no host sync)."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+    def _check_codebooks_agree(self) -> None:
+        """Raise on every rank unless every rank's k-means codebooks equal rank 0's bit for bit."""
+        books = torch.cat([getattr(self.model.rq, f"vq_layers_{i}").embedding.detach().reshape(-1) for i in range(self.model.rq.n_stages)])
+        first = pdist.broadcast_(books.clone(), int(self.mesh.devices.flat[0]))
+        differ = pdist.all_reduce(torch.tensor([0.0 if torch.equal(books, first) else 1.0], device=books.device), None)
+        if float(differ) > 0:
+            raise RuntimeError(f"the k-means codebooks differ between the ranks ({int(differ)} of {self.mesh.size} differ from rank 0's): every rank must fit on the same data")
+
+    def loss_fn(self, x: torch.Tensor) -> torch.Tensor:
+        """The training loss of a batch of rows (the model in train mode): the reconstruction plus the quantizers'."""
         out, rq_loss, _ = self.model(x, use_sk=self.use_sk, generator=self.generator)
-        loss, _ = self.model.compute_loss(out, rq_loss, x)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return loss.detach()
+        return self.model.compute_loss(out, rq_loss, x)[0]
 
     def _iter_batches(self, data: np.ndarray, batch_size: int, shuffle: bool = True, epoch: int = 0):
         n = len(data)
@@ -73,8 +87,9 @@ class RQVAETrainer(TorchTrainer):
             yield data[order[s:s + batch_size]]
 
     def train_one_epoch(self, data: np.ndarray, batch_size: int = 1024, epoch: int = 0) -> float:
-        """One shuffled pass over ``data`` (the last partial batch dropped); the mean step loss (one host read)."""
-        losses = [self.train_step(torch.as_tensor(xb, device=self.device)) for xb in self._iter_batches(data, batch_size, epoch=epoch)]
+        """One shuffled pass over ``data`` (the last partial batch dropped); the mean step loss (one host read).
+        Under a mesh each step takes this rank's rows of the batch."""
+        losses = [self.train_step(torch.as_tensor(shard_batch(xb, self.mesh), device=self.device)) for xb in self._iter_batches(data, batch_size, epoch=epoch)]
         return float(to_numpy(torch.stack(losses)).mean()) if losses else 0.0
 
     def fit(self, data, batch_size: int = 1024):

@@ -22,6 +22,11 @@ user); the uniform keys are drawn at the global batch's shape and this
 rank's rows taken, so the draws are ``mesh=None``'s.
 ``local_inbatch_loss`` is the per-shard pool: each data rank's own ``(b, b)``
 block, combined exactly over the data group.
+
+The legacy engines ``Annoy``, ``Faiss`` and ``Milvus`` give the serving
+backends the ``fit(X)`` / ``query(v, n)`` interface of the examples, with the
+JAX package's substitutions: ``Annoy`` takes the native HNSW index when the
+annoy package is absent, ``Faiss`` the exact brute-force index when faiss is.
 """
 
 from __future__ import annotations
@@ -225,3 +230,75 @@ def local_inbatch_loss(user_emb: torch.Tensor, item_emb: torch.Tensor, weight: O
     if mesh is None:
         return loss_sum / torch.clamp_min(w_sum, 1e-12)
     return global_mean(loss_sum, w_sum, mesh.group(data_axis), 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the legacy fit / query engines over the serving backends
+# ---------------------------------------------------------------------------
+
+
+class _LegacyEngine:
+    """``fit(X)`` / ``query(v, n)`` over a serving ``BaseBuilder``: ``fit`` builds an index over the rows of ``X``
+    (closing the one before), ``query`` returns ``(ids, distances)``, as lists for one 1-D query."""
+
+    def __init__(self, builder):
+        self._builder = builder
+        self._indexer = None
+        self._cm = None
+
+    def fit(self, X):
+        if self._cm is not None:
+            self._cm.__exit__(None, None, None)
+        self._cm = self._builder.from_embeddings(X)
+        self._indexer = self._cm.__enter__()
+        return self
+
+    def query(self, v, n):
+        ids, dists = self._indexer.query(v, n)
+        if ids.shape[0] == 1 and np.ndim(v) == 1:
+            return ids[0].tolist(), dists[0].tolist()
+        return ids, dists
+
+
+class Annoy(_LegacyEngine):
+    """The annoy engine; without the annoy package, the native HNSW index (``serving/hnsw.py``) under the
+    matching metric, as in the JAX package."""
+
+    def __init__(self, metric="angular", n_trees=10, search_k=-1):
+        try:
+            import annoy  # noqa: F401
+
+            from ..serving.annoy import AnnoyBuilder
+
+            super().__init__(AnnoyBuilder(metric=metric, n_trees=n_trees, search_k=search_k))
+        except ImportError:
+            from ..serving.hnsw import HnswBuilder
+
+            hnsw_metric = {"angular": "angular", "euclidean": "l2", "dot": "ip"}.get(metric, "angular")
+            super().__init__(HnswBuilder(metric=hnsw_metric, ef_search=max(64, search_k)))
+
+
+class Faiss(_LegacyEngine):
+    """The faiss engine; without the faiss package, the exact brute-force index (``serving/bruteforce.py``) on
+    ``device`` (the card unless the caller names another; with neither it raises), as in the JAX package."""
+
+    def __init__(self, index_key="Flat", metric="ip", device=None, **kwargs):
+        try:
+            import faiss  # noqa: F401
+
+            from ..serving.faiss import FaissBuilder
+
+            super().__init__(FaissBuilder(index_key=index_key, metric=metric, **kwargs))
+        except ImportError:
+            from ..serving.bruteforce import BruteForceBuilder
+
+            super().__init__(BruteForceBuilder(metric=metric, device=device))
+
+
+class Milvus(_LegacyEngine):
+    """The Milvus engine (``serving/milvus.py``; a live server)."""
+
+    def __init__(self, **kwargs):
+        from ..serving.milvus import MilvusBuilder
+
+        super().__init__(MilvusBuilder(**kwargs))

@@ -10,7 +10,7 @@ leaf (the last shared 2-D leaf in the *sorted* ``keystr`` order; ``'`` and
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -49,19 +49,22 @@ def gradnorm_leaf(named_parameters) -> str:
     return candidates[sorted(candidates)[-1]]
 
 
-def metabalance_scale(grads_list: List[Mapping[str, torch.Tensor]], norms_state: Mapping[str, torch.Tensor], relax_factor: float = 0.7, beta: float = 0.9) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+def metabalance_scale(grads_list: List[Mapping[str, torch.Tensor]], norms_state: Mapping[str, torch.Tensor], relax_factor: float = 0.7, beta: float = 0.9, task_norms: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Scale each task's gradient toward task 0's norm; return ``(summed, new_norms)``.
 
     For every parameter: ``norms[t] = beta·norms[t] + (1 − beta)·‖g_t‖``;
     ``g_t ← g_t·(norms[0] / (norms[t] + 1e-5))·relax + g_t·(1 − relax)``;
     the output gradient is the sum over tasks.  ``grads_list`` holds one
     ``{name: gradient}`` per task, ``norms_state`` one ``(n_task,)`` tensor
-    per name.
+    per name.  ``task_norms`` gives the ``(n_task,)`` ``‖g_t‖`` per name where
+    a gradient is a part of its parameter's (a row shard's rows: the trainer
+    sums the squares over the shard's group); by default they are the
+    gradients' own norms.
     """
     summed, new_norms = {}, {}
     for name in grads_list[0]:
         g_ts = [g[name] for g in grads_list]
-        cur = torch.stack([torch.linalg.vector_norm(g.reshape(-1)) for g in g_ts])
+        cur = task_norms[name] if task_norms is not None else torch.stack([torch.linalg.vector_norm(g.reshape(-1)) for g in g_ts])
         upd = norms_state[name] * beta + (1 - beta) * cur
         scale = upd[0] / (upd + 1e-5) * relax_factor + (1.0 - relax_factor)
         total = g_ts[0] * scale[0]
