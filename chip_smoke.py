@@ -219,7 +219,20 @@
    beside the card's exact batch, the index file's bytes and a save / load
    round trip; the legacy ``Annoy`` and ``Faiss`` engines on one batch each
    against the native HNSW and ``brute_force_topk``.
-18. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+18. The examples (``examples_phase``): every script of ``examples_torch/`` once through its
+   argv entry (``runpy``, ``--device`` unset, so on the card), the small ones at their
+   defaults with one epoch (TIGER 50 steps), each one's wall seconds and result line
+   (finite); K1 once per layer per HSTU forward and K2 once per layer per training step,
+   and no other script launching an HSTU kernel.  The production HSTU recipe
+   (``run_hstu_production_vocab.py``) at BASELINE.md's Amazon-Books geometry: V686,000,
+   d256, 4 layers of 4 heads of dqk = dv = 64, B8 x L256, 2048 sampled negatives, both
+   tables under sparse Adagrad: its peak memory, tokens/s, a step's device ms and idle
+   share, one step of its own ``build`` card against CPU (dropout 0, given negatives), K1
+   and K2 at its shape against their plain versions with their device ms, bounds and
+   occupancy.  The Criteo-full recipe (``run_criteo_production.py``, scale 1.0) without a
+   mesh and on a (1, 1) mesh over NCCL (torchrun's environment of one rank), the two runs'
+   losses and AUCs agreeing.  The phase stays under 180 s.
+19. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 outside the bf16 phases, TF32 off, and cuBLAS's bf16 GEMMs without
@@ -4545,6 +4558,330 @@ def ann_phase(cycles_per_ms):
         raise AssertionError("(g) the legacy Faiss engine's brute force answers otherwise than brute_force_topk")
 
 
+# ---------------------------------------------------------------------------
+# 18. the examples (examples_torch/) through their argv entries
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+NUM = r"(-?\d+(?:\.\d+)?(?:e[-+]?\d+)?|nan)"
+_MATCH_LINE = r"^defaultdict\(<class 'list'>, \{'NDCG': \['NDCG@10: " + NUM + r"'\].*'Precision': \['Precision@10: " + NUM + r"'\]\}\)$"
+_AUC_LINE, _MTL_LINE, _HSTU_LINE = r"^test auc: " + NUM + "$", r"^final scores: \[", r"^hit@10 \(seen filtered\): " + NUM + "$"
+# every script but the two production recipes, at its defaults with one epoch (TIGER: 50 steps, the first print),
+# and the line of its result
+EXAMPLE_RUNS = {
+    "ranking/run_criteo.py": (["--epoch", "1"], _AUC_LINE),
+    "ranking/run_avazu.py": (["--epoch", "1"], _AUC_LINE),
+    "ranking/run_ali_ccp_ctr_ranking.py": (["--epoch", "1"], _AUC_LINE),
+    "ranking/run_amazon_electronics.py": (["--epoch", "1"], r"^test AUC: " + NUM + "$"),
+    "ranking/run_dien.py": (["--epoch", "1"], r"^test AUC: " + NUM + "$"),
+    "ranking/run_multi_task.py": (["--epoch", "1"], _MTL_LINE),
+    "ranking/run_ali_ccp_multi_task.py": (["--epoch", "1"], _MTL_LINE),
+    "ranking/run_aliexpress.py": (["--epoch", "1"], _MTL_LINE),
+    "ranking/run_census.py": (["--epoch", "1"], _MTL_LINE),
+    "ranking/run_gradnorm.py": (["--epoch", "1"], _MTL_LINE),
+    "ranking/run_metabalance.py": (["--epoch", "1"], _MTL_LINE),
+    "matching/run_ml_matching.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_youtube_dnn.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_youtube_sbc.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_gru4rec.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_mind.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_comirec.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_sine.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_facebook_dssm.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_ml_dssm.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_dssm.py": (["--epoch", "1"], _MATCH_LINE),
+    "matching/run_sbr.py": (["--epoch", "1"], r"^test metrics: \{'NDCG@20': " + NUM + ".*'Precision@20': " + NUM + r"\}$"),
+    "matching/run_yidian_sbc.py": (["--epoch", "1"], r"^test metrics: \{'NDCG@10': " + NUM + ".*'Precision@10': " + NUM + r"\}$"),
+    "matching/movielens_utils.py": ([], None),
+    "generative/run_hstu.py": (["--epoch", "1"], _HSTU_LINE),
+    "generative/run_hstu_movielens.py": (["--epoch", "1"], _HSTU_LINE),
+    "generative/run_hstu_amazon_books.py": (["--epoch", "1"], _HSTU_LINE),
+    "generative/run_hllm.py": (["--epoch", "1"], r"^test loss: " + NUM + "  top-1 hit: " + NUM + "$"),
+    "generative/run_hllm_movielens.py": (["--epoch", "1"], r"^test loss: " + NUM + "  top-1 hit: " + NUM + "$"),
+    "generative/run_hllm_amazon_books.py": (["--epoch", "1"], r"^test loss: " + NUM + "  top-1 hit: " + NUM + "$"),
+    "generative/run_rqvae_tiger.py": (["--rqvae_epochs", "1", "--tiger_steps", "50"], r"^recall@5 over semantic ids: " + NUM + "$"),
+    "generative/run_rqvae_amazon_books.py": (["--rqvae_epochs", "1"], r"^semantic-id vocab: \d+ tokens over 500 items$"),
+    "generative/run_tiger_amazon_books.py": (["--rqvae_epochs", "1", "--tiger_steps", "50"], r"^recall@5 over semantic ids: " + NUM + "$"),
+    "generative/run_tiger_movielens.py": (["--rqvae_epochs", "1", "--tiger_steps", "50"], r"^recall@5 over semantic ids: " + NUM + "$"),
+    "serving/run_quantize_export.py": (["--epoch", "1"], r"^bruteforce: build " + NUM + " ms, " + NUM + r" ms/query, self-top1 hit " + NUM + "$"),
+}
+# the production HSTU recipe at BASELINE.md's Amazon-Books geometry: V686k, d256, 4 layers of 4 heads of 64, B8 x L256,
+# 2048 sampled negatives, both tables sparse (row-wise Adagrad)
+PROD_HSTU_ARGV = ["--vocab", "686000", "--d_model", "256", "--n_layers", "4", "--batch_size", "8", "--seq_len", "256", "--num_negatives", "2048", "--epoch", "1"]
+PROD_HSTU_STEPS = 64  # steps of the timed window (the recipe's train split holds 100 batches of 8)
+EXAMPLES_PHASE_S = 180.0
+# the mesh run's epoch loss and AUC against the run without a mesh: the same function, index_add_'s atomics apart
+CRITEO_MESH_RTOL, CRITEO_MESH_AUC_ATOL = 1e-3, 1e-3
+MTL_DATA = {"run_multi_task.py": "build_census_multitask_dataset", "run_census.py": "build_census_multitask_dataset", "run_aliexpress.py": "build_aliexpress_multitask_dataset",
+            "run_ali_ccp_multi_task.py": "build_aliccp_multitask_dataset", "run_gradnorm.py": "build_aliccp_multitask_dataset", "run_metabalance.py": "build_aliccp_multitask_dataset"}
+
+
+class HSTUCalls:
+    """While open: the forwards of every ``HSTUModel`` (a global forward hook) and ``SeqTrainer.train_step`` calls."""
+
+    def __enter__(self):
+        self.forwards = self.steps = 0
+        step = SeqTrainer.train_step
+
+        def counted(trainer, *args, **kwargs):
+            self.steps += 1
+            return step(trainer, *args, **kwargs)
+
+        def hook(module, args, output):
+            if isinstance(module, HSTUModel):
+                self.forwards += 1
+
+        self._step, SeqTrainer.train_step = step, counted
+        self._hook = torch.nn.modules.module.register_module_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        SeqTrainer.train_step = self._step
+        self._hook.remove()
+
+
+def run_example(rel, argv, directory):
+    """``examples_torch/<rel>`` as ``__main__`` with ``argv``, ``--device`` unset, in a working directory of its own
+    under ``directory``, where its ``--save_dir`` (relative by default, also through a preset) lands:
+    ``(its standard output, wall seconds)``.  ``sys.argv``, ``sys.path`` and the working directory are
+    restored; on a failure the output's tail is printed before the error."""
+    import io
+    import runpy
+    import tempfile
+
+    path = os.path.join(EXAMPLES_DIR, rel)
+    cwd = tempfile.mkdtemp(prefix=os.path.basename(rel)[:-3] + "_", dir=directory)
+    argv0, path0, cwd0, out = sys.argv, list(sys.path), os.getcwd(), io.StringIO()
+    sys.argv = [path] + list(argv)
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+    except BaseException:
+        print(out.getvalue()[-4000:])
+        raise
+    finally:
+        os.chdir(cwd0)
+        sys.argv, sys.path[:] = argv0, path0
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def result_line(rel, out, pattern):
+    """The script's last line matching ``pattern``; its numbers finite, but nan where a task's test labels hold one
+    class (the AliExpress sample's 24 test rows hold no positive: AUC undefined there)."""
+    lines = [line for line in out.splitlines() if re.search(pattern, line)]
+    if not lines:
+        raise AssertionError(f"{rel}: no line of its output matches {pattern!r}: {out[-2000:]}")
+    values = [float(v) for v in re.findall(NUM, lines[-1].split(":", 1)[-1])]
+    undefined = set()
+    if os.path.basename(rel) in MTL_DATA:
+        from examples_torch import datasets
+
+        y = getattr(datasets, MTL_DATA[os.path.basename(rel)])().y_test
+        undefined = {i for i in range(y.shape[1]) if len(set(y[:, i].tolist())) < 2}
+    if not all(math.isfinite(v) != (i in undefined) for i, v in enumerate(values)):
+        raise AssertionError(f"{rel}: its result is not finite where it is defined: {lines[-1]}")
+    return lines[-1]
+
+
+def prod_kernels_check(cycles_per_ms):
+    """K1 and K2 at the production recipe's shape (B8 H4 L256, dqk = dv = 64, suffix padding) against their plain
+    versions at the kernel phases' tolerances; device ms beside their bounds.  Returns the max abs errs."""
+    c = rab_case(41, 8, 256, 256, h=4, d=64)
+    out, ref = run_kernel(c), run_plain(c)
+    err, ratio = check_close("hstu_rab_fwd at B8 H4 L256 dqk 64", out, ref, KERNEL_RTOL, KERNEL_ATOL)
+    worst = {"hstu_rab_fwd": err, "hstu_rab_bwd": 0.0}
+    (ms, wall), (plain_ms, _) = timed(lambda: run_kernel(c), cycles_per_ms), timed(lambda: run_plain(c), cycles_per_ms)
+    print(f"  K1 hstu_rab_fwd at B8 H4 L256 dqk = dv = 64: max abs err {err:.3e} (ratio {ratio:.3f}); device {ms:.4f} ms (plain {plain_ms:.4f} ms), {bounds_text(rab_bound(c))}, host clock {wall:.4f} ms")
+    g = torch.from_numpy(np.random.default_rng(42).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+    args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+    want = dict(zip(GRAD_NAMES, rab.dense_backward(*args[:-1], True)))
+    got = dict(zip(GRAD_NAMES, rab.rab_backward_fused(*args)))
+    parts = []
+    for name, t in got.items():
+        r = want[name]
+        rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(r.abs().max()) + 1e-12) if name in ("dpos", "dts") else (BWD_RTOL, BWD_ATOL)
+        e, q = check_close(f"hstu_rab_bwd's {name} at B8 H4 L256 dqk 64", t, r, rtol, atol)
+        worst["hstu_rab_bwd"] = max(worst["hstu_rab_bwd"], e)
+        parts.append(f"{name} {e:.2e} ({q:.3f})")
+    (ms, wall), (plain_ms, _) = timed(lambda: rab.rab_backward_fused(*args), cycles_per_ms), timed(lambda: rab.dense_backward(*args[:-1], True), cycles_per_ms)
+    print(f"  K2 hstu_rab_bwd at the same shape: max abs err (ratio) {', '.join(parts)}; device {ms:.4f} ms (plain backward {plain_ms:.4f} ms), "
+          f"{bounds_text(bwd_bound(c, g, 'hstu_rab_bwd', got.values()))}, host clock {wall:.4f} ms (medians of {REPS})")
+    occ = rab.occupancy(256, 64, 64, 256, 128)
+    print("  at L256 dqk 64 dv 64: " + "; ".join(f"{k}: {n} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (n, r, b) in occ.items() if k in ("hstu_rab_fwd", "hstu_rab_bwd")))
+    return worst
+
+
+def prod_hstu_against_cpu(recipe, args):
+    """One step of the recipe built by its own ``build`` (dropout 0, 2048 given negatives), card against CPU from the
+    same weights: the loss; the dense parameters' gradients (the HSTU sparse phase's GRAD_RTOL, GRAD_ATOL_REL x each
+    tensor's largest) and their Adam steps (beyond what the first update makes of the gradients' difference); both
+    tables' steps on the rows the batch touched (``step_ratio``, the sparse Adagrad tolerance) and every other row
+    unchanged; the accumulators."""
+    _, cpu_model, cpu_tr = recipe.build(args, torch.device("cpu"), dropout=0.0)
+    (train, _, _), card_model, card_tr = recipe.build(args, CARD, dropout=0.0)
+    card_model.load_state_dict({k: v.to(CARD) for k, v in cpu_model.state_dict().items()})
+    p0 = {k: v.detach().clone() for k, v in cpu_model.named_parameters()}
+    toks, pos, tds, tgts = next(iter(train))
+    negs = np.random.default_rng(43).integers(1, args.vocab, args.num_negatives)
+    with given_negatives(negs):
+        losses = [tr.train_one_epoch(SeqLoader(toks, pos, tgts, tds, batch_size=args.batch_size), log_interval=0) for tr in (card_tr, cpu_tr)]
+    if not (np.isfinite(losses).all() and math.isclose(losses[0], losses[1], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
+        raise AssertionError(f"the production HSTU's step: loss card {losses[0]}, CPU {losses[1]}")
+    lr = card_tr.optimizer.param_groups[0]["lr"]
+    worst, where = {"grad": 0.0, "param": 0.0, "table": 0.0, "accum": 0.0}, {}
+    for (name, a), p in zip(card_model.named_parameters(), cpu_model.parameters(), strict=True):
+        if name in cpu_tr.sparse_tables:
+            continue
+        r = p.grad
+        g_ratio = ratio_of(a.grad, r, GRAD_RTOL, GRAD_ATOL_REL * float(r.abs().max()) + 1e-30)
+        carried = lr * (adam_update(a.grad.cpu(), p0[name]) - adam_update(r, p0[name])).abs()
+        excess = (a.detach().cpu().double() - p.detach().double()).abs() - carried
+        p_ratio = float((excess / (CTR_ADAM_UPDATE_TOL * lr + CTR_ADAM_RTOL * p.detach().double().abs())).max())
+        for key, v in (("grad", g_ratio), ("param", p_ratio)):
+            if v > worst[key]:
+                worst[key], where[key] = v, name
+    rows = {"token_embedding": np.unique(toks), "output_projection": np.unique(np.concatenate([tgts.ravel(), toks.ravel(), negs]))}
+    for name, ids in rows.items():
+        ids = torch.from_numpy(ids.astype(np.int64))
+        got, ref, before = card_tr.sparse_tables[name].detach().cpu(), cpu_tr.sparse_tables[name].detach(), p0[name]
+        rest = torch.ones(len(ref), dtype=torch.bool)
+        rest[ids] = False
+        if not (torch.equal(got[rest], before[rest]) and torch.equal(ref[rest], before[rest])):
+            raise AssertionError(f"the production HSTU's step moved rows of {name} that the batch did not touch")
+        step, _ = step_ratio(got[ids], before[ids], ref[ids].double() - before[ids].double(), 2 * GRAD_RTOL, GRAD_ATOL_REL)
+        acc_ref = cpu_tr.sparse_accums[name]
+        accum = ratio_of(card_tr.sparse_accums[name], acc_ref, 2 * GRAD_RTOL, 1e-6 * float(acc_ref.max()) + 1e-30)
+        worst["table"], worst["accum"] = max(worst["table"], step), max(worst["accum"], accum)
+    check_sparse_tables_left_out(card_tr)
+    print(f"  one step card vs CPU from the same weights (the recipe's build, dropout 0, {args.num_negatives} given negatives, B{args.batch_size} x L{args.seq_len}): "
+          f"loss {losses[0]:.7f} vs {losses[1]:.7f}; worst max |d|/tol: " + ", ".join(f"{k} {v:.3f}" + (f" ({where[k]})" if k in where else "") for k, v in worst.items())
+          + f" (gradients rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x the tensor's max; tables' steps on the touched rows rtol {2 * GRAD_RTOL}, atol {GRAD_ATOL_REL} x the largest step; "
+          f"the rest of each table unchanged)")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"the production HSTU's step on the card disagrees with the CPU: {worst}")
+
+
+def examples_phase(cycles_per_ms):
+    """Every script of ``examples_torch/`` through its argv entry on the card (``--device`` unset), the HSTU
+    kernels' launches gated; the production HSTU recipe at full width with its step card against CPU, its step
+    time and memory; the Criteo-full recipe without and with a (1, 1) mesh.  Returns the phase's launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in COUNTERS}
+    results = {}
+    with tempfile.TemporaryDirectory() as directory:
+
+        def gated(rel, argv, pattern, hstu_layers=0):
+            """Run one script with the counts reset just before and read just after: K1 once per layer per HSTU
+            forward, K2 once per layer per training step, nothing else."""
+            torch.cuda.synchronize()
+            reset_counts()
+            attn.launches = attn.launches_bf16 = 0
+            with HSTUCalls() as calls:
+                out, seconds = run_example(rel, argv, directory)
+            got = {**read_counts(), "hstu_attn_fwd": attn.launches, "hstu_attn_fwd_bf16": attn.launches_bf16}
+            want = {k: 0 for k in got}
+            want.update(hstu_rab_fwd=hstu_layers * calls.forwards, hstu_rab_bwd=hstu_layers * calls.steps)
+            if got != want or (hstu_layers and not calls.steps):
+                raise AssertionError(f"{rel} launched {got}, expected {want} ({calls.forwards} HSTU forwards, {calls.steps} training steps)")
+            for k in counts:
+                counts[k] += got[k]
+            line = "" if pattern is None else result_line(rel, out, pattern)
+            results[rel] = (seconds, line)
+            hstu = f"; K1 {got['hstu_rab_fwd']} launches over {calls.forwards} forwards, K2 {got['hstu_rab_bwd']} over {calls.steps} steps" if hstu_layers else ""
+            print(f"  {rel} {' '.join(argv)}: {seconds:.2f} s; {line or 'imported'}{hstu}")
+            return out, calls.steps
+
+        for rel, (argv, pattern) in EXAMPLE_RUNS.items():
+            layers = 2 if rel.startswith("generative/run_hstu") else 0  # run_hstu.py's --n_layers default
+            gated(rel, argv, pattern, layers)
+        small = time.perf_counter() - t_phase
+        print(f"  the {len(EXAMPLE_RUNS)} small scripts (mtl_common.py runs inside the multi-task ones): {small:.1f} s")
+
+        # the production HSTU recipe at full width
+        rel = "generative/run_hstu_production_vocab.py"
+        flags = dict(zip(PROD_HSTU_ARGV[::2], PROD_HSTU_ARGV[1::2]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, steps = gated(rel, PROD_HSTU_ARGV, r"^test loss " + NUM + " top1 acc " + NUM + rf" \(vocab={flags['--vocab']}, S={flags['--num_negatives']}\)$", hstu_layers=4)
+        peak = torch.cuda.max_memory_allocated()
+        (_, epoch_s), = re.findall(r"^epoch: 0 train loss: " + NUM + r" \(" + NUM + r"s\)$", out, re.M)
+        fit_tokens = steps * int(flags["--batch_size"]) * int(flags["--seq_len"])
+        print(f"  {rel}: peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); fit's epoch {epoch_s} s over {steps} steps, "
+              f"{fit_tokens / float(epoch_s):,.0f} tokens/s (the recipe's own clock, its first step included)")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        recipe = importlib.import_module("examples_torch.generative.run_hstu_production_vocab")
+        args = recipe.parse_args(PROD_HSTU_ARGV + ["--save_dir", os.path.join(directory, "prod")])
+        (train, _, _), model, trainer = recipe.build(args, CARD)
+        b, l = args.batch_size, args.seq_len
+        batches = [a[: b * (PROD_HSTU_STEPS + 1)] for a in (train.seq_tokens, train.seq_positions, train.targets, train.seq_time_diffs)]
+        trainer.train_one_epoch(SeqLoader(*(a[:b] for a in batches), batch_size=b), log_interval=0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_one_epoch(SeqLoader(*(a[b:] for a in batches), batch_size=b), log_interval=0)
+        seconds = time.perf_counter() - t0
+        step = tuple(torch.from_numpy(a[:b]).to(CARD) for a in (batches[0], batches[3], batches[2]))
+        device, wall, launches = step_stats("production HSTU", lambda: trainer.train_step(*step))
+        print(f"  training at V{args.vocab:,}, d{args.d_model}, {args.n_layers} layers of 4 heads of {args.d_model // 4}, S{args.num_negatives}, sparse Adagrad: loss {loss:.6f}, "
+              f"{PROD_HSTU_STEPS * b * l / seconds:,.0f} tokens/s, {seconds / PROD_HSTU_STEPS * 1e3:.3f} ms per step of {b} x L{l} (host clock, {PROD_HSTU_STEPS} steps); "
+              f"a step: device {device:.4f} ms (torch.profiler kernels, 3 steps), host clock {wall:.4f} ms (median of 10), device idle {1 - device / wall:.0%}, {launches:.1f} launches")
+        del model, trainer, train, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        prod_hstu_against_cpu(recipe, args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = prod_kernels_check(cycles_per_ms)
+
+        # the Criteo-full recipe, and again on a (1, 1) mesh over NCCL (torchrun's environment of one rank)
+        rel = "ranking/run_criteo_production.py"
+        line = r"^train AUC \(bucketed, device-side\): " + NUM + "$"
+        runs = {"no mesh": gated(rel, [], line)[0]}
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+        prior = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            out, _ = gated(rel, ["--mesh", "1,1"], line)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            for k, v in prior.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        runs["--mesh 1,1"] = out
+        stats = {}
+        for name, text in runs.items():
+            (loss, rate), = re.findall(r"^epoch 0: loss " + NUM + r"  ([\d,]+) examples/s$", text, re.M)
+            stats[name] = (float(loss), float(rate.replace(",", "")), float(re.findall(line, text, re.M)[-1]))
+        print("  Criteo-full recipe (scale 1.0, 64 steps of 4096, sparse Adagrad): " + "; ".join(f"{k}: loss {v[0]:.5f}, {v[1]:,.0f} examples/s, AUC {v[2]:.4f}" for k, v in stats.items()))
+        (l0, _, a0), (l1, _, a1) = stats.values()
+        if not (math.isclose(l1, l0, rel_tol=CRITEO_MESH_RTOL) and abs(a1 - a0) <= CRITEO_MESH_AUC_ATOL):
+            raise AssertionError(f"the Criteo-full recipe on the (1, 1) mesh parts from the run without one: {stats}")
+
+    total = time.perf_counter() - t_phase
+    print(f"  examples phase: {len(results)} script runs, {total:.1f} s (the small scripts {small:.1f} s; the limit {EXAMPLES_PHASE_S:.0f} s)")
+    if total > EXAMPLES_PHASE_S:
+        raise AssertionError(f"the examples phase took {total:.1f} s, beyond {EXAMPLES_PHASE_S:.0f} s")
+    return counts, worst
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -4660,6 +4997,14 @@ def main():
     ann_phase(cycles_per_ms)
     if any(read_counts().values()):
         raise AssertionError(f"the retrieval phase launched an HSTU attention kernel: {read_counts()}")
+    print("examples phase (every script of examples_torch/ through its argv entry on the card; the production HSTU recipe at V686k, d256, 4 x 64 heads, B8 x L256, "
+          "S2048 through K1 and K2, its step card against CPU; the Criteo-full recipe without and with a (1, 1) mesh):")
+    print("  " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    example_launches, example_errs = examples_phase(cycles_per_ms)
+    for name, n in example_launches.items():
+        launches[name] += n
+    for name, err in example_errs.items():
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
@@ -4671,7 +5016,7 @@ def main():
         "route": "cuda",
         "source": f"torch_rechub_tpu_torch/csrc/{src}",
         "replaces": f"torch_rechub_tpu/ops/pallas/{tpu}",
-        "launches": launches[name],  # serving, training, sparse training, lifecycle and mesh paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
+        "launches": launches[name],  # serving, training, sparse training, lifecycle, mesh and examples paths (bf16: the bf16 ones; K2a-, K2b-bf16 the split step); K3: the calls of its own phase
         "max_abs_err": measured[name]["max_abs_err"],
         "ms": measured[name]["ms"],
         "plain_ms": measured[name]["plain_ms"],

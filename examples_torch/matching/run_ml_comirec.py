@@ -1,0 +1,21 @@
+"""MovieLens Comirec (SA/DR) retrieval example: a thin preset over ``run_ml_matching.py``; pass ``--model_name comirec_dr`` for the dynamic-routing variant (default: self-attentive).
+
+The PyTorch port's counterpart of ``examples/matching/run_ml_comirec.py``; ``--device cpu`` runs it on the CPU.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
+
+from examples_torch.matching import run_ml_matching
+
+
+def main():
+    if not any(a.startswith("--model_name") for a in sys.argv[1:]):
+        sys.argv.insert(1, "--model_name=comirec_sa")
+    run_ml_matching.main()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""Ali-CCP multi-task example
+
+The PyTorch port's counterpart of ``examples/ranking/run_ali_ccp_multi_task.py``; ``--device cpu`` runs it on the CPU.
+
+    python examples_torch/ranking/ 5 MTL models + adaptive loss weighting (tasks [cvr=purchase, ctr=click]); loads a real Ali-CCP CSV via ``--dataset_path`` or the committed schema-identical sample.:run_ali_ccp_multi_task.py --model_name mmoe --adaptive uwl
+"""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
+
+from examples_torch.datasets import build_aliccp_multitask_dataset
+from examples_torch.ranking.mtl_common import add_mtl_args, fit_multitask
+
+
+def main():
+    args = add_mtl_args(argparse.ArgumentParser()).parse_args()
+    bundle = build_aliccp_multitask_dataset(seed=args.seed, dataset_path=args.dataset_path)
+    fit_multitask(bundle, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -39,7 +39,7 @@ from torch_rechub_tpu_torch.parallel.mesh import row_shard
 from torch_rechub_tpu_torch.serving import brute_force_topk
 from torch_rechub_tpu_torch.trainers import CTRTrainer, MatchTrainer, MTLTrainer, RQVAETrainer, SeqTrainer, match_trainer, mtl_trainer
 from torch_rechub_tpu_torch.utils.checkpoint import flat_tensors
-from torch_rechub_tpu_torch.utils.data import ArrayLoader, SeqLoader
+from torch_rechub_tpu_torch.utils.data import ArrayLoader, DeviceCachedLoader, SeqLoader
 from torch_rechub_tpu_torch.utils.match import local_inbatch_loss
 
 MESHES = ((2, 1), (1, 2))
@@ -68,6 +68,8 @@ SPECS = {
     # CTRTrainer: DeepFM with BatchNorm (tests/test_sharding.py:58), dense, and fused with sparse Adagrad (:402)
     "deepfm_dense": dict(kind="ctr", fused=False, trainer=dict(seed=7)),
     "deepfm_fused_adagrad": dict(kind="ctr", fused=True, trainer=dict(seed=7, sparse_embedding="adagrad")),
+    # the dense DeepFM fed by a DeviceCachedLoader built on the mesh (each rank uploads its rows): as deepfm_dense
+    "deepfm_dense_cached": dict(kind="ctr", fused=False, trainer=dict(seed=7), cached=True, meshes=((2, 1),)),
     # BatchNorm's statistics left per rank: must NOT match
     "deepfm_dense_per_rank_bn": dict(kind="ctr", fused=False, trainer=dict(seed=7), patch="per_rank_bn", meshes=((2, 1),)),
     # MatchTrainer: in-batch negatives over the global pool (tests/test_sharding.py:100) and the local one
@@ -186,9 +188,11 @@ def build(spec):
     return dssm(feat, matching)
 
 
-def loader(spec):
+def loader(spec, mesh=None, device="cpu"):
     if spec["kind"] == "seq":
         return SeqLoader(*hstu_data(), batch_size=HSTU_BATCH, shuffle=False)
+    if spec.get("cached"):  # two groups of two batches, this rank's rows of each on the device
+        return DeviceCachedLoader(*ctr_data(), batch_size=CTR_BATCH, group_size=2, mesh=mesh, device=device)
     if spec["kind"] == "ctr":
         return ArrayLoader(*ctr_data(), batch_size=CTR_BATCH, shuffle=False)
     if spec["kind"] == "mtl":
@@ -258,7 +262,7 @@ def run_spec(spec, state, mesh, device, model_path):
         return run_rqvae(spec, model, mesh, device, model_path)
     with patched(spec):
         trainer = trainer_of(spec, model, mesh, device, model_path)
-        data = loader(spec)
+        data = loader(spec, mesh, device)
         losses = [trainer.train_one_epoch(data, log_interval=0) for _ in range(epochs_of(spec))]
         st = trainer.train_state()
         out = {"loss": np.asarray(losses), "sharded": np.asarray([n for n, p in trainer.model.named_parameters() if row_shard(p) is not None] or [""])}
@@ -339,6 +343,17 @@ def pieces(rank, inputs, meshes, device, directory):
     host_rows = np.arange(6 * 2).reshape(6, 2)
     out["global_batch"] = pdist.global_batch_from_host({"x": mesh21.data_index * 100 + host_rows}, mesh21)["x"]
     out.update(checkpoint_round_trip(inputs, mesh12, device, directory))
+    # a DeviceCachedLoader placed on (2, 1), handed to a trainer on (1, 2) and to one without a mesh
+    cached = DeviceCachedLoader(*ctr_data(), batch_size=CTR_BATCH, group_size=2, mesh=mesh21, device=device)
+    refused = []
+    for mesh in (mesh12, None):
+        trainer = trainer_of(SPECS["deepfm_dense"], build(SPECS["deepfm_dense"]), mesh, device, os.path.join(directory, "unused"))
+        try:
+            trainer.train_one_epoch(cached, log_interval=0)
+            refused.append("")
+        except ValueError as e:
+            refused.append(str(e))
+    out["cached_loader::refused"] = np.asarray(refused)
     return out
 
 

@@ -144,7 +144,7 @@ JAX_SCENARIOS = ("hstu_chunked", "hstu_sampled_sparse", "deepfm_dense", "deepfm_
 MTL_SCENARIOS = ("mmoe_mean", "mmoe_uwl", "mmoe_gradnorm", "mmoe_metabalance", "mmoe_fused_adagrad", "sharedbottom_fused_gradnorm", "mmoe_fused_metabalance")
 RQ_SCENARIOS = ("rqvae", "rqvae_sinkhorn")
 # the port-only scenarios start from a JAX scenario's weights
-SAME_WEIGHTS = {"hstu_sampled_drawn": "hstu_sampled_sparse", "deepfm_dense_per_rank_bn": "deepfm_dense", "dssm_global_uniform": "dssm_global_hard", "dssm_global_uniform_per_rank": "dssm_global_hard",
+SAME_WEIGHTS = {"hstu_sampled_drawn": "hstu_sampled_sparse", "deepfm_dense_per_rank_bn": "deepfm_dense", "deepfm_dense_cached": "deepfm_dense", "dssm_global_uniform": "dssm_global_hard", "dssm_global_uniform_per_rank": "dssm_global_hard",
                 "mmoe_gradnorm_per_rank": "mmoe_gradnorm", "rqvae_sinkhorn_local": "rqvae_sinkhorn"}
 
 
@@ -278,6 +278,20 @@ def test_per_rank_negatives_would_fail(job):
     ref = job["draws"]["dssm_global_uniform"]
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(job["res"][key("dssm_global_uniform_per_rank", (2, 1)) + "loss"], ref["loss"], rtol=MATCH_TOL["loss_rtol"], atol=MATCH_TOL["loss_atol"])
+
+
+def test_device_cached_loader_on_the_mesh_trains_as_a_loader_without_one(job):
+    """DeepFM under (2, 1) fed by ``DeviceCachedLoader(mesh=)`` (each rank uploads only its rows of every batch)
+    trains as the same scenario fed by an ``ArrayLoader`` without a mesh, whose batches the trainer slices: the
+    losses, every parameter and the predictions equal.  Such a loader handed to a trainer on another mesh, or on
+    none, is refused."""
+    res, got, ref = job["res"], key("deepfm_dense_cached", (2, 1)), key("deepfm_dense", (2, 1))
+    compared = [k[len(ref):] for k in res if k.startswith(ref) and k != ref + "sharded"]
+    assert "loss" in compared and "predict" in compared and len(compared) > 10
+    for k in compared:
+        np.testing.assert_array_equal(res[got + k], res[ref + k], err_msg=k)
+    refused = res["cached_loader::refused"]
+    assert len(refused) == 2 and all("build the loader with the trainer's mesh" in str(e) for e in refused), refused
 
 
 def test_per_rank_batchnorm_would_fail(job):

@@ -40,6 +40,29 @@ def test_trainer_refuses_a_mesh_naming_the_roadmap_item(name):
         getattr(port_trainers, name)(*args, mesh=object(), device="cpu")
 
 
+LOADERS = ("ArrayLoader", "DeviceCachedLoader", "DataGenerator", "SequenceDataGenerator", "MatchDataGenerator")
+
+
+@pytest.mark.parametrize("name", LOADERS)
+def test_data_loader_takes_the_jax_parameters_then_device(name):
+    """The loaders take the JAX package's parameters in its order, plus a trailing ``device`` where the port's loader
+    places data on one (``DeviceCachedLoader``, which takes JAX's ``mesh`` too)."""
+    import torch_rechub_tpu.utils.data as jax_data
+    import torch_rechub_tpu_torch.utils.data as port_data
+
+    port, ref = parameters(getattr(port_data, name)), parameters(getattr(jax_data, name))
+    assert port == ref + ["device"] * (name == "DeviceCachedLoader")
+
+
+def test_device_cached_loader_refuses_a_mesh_naming_the_type():
+    import numpy as np
+
+    from torch_rechub_tpu_torch.utils.data import DeviceCachedLoader
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        DeviceCachedLoader({"a": np.zeros(4, np.int32)}, batch_size=2, mesh=object(), device="cpu")
+
+
 def surface_names():
     return [(sub, name) for sub in SURFACES for name in importlib.import_module("torch_rechub_tpu" + sub).__all__]
 

@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "torch_rechub_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_rechub_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_rechub_tpu", "benchmarks", "examples")
+EXAMPLES = ROOT / "examples_torch"
 
 
 def imported_modules(path):
@@ -25,7 +26,7 @@ def imported_modules(path):
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + sorted(EXAMPLES.rglob("*.py"))
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -124,6 +125,29 @@ def test_importing_serving_builds_and_loads_nothing():
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def example_scripts():
+    return sorted(p for p in EXAMPLES.rglob("*.py") if 'if __name__ == "__main__":' in p.read_text())
+
+
+@pytest.mark.parametrize("path", example_scripts(), ids=lambda p: str(p.relative_to(EXAMPLES)))
+def test_example_script_without_device_and_card_raises(path, monkeypatch):
+    """An example run without ``--device`` runs on the card; with none it raises naming the device, and does not
+    fall back to the CPU."""
+    import runpy
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    monkeypatch.setattr(sys, "argv", [str(path)])
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    with pytest.raises(RuntimeError, match="no CUDA device found: pass device='cpu'"):
+        runpy.run_path(str(path), run_name="__main__")
+
+
+def test_every_example_script_is_a_port_source():
+    assert len(example_scripts()) == 36 and set(example_scripts()) < set(port_sources())
+    assert {p.relative_to(EXAMPLES).parent.name for p in example_scripts()} == {"ranking", "matching", "generative", "serving"}
 
 
 def test_seq_trainer_without_a_card_raises():

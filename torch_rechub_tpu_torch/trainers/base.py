@@ -434,7 +434,9 @@ class DictBatchTrainer(TorchTrainer):
     rows and weighed 0 there; ``steps_per_call`` of them stack into a group,
     which runs as that many single steps (the JAX package's scan equals it).
     A loader with ``device_groups`` (``DeviceCachedLoader``) hands its groups
-    over on the device.  Labels keep their dtype unless ``label_dtype``
+    over on the device: one built with this trainer's ``mesh`` holds this
+    rank's rows already, one without a mesh the whole batch, and one on
+    another mesh is refused.  Labels keep their dtype unless ``label_dtype``
     says otherwise.
     """
 
@@ -471,11 +473,14 @@ class DictBatchTrainer(TorchTrainer):
     def _groups(self, data_loader):
         """The loader's groups on the device: a ``DeviceCachedLoader``'s own, else the host groups copied two
         groups ahead of the step (``data/dataset.py`` ``prefetch_to_device``).  Under a mesh, this rank's rows
-        of each group."""
+        of each group: a loader built on the mesh holds only those."""
         sharding = mesh_lib.scan_batch_sharding(self.mesh)
         if hasattr(data_loader, "device_groups"):
+            loader_mesh = getattr(data_loader, "mesh", None)
+            if loader_mesh is not None and loader_mesh is not self.mesh:
+                raise ValueError(f"the loader's groups are placed on {loader_mesh}, and this trainer runs on {self.mesh}: build the loader with the trainer's mesh, or without one")
             groups = data_loader.device_groups()
-            return groups if sharding is None else (({k: sharding.local(v) for k, v in xs.items()}, None if ys is None else sharding.local(ys), sharding.local(ws)) for xs, ys, ws in groups)
+            return groups if sharding is None or loader_mesh is not None else (({k: sharding.local(v) for k, v in xs.items()}, None if ys is None else sharding.local(ys), sharding.local(ws)) for xs, ys, ws in groups)
         from ..data.dataset import prefetch_to_device
 
         return prefetch_to_device(self._iter_groups(data_loader), size=2, sharding=sharding, device=self.device)

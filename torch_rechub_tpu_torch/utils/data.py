@@ -145,11 +145,20 @@ class DeviceCachedLoader:
     ``device_groups()`` yields ``(xs, ys, ws)`` groups, which the trainers
     consume without host staging; iterating yields host batches, as
     :class:`ArrayLoader` does, for evaluation and prediction.
+
+    ``mesh`` (a ``parallel.mesh.DeviceMesh``, every rank building the same
+    loader) uploads only this rank's share of every batch: the block of rows
+    its data index holds (the JAX package's ``P(None, None, DATA_AXIS)``),
+    with the same padding weights.  A trainer on that mesh takes the groups as
+    they are; a loader without a mesh hands every rank the whole batch, of
+    which a meshed trainer keeps its block.
     """
 
-    def __init__(self, x: Dict[str, np.ndarray], y: Optional[np.ndarray] = None, batch_size: int = 256, group_size: int = 16, shuffle: bool = False, seed: int = 0, device=None):
+    def __init__(self, x: Dict[str, np.ndarray], y: Optional[np.ndarray] = None, batch_size: int = 256, group_size: int = 16, shuffle: bool = False, seed: int = 0, mesh=None, device=None):
+        from ..parallel.mesh import BatchSharding, check_mesh
         from ..trainers.base import resolve_device  # the trainers import this module
 
+        self.mesh = check_mesh(mesh)
         self.device = resolve_device(device)
         self.x = {k: np.asarray(v) for k, v in x.items()}
         self.y = None if y is None else np.asarray(y)
@@ -166,9 +175,13 @@ class DeviceCachedLoader:
         w[self.n:] = 0.0
         idx = np.concatenate([np.arange(self.n), np.arange(padded - self.n) % max(self.n, 1)])
         self.n_groups = n_groups
+        sharding = None if self.mesh is None else BatchSharding(self.mesh, 2)  # the batch axis of (n_groups, group_size, batch, ...)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a).reshape(n_groups, group_size, batch_size, *a.shape[1:])).to(self.device)
+            a = a.reshape(n_groups, group_size, batch_size, *a.shape[1:])
+            if sharding is not None:
+                a = sharding.local(a)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
         self._xs = {k: put(v[idx]) for k, v in self.x.items()}
         self._ys = None if self.y is None else put(self.y[idx].astype(np.float32))
