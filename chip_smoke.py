@@ -188,11 +188,12 @@
    ``torch.use_deterministic_algorithms`` (``index_add_``'s atomics make
    the default runs differ); the files deleted.
 16. The (data, model) mesh (``mesh_phase``).  (a) This process as a world of
-   one over NCCL, the serving HSTU under ``torch.use_deterministic_algorithms``:
-   one step on the (1, 1) mesh has mesh=None's gradients bit for bit but
-   the rab tables' (K2a sums dpos and dts by float atomics); four steps
-   through K2a + K2b and through K2 within twice the spread of two
-   mesh=None runs (``rel_l2``).  Two gloo ranks sharing the card, started by
+   one over NCCL, the serving HSTU under ``torch.use_deterministic_algorithms``
+   (so through K2a + K2b, which sum every gradient in a fixed order): one
+   step on the (1, 1) mesh has mesh=None's gradients bit for bit, the rab
+   tables' too; four steps equal to two mesh=None runs bit for bit; four
+   steps through K2 (deterministic algorithms off: K2's dq) within twice the
+   spread of two mesh=None runs (``rel_l2``).  Two gloo ranks sharing the card, started by
    ``parallel.distributed.spawn`` (collectives on CUDA tensors staged
    through the host): (b) the HSTU at V65,536 under (2, 1) and (1, 2) against each
    rank's mesh=None run at ``tests/test_sharding.py:255``'s tolerances,
@@ -232,7 +233,27 @@
    occupancy.  The Criteo-full recipe (``run_criteo_production.py``, scale 1.0) without a
    mesh and on a (1, 1) mesh over NCCL (torchrun's environment of one rank), the two runs'
    losses and AUCs agreeing.  The phase stays under 180 s.
-19. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
+19. Determinism (``determinism_phase``): K2, K2a, K2-bf16 and K2a-bf16 launched twice
+   at the serving shape and at L1024, dpos and dts (and K2a's dq) bit for bit between
+   the two launches; each timed (the table sums' second kernel included) at the serving
+   shape and at the production recipe's B8 H4 L256 dqk 64; four steps of the serving
+   HSTU through SeqTrainer twice under ``torch.use_deterministic_algorithms`` (the split
+   pair), the parameters bit for bit.
+20. Wide heads (``wide_phase``): each of the ten kernels against its plain version at
+   (dqk, dv) = (160, 160), (256, 256), (320, 64), (64, 320), (384, 384), L200 (ragged)
+   and L1024, shuffled stamps and a scattered mask, fp32 and bf16, through the entries a
+   model calls (the width-tiled variants, ``csrc/hstu_wide.cuh``, where the tensor-core
+   kernels do not take the width); ``examples_torch/generative/run_hstu.py``'s HSTU at
+   ``--d_model 1024`` (4 heads of 256, 2 layers) at B8 x L256: one training step card
+   against CPU from the same weights, ``evaluate`` in fp32 and in bf16; the launches of
+   the variants.  The variants this model launches (K1's, K2's and K1-bf16's) are kernels
+   of their own in the ``kernels`` line (``wide_name``: ``hstu_rab_fwd_wide``, ...),
+   timed at (256, 256) beside their plain versions and the function's bound; the
+   tensor-core entries' launches there count only the tensor-core kernels.
+21. The tutorials (``tutorials_phase``): every code cell of the seven notebooks of
+   ``tutorials_torch/`` on the card (``TORCH_RECHUB_DEVICE`` unset), each notebook's
+   seconds, under 120 s in all.
+22. One JSON line of kernels, then the last line ``{"ok": true, "device": ...}``.
 
 Any failure raises, so the exit code is not 0 and the last line is not printed.
 Float32 outside the bf16 phases, TF32 off, and cuBLAS's bf16 GEMMs without
@@ -241,11 +262,13 @@ reduced-precision reductions.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import csv
 import gc
 import importlib
+import io
 import json
 import math
 import os
@@ -375,13 +398,23 @@ COUNTERS = {"hstu_rab_fwd": "launches", "hstu_rab_bwd": "launches_bwd", "hstu_ra
             "hstu_rab_bwd_dkv_bf16": "launches_bwd_dkv_bf16"}
 
 
+def wide_name(name):
+    """The ``kernels`` line's name of an entry's width-tiled variant (``csrc/hstu_wide.cuh``)."""
+    return name + "_wide"
+
+
 def reset_counts():
     for attr in COUNTERS.values():
         setattr(rab, attr, 0)
+    rab.launches_wide.clear()
 
 
 def read_counts():
-    return {name: getattr(rab, attr) for name, attr in COUNTERS.items()}
+    """Launches since ``reset_counts``, one count per kernel: an entry's tensor-core kernel under the entry's name
+    (its count less the launches that took the variant), its width-tiled variant under ``wide_name`` where it ran."""
+    counts = {name: getattr(rab, attr) - rab.launches_wide.get(name, 0) for name, attr in COUNTERS.items()}
+    counts.update({wide_name(name): n for name, n in rab.launches_wide.items() if n})
+    return counts
 
 
 def spin_cycles_per_ms():
@@ -3572,9 +3605,11 @@ def bf16_ctr_match_mtl_phase():
 
 LIFECYCLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_lifecycle")
 LIFE = dict(steps=8, half=4, ctr_steps=16, ctr_every=8, ctr_epochs=5)
-# a resumed HSTU run lies within the run-to-run spread: its distance from either straight run, ||a - b|| / ||b|| over
-# all parameters (rel_l2), is at most twice the two straight runs'.  K2 adds dq with red.global.add, K2a / K2b's dpos
-# and dts add float atomics: the spread is not 0.  rel_l2 sums over every element that those atomics move, so it varies
+# a resumed HSTU run through K2 lies within the run-to-run spread: its distance from either straight run,
+# ||a - b|| / ||b|| over all parameters (rel_l2), is at most twice the two straight runs'.  K2 adds dq with
+# red.global.add (and the embedding backward adds with atomics outside deterministic algorithms): the spread is not 0.
+# Through K2a + K2b under deterministic algorithms every sum has a fixed order and the runs agree bit for bit.
+# rel_l2 sums over every element that those atomics move, so it varies
 # by 1.3x at most between pairs of runs, while rel_diff, one element's largest step (always in token_embedding, where
 # Adam moves a near-zero gradient either way), varies by 3x, so that one pair of it against another fails a correct
 # resume by chance; a resume that loses Adam's moments moves rel_l2 by 1e5x (tools/hstu_resume_spread.py)
@@ -3592,6 +3627,32 @@ def rel_l2(a, b):
     """``||a - b|| / ||b||`` over all the tensors at once, in float64."""
     num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in b)
     return math.sqrt(num / max(sum(float(b[k].double().square().sum()) for k in b), 1e-300))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` with cuBLAS's deterministic workspace (which it requires); both
+    restored on exit.  The rab backward then takes the split pair K2a + K2b (``_RabAttentionKernel``)."""
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+
+
+def check_equal(label, runs):
+    """Every run's tensors equal the first run's bit for bit: ``runs`` is ``{label: {name: tensor}}``."""
+    (first_label, first), *rest = runs.items()
+    differ = {lb: [k for k in first if not torch.equal(run[k], first[k])] for lb, run in rest}
+    print(f"  {label}: " + "; ".join(f"{lb}: {len(d)} of {len(first)} tensors differ from {first_label}" for lb, d in differ.items()))
+    if any(differ.values()):
+        raise AssertionError(f"{label}: the runs differ: {differ}")
 
 
 def params_of(trainer):
@@ -3621,8 +3682,9 @@ def check_resume(label, straight, resumed):
 
 def lifecycle_hstu(cycles_per_ms, directory):
     """The serving HSTU through SeqTrainer (chunked 8192, dropout 0): 8 steps straight twice, 4 + a checkpoint + a
-    fresh trainer resumed + 4, on the fused backward (K2) and the split one (K2a + K2b); the state's round trip bit
-    for bit, the checkpoint's bytes and save / restore time; then export, int8 and fp16 export of the trained model,
+    fresh trainer resumed + 4, on the fused backward (K2: within twice the run-to-run spread, K2's dq being summed in
+    a varying order) and the split one (K2a + K2b under deterministic algorithms: bit for bit); the state's round
+    trip bit for bit, the checkpoint's bytes and save / restore time; then export, int8 and fp16 export of the trained model,
     one request of B8 x L256 through each program; the registered op's dispatch cost; a traced step."""
     l, vocab, n_layers = SERVE["max_seq_len"], SERVE["vocab_size"], SERVE["n_layers"]
     data = serving_data(BATCH * LIFE["steps"], l, vocab, seed=11, pad=False)
@@ -3649,7 +3711,10 @@ def lifecycle_hstu(cycles_per_ms, directory):
     for fused, kernels in ((True, "K2"), (False, "K2a + K2b")):
         ckpt_dir = os.path.join(directory, f"hstu_{'fused' if fused else 'split'}")
         rab._FUSED_BWD[0] = fused
-        try:
+        with contextlib.ExitStack() as stack:
+            stack.callback(rab._FUSED_BWD.__setitem__, 0, True)
+            if not fused:
+                stack.enter_context(deterministic_algorithms())
             straight = []
             for _ in range(2):
                 tr = build()
@@ -3677,9 +3742,11 @@ def lifecycle_hstu(cycles_per_ms, directory):
                 raise AssertionError(f"HSTU ({kernels}): the resumed state is not the saved one bit for bit: step {step}, {bad[:5]}")
             del first
             resumed.train_one_epoch(loaders["second"], log_interval=0)
-            check_resume(f"HSTU through {kernels}, {LIFE['steps']} steps", straight, params_of(resumed))
-        finally:
-            rab._FUSED_BWD[0] = True
+            if fused:
+                check_resume(f"HSTU through {kernels}, {LIFE['steps']} steps", straight, params_of(resumed))
+            else:
+                check_equal(f"HSTU through {kernels} under deterministic algorithms, {LIFE['steps']} steps",
+                            {"the first straight run": straight[0], "the second straight run": straight[1], "the resumed run": params_of(resumed)})
         counts = take()
         expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * steps, **({"hstu_rab_bwd": n_layers * steps} if fused else {"hstu_rab_bwd_dq": n_layers * steps, "hstu_rab_bwd_dkv": n_layers * steps})}
         print(f"  HSTU through {kernels}: launches over {steps} steps, {n_layers} layers: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
@@ -3821,17 +3888,8 @@ def lifecycle_ctr(directory):
     # goes either way) and 5e-6 to 6e-4 apart inside one, resumed runs in either (tools/ctr_lifecycle_diagnostics.py).
     # Under torch.use_deterministic_algorithms every operation of the step is deterministic, so the straight runs
     # agree bit for bit and the resumed run must equal them
-    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_algorithms():
         straight, resumed = lifecycle_ctr_runs(build, loaders, directory, every, n_steps)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if prior is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
     differ = {label: [k for k in run if not torch.equal(run[k], straight[0][k])] for label, run in (("the second straight run", straight[1]), ("the resumed run", resumed))}
     print(f"  DeepFM Criteo-full, {n_steps} steps under torch.use_deterministic_algorithms: " + "; ".join(f"{label}: {len(d)} of {len(run)} tensors differ from the first straight run"
                                                                                                        for (label, d), run in zip(differ.items(), (straight[1], resumed)))
@@ -3919,8 +3977,6 @@ MESH = dict(steps=4, vocab=65536, topk_items=1_000_000, topk_users=2048, topk_di
 # tests/test_sharding.py's tolerances: HSTU (:255) loss rtol, parameters rtol / atol; the sparse DeepFM (:402)
 MESH_HSTU_TOL = (3e-4, 3e-3, 3e-4)
 MESH_CTR_TOL = (2e-4, 2e-3, 2.5e-3)
-# K2 and K2a add dpos and dts with float atomics (csrc/hstu_rab_bwd.cu): the rab tables' gradients vary run to run
-RAB_ATOMIC = ("rab.pos_w", "rab.ts_w")
 
 
 def mesh_hstu(vocab, seed):
@@ -3965,17 +4021,15 @@ def mesh_compare(label, got, ref, loss, ref_loss, tol, lr_steps=0.0, still=None)
 
 def mesh_world_of_one():
     """(a) A world of one over NCCL, this process its rank: the serving HSTU under mesh=None and under the (1, 1)
-    mesh, all under ``torch.use_deterministic_algorithms`` (the embedding backward's atomics otherwise make two
-    mesh=None runs differ).  One step through K2a + K2b: every gradient equal bit for bit but the rab tables', which
-    K2a sums by float atomics (``RAB_ATOMIC``); four steps through K2a + K2b and through K2: within twice the spread
-    of two mesh=None runs (``rel_l2``).  Returns the mesh runs' launches."""
+    mesh.  Under ``torch.use_deterministic_algorithms`` (the embedding backward's atomics otherwise make two mesh=None
+    runs differ; the rab backward takes K2a + K2b, whose every sum has a fixed order): one step's gradients, and four
+    steps' parameters, equal to mesh=None's bit for bit, the rab tables' too.  Four steps through K2 (deterministic
+    algorithms off, since they would take the split pair): within twice the spread of two mesh=None runs
+    (``rel_l2``), K2's dq being summed in a varying order.  Returns the mesh runs' launches."""
     from torch_rechub_tpu_torch.parallel import create_mesh
     from torch_rechub_tpu_torch.parallel import distributed as pdist
 
     pdist.initialize(f"file://{os.path.join(MESH_DIR, 'store')}", 1, 0, backend="nccl")
-    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
     try:
         mesh = create_mesh(1, 1)
         print(f"  (a) {mesh}")
@@ -3999,40 +4053,33 @@ def mesh_world_of_one():
                     counts[k] += v
             return loss, params_of(tr), {k: p.grad for k, p in tr.model.named_parameters() if p.grad is not None}, ms
 
-        rab._FUSED_BWD[0] = False
-        try:
+        with deterministic_algorithms():
             (_, _, g0, _), (_, _, g1, _), (_, _, gm, _) = run(False, 1), run(False, 1), run(True, 1)
-        finally:
-            rab._FUSED_BWD[0] = True
-        differ, straight = [k for k in g0 if not torch.equal(gm[k], g0[k])], [k for k in g0 if not torch.equal(g1[k], g0[k])]
-        print(f"    one step through K2a + K2b: the mesh's gradients against mesh=None's: {len(g0) - len(differ)} of {len(g0)} equal bit for bit; differ: {differ or 'none'} "
-              f"(between two mesh=None steps: {straight or 'none'})")
-        if any(not k.endswith(RAB_ATOMIC) for k in differ):
-            raise AssertionError(f"(a) the (1, 1) mesh's gradients differ from mesh=None's beyond the rab tables: {differ}")
-        for fused, kernels in ((False, "K2a + K2b"), (True, "K2")):
-            rab._FUSED_BWD[0] = fused
-            try:
-                straight = [run(False, steps) for _ in range(2)]
-                loss, got, _, ms = run(True, steps)
-            finally:
-                rab._FUSED_BWD[0] = True
-            spread, diff = rel_l2(straight[1][1], straight[0][1]), max(rel_l2(got, s[1]) for s in straight)
-            (d_spread, at_s), (d_diff, at_d) = rel_diff(straight[1][1], straight[0][1]), min(rel_diff(got, straight[0][1]), rel_diff(got, straight[1][1]))
-            print(f"    {steps} steps through {kernels}: loss {loss:.7f} (mesh=None {straight[0][0]:.7f}, {straight[1][0]:.7f}); a step {ms:.2f} ms of host clock with the mesh, "
-                  f"{straight[1][3]:.2f} without; ||a - b|| / ||b||: the mesh run against the farther mesh=None run {diff:.3e}, the two mesh=None runs {spread:.3e}; "
-                  f"each tensor's max |d| over its max, the largest: the mesh run against the nearer mesh=None run {d_diff:.3e} ({at_d}), the two mesh=None runs {d_spread:.3e} ({at_s})")
-            if diff > SPREAD_FACTOR * spread:
-                raise AssertionError(f"(a) through {kernels}, the (1, 1) mesh differs from mesh=None by {diff:.3e}, beyond {SPREAD_FACTOR:g} x the spread {spread:.3e}")
+            differ, straight = [k for k in g0 if not torch.equal(gm[k], g0[k])], [k for k in g0 if not torch.equal(g1[k], g0[k])]
+            print(f"    one step through K2a + K2b: the mesh's gradients against mesh=None's: {len(g0) - len(differ)} of {len(g0)} equal bit for bit; differ: {differ or 'none'} "
+                  f"(between two mesh=None steps: {straight or 'none'})")
+            if differ or straight:
+                raise AssertionError(f"(a) the (1, 1) mesh's gradients differ from mesh=None's, or two mesh=None runs from each other: {differ}, {straight}")
+            straight = [run(False, steps) for _ in range(2)]
+            loss, got, _, ms = run(True, steps)
+            print(f"    {steps} steps through K2a + K2b: loss {loss:.7f} (mesh=None {straight[0][0]:.7f}, {straight[1][0]:.7f}); a step {ms:.2f} ms of host clock with the mesh, "
+                  f"{straight[1][3]:.2f} without")
+            check_equal(f"  {steps} steps through K2a + K2b, parameters", {"the first mesh=None run": straight[0][1], "the second": straight[1][1], "the mesh run": got})
+        kernels = "K2"  # deterministic algorithms off: they would take the split pair
+        straight = [run(False, steps) for _ in range(2)]
+        loss, got, _, ms = run(True, steps)
+        spread, diff = rel_l2(straight[1][1], straight[0][1]), max(rel_l2(got, s[1]) for s in straight)
+        (d_spread, at_s), (d_diff, at_d) = rel_diff(straight[1][1], straight[0][1]), min(rel_diff(got, straight[0][1]), rel_diff(got, straight[1][1]))
+        print(f"    {steps} steps through {kernels}: loss {loss:.7f} (mesh=None {straight[0][0]:.7f}, {straight[1][0]:.7f}); a step {ms:.2f} ms of host clock with the mesh, "
+              f"{straight[1][3]:.2f} without; ||a - b|| / ||b||: the mesh run against the farther mesh=None run {diff:.3e}, the two mesh=None runs {spread:.3e}; "
+              f"each tensor's max |d| over its max, the largest: the mesh run against the nearer mesh=None run {d_diff:.3e} ({at_d}), the two mesh=None runs {d_spread:.3e} ({at_s})")
+        if diff > SPREAD_FACTOR * spread:
+            raise AssertionError(f"(a) through {kernels}, the (1, 1) mesh differs from mesh=None by {diff:.3e}, beyond {SPREAD_FACTOR:g} x the spread {spread:.3e}")
         expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n_layers * (1 + 2 * steps), "hstu_rab_bwd": n_layers * steps, "hstu_rab_bwd_dq": n_layers * (1 + steps), "hstu_rab_bwd_dkv": n_layers * (1 + steps)}
         print("    (a) launches of the mesh runs: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
         if counts != expected:
             raise AssertionError(f"(a) the mesh runs did not launch each kernel once per layer per step: {counts}, expected {expected}")
     finally:
-        torch.use_deterministic_algorithms(False)
-        if prior is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
         torch.distributed.destroy_process_group()
     return counts
 
@@ -4710,7 +4757,7 @@ def prod_kernels_check(cycles_per_ms):
     print(f"  K2 hstu_rab_bwd at the same shape: max abs err (ratio) {', '.join(parts)}; device {ms:.4f} ms (plain backward {plain_ms:.4f} ms), "
           f"{bounds_text(bwd_bound(c, g, 'hstu_rab_bwd', got.values()))}, host clock {wall:.4f} ms (medians of {REPS})")
     occ = rab.occupancy(256, 64, 64, 256, 128)
-    print("  at L256 dqk 64 dv 64: " + "; ".join(f"{k}: {n} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (n, r, b) in occ.items() if k in ("hstu_rab_fwd", "hstu_rab_bwd")))
+    print("  at L256 dqk 64 dv 64: " + "; ".join(f"{k}: {n} CTAs per SM, {r} registers, {b:,} B shared per CTA, {v}" for k, (n, r, b, v) in occ.items() if k in ("hstu_rab_fwd", "hstu_rab_bwd")))
     return worst
 
 
@@ -4874,6 +4921,268 @@ def examples_phase(cycles_per_ms):
     return counts, worst
 
 
+# ---------------------------------------------------------------------------
+# 19. determinism: the fixed-order table gradients
+# ---------------------------------------------------------------------------
+
+TABLE_ENTRIES = {"hstu_rab_bwd": (rab.rab_backward_fused, GRAD_NAMES), "hstu_rab_bwd_dq": (rab.rab_backward_dq, ("dq", "dpos", "dts"))}
+DETERMINISM = dict(steps=4)
+
+
+def determinism_phase(cycles_per_ms):
+    """K2, K2a, K2-bf16 and K2a-bf16 launched twice at the serving shape, at L1024 and at the production recipe's
+    shape: dpos and dts (and K2a's dq) equal bit for bit; each call's device ms (the table sums' second kernel
+    included).  Four steps of the serving HSTU twice under deterministic algorithms: the split pair, the parameters
+    bit for bit.  Returns the HSTU runs' launches (the twice-launched checks are not counted)."""
+    cases = {"the serving shape, B8 H8 L256 d32": rab_case(51, 8, 256, 256), "B8 H8 L1024 d32": rab_case(52, 8, 1024, 1024),
+             "the production recipe's B8 H4 L256 d64": rab_case(53, 8, 256, 256, h=4, d=64)}
+    for label, c32 in cases.items():
+        for bf16 in (False, True):
+            c = bf16_case(c32) if bf16 else c32
+            g = torch.from_numpy(np.random.default_rng(54).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda().to(c["v"].dtype)
+            args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+            parts = []
+            for entry, (fn, names) in TABLE_ENTRIES.items():
+                first = [t.clone() for t in fn(*args)]
+                second = fn(*args)
+                torch.cuda.synchronize()
+                equal = {n: torch.equal(a, b) for n, a, b in zip(names, first, second) if not (entry == "hstu_rab_bwd" and n == "dq")}
+                if not all(equal.values()):
+                    raise AssertionError(f"{entry}{'_bf16' if bf16 else ''} at {label}: two launches differ in {[n for n, e in equal.items() if not e]}")
+                ms, wall = timed(lambda: fn(*args), cycles_per_ms)
+                parts.append(f"{entry}{'_bf16' if bf16 else ''}: {', '.join(equal)} bit for bit, device {ms:.4f} ms (host clock {wall:.4f} ms)")
+            print(f"  {label}: " + "; ".join(parts))
+            del first, second
+    b = rab.table_scratch(8, 8, 1024, 128, "meta")
+    print(f"  the table sums' scratch at B8 H8 L1024 with 128 buckets: {b.numel() * 4:,} bytes (a slice of L + nb + 1 floats for each CTA of 32 rows)")
+
+    reset_counts()
+    l, vocab = SERVE["max_seq_len"], SERVE["vocab_size"]
+    data = serving_data(BATCH * DETERMINISM["steps"], l, vocab, seed=55)
+    runs = {}
+    with deterministic_algorithms():
+        for label in ("the first run", "the second run"):
+            tr = SeqTrainer(HSTUModel(**SERVE, generator=torch.Generator().manual_seed(55), device=CARD), vocab_chunk_size=8192)
+            tr.train_one_epoch(SeqLoader(*data, batch_size=BATCH), log_interval=0)
+            runs[label] = params_of(tr)
+            del tr
+    counts = read_counts()
+    check_equal(f"the serving HSTU, {DETERMINISM['steps']} steps through SeqTrainer under deterministic algorithms, twice", runs)
+    n = SERVE["n_layers"] * DETERMINISM["steps"] * 2
+    expected = {**{k: 0 for k in COUNTERS}, "hstu_rab_fwd": n, "hstu_rab_bwd_dq": n, "hstu_rab_bwd_dkv": n}
+    print("  launches of the two runs: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if counts != expected:
+        raise AssertionError(f"the deterministic runs did not take K1 and the split pair once per layer per step: {counts}, expected {expected}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 20. wide heads: the width-tiled variants
+# ---------------------------------------------------------------------------
+
+WIDE_SHAPES = ((160, 160), (256, 256), (320, 64), (64, 320), (384, 384))
+WIDE_L = (200, 1024)
+# examples_torch/generative/run_hstu.py at --d_model 1024: 4 heads of dqk = dv = 256, its default vocab and depth
+WIDE_MODEL = dict(vocab=200, d_model=1024, n_layers=2, batch=8, seq_len=256)
+
+
+def wide_case(seed, l, dqk, dv, b=2, h=2):
+    """A rab case at dqk x dv, shuffled stamps and a scattered mask with one empty row."""
+    c = rab_case(seed, b, l, max(l, 256), times="shuffled", mask="scattered", h=h, d=dqk)
+    c["v"] = torch.from_numpy((np.random.default_rng(seed + 1).normal(size=(b, h, l, dv)) * 0.3).astype(np.float32)).cuda()
+    return c
+
+
+def wide_check(label, c, bf16):
+    """The ten entries at one case: K1, K2, K2a + K2b and K3 (the case's own rab, materialised) against their plain
+    versions, fp32 or bf16.  Returns the max abs errs by kernel name."""
+    sfx = "_bf16" if bf16 else ""
+    has_time = c["ts"] is not None
+    c16 = bf16_case(c) if bf16 else c
+    g32 = torch.from_numpy(np.random.default_rng(61).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+    g = g32.to(c16["v"].dtype)
+    fwd_args = (c16["q"], c16["k"], c16["v"], c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"])
+    bwd_args = (c16["q"], c16["k"], c16["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+    errs = {}
+    out = run_kernel(c16)
+    if bf16:
+        f32_in = (*(c16[n].float() for n in ("q", "k", "v")), *fwd_args[3:])
+        errs["hstu_rab_fwd" + sfx] = bf16_compare(f"{label} hstu_rab_fwd_bf16", out, rab.plain_forward_bf16(*fwd_args, has_time), rab.dense_forward(*f32_in, has_time))[0]
+        plain = dict(zip(GRAD_NAMES, rab.plain_backward_bf16(*bwd_args[:-1], has_time)))
+        f32 = dict(zip(GRAD_NAMES, rab.dense_backward(*(c16[n].float() for n in ("q", "k", "v")), g.float(), *bwd_args[4:-1], has_time)))
+    else:
+        errs["hstu_rab_fwd"] = check_close(f"{label} hstu_rab_fwd", out, run_plain(c), KERNEL_RTOL, KERNEL_ATOL)[0]
+        plain = dict(zip(GRAD_NAMES, rab.dense_backward(*bwd_args[:-1], has_time)))
+    for kernel, spec in BWD_KERNELS.items():
+        got = dict(zip(spec["outs"], spec["fn"](*bwd_args)))
+        worst = 0.0
+        for o, t in got.items():
+            if bf16:
+                err = bf16_compare(f"{label} {kernel}_bf16 {o}", t, plain[o], f32[o])[0]
+            else:
+                tables = o in ("dpos", "dts")
+                rtol, atol = (TABLE_RTOL, TABLE_ATOL_REL * float(plain[o].abs().max()) + 1e-12) if tables else (BWD_RTOL, BWD_ATOL)
+                err = check_close(f"{label} {kernel} {o}", t, plain[o], rtol, atol)[0]
+            worst = max(worst, err)
+        errs[kernel + sfx] = worst
+    bias = rab.dense_bias(c["pos_w"], c["ts_w"], c["ts"], c["q"].shape[2], c["max_seq_len"], c["cfg"], has_time).contiguous()
+    with torch.no_grad():
+        k3 = hstu_attention(c16["q"], c16["k"], c16["v"], bias, c["mask"], c["alpha"], c["max_seq_len"])
+    if bf16:
+        ref = attn.plain_forward_bf16(c16["q"], c16["k"], c16["v"], bias, c["mask"], c["alpha"], c["max_seq_len"]).float()
+        err = float((k3.float() - ref).abs().max())
+        if not (torch.isfinite(k3.float()).all() and err <= BF16_ULP_REL * float(ref.abs().max())):
+            raise AssertionError(f"{label} hstu_attn_fwd_bf16: max abs err {err:.3e} beyond one bf16 ulp of the largest output")
+        errs["hstu_attn_fwd_bf16"] = err
+    else:
+        errs["hstu_attn_fwd"] = check_close(f"{label} hstu_attn_fwd", k3, attn.dense_forward(c["q"], c["k"], c["v"], bias, c["mask"], c["alpha"], c["max_seq_len"]), KERNEL_RTOL, KERNEL_ATOL)[0]
+    torch.cuda.synchronize()
+    return errs
+
+
+def wide_model(device, precision=None):
+    kw = WIDE_MODEL
+    model = HSTUModel(vocab_size=kw["vocab"], d_model=kw["d_model"], n_heads=4, n_layers=kw["n_layers"], dqk=kw["d_model"] // 4, dv=kw["d_model"] // 4, max_seq_len=kw["seq_len"],
+                      dropout=0.0, generator=torch.Generator().manual_seed(63), device=device)
+    return SeqTrainer(model, precision=precision, device=device)
+
+
+def wide_phase(cycles_per_ms):
+    """The ten kernels against their plain versions at the wide shapes (every check takes the width-tiled
+    variant); the variants the model launches timed at (256, 256); the full-width HSTU at d_model 1024 (4 heads
+    of 256): one step card against CPU, ``evaluate`` in fp32 and bf16.  Returns the model runs' launches and the
+    ``kernels`` line's entries of those variants (their checks' max abs errs, their times and bounds)."""
+    worst = {}
+    reset_counts()
+    attn.launches_wide.clear()
+    for l in WIDE_L:
+        for dqk, dv in WIDE_SHAPES:
+            c = wide_case(60 + dqk + dv + l, l, dqk, dv)
+            parts = []
+            for bf16 in (False, True):
+                for name, e in wide_check(f"L{l} ({dqk}, {dv})", c, bf16).items():
+                    worst[name] = max(worst.get(name, 0.0), e)
+                    parts.append(f"{name} {e:.2e}")
+            print(f"  L{l} ragged to a scattered mask, dqk {dqk} dv {dv}, B2 H2, shuffled stamps: max abs err " + ", ".join(parts))
+            del c
+    print("  launches of the width-tiled variants in these checks: " + ", ".join(f"{k} {v}" for k, v in sorted({**rab.launches_wide, **attn.launches_wide}.items())))
+    occ = {**rab.occupancy(1024, 256, 256, 1024, 128), **{f"{k} (bf16)": v for k, v in rab.occupancy_bf16(1024, 256, 256, 1024, 128).items()}}
+    print("  L1024 dqk 256 dv 256: " + "; ".join(f"{k}: {n} CTAs per SM, {r} registers, {b:,} B shared per CTA, {v}" for k, (n, r, b, v) in occ.items()))
+
+    # the variants run_hstu.py's d_model 1024 model launches, at its head width: device ms beside the plain
+    # version's and the function's bound (the least time the card could take for the same work: 3xTF32 or bf16
+    # on the tensor cores; the variants run fp32 FMAs, so their fp32-FMA bound is printed beside it)
+    c = wide_case(70, 1024, 256, 256, b=8, h=4)
+    c16 = bf16_case(c)
+    has_time = c["ts"] is not None
+    g = torch.from_numpy(np.random.default_rng(71).normal(size=tuple(c["v"].shape)).astype(np.float32)).cuda()
+    args = (c["q"], c["k"], c["v"], g, c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], c["thr"])
+    fwd16 = (c16["q"], c16["k"], c16["v"], c["pos_w"], c["ts_w"], c["ts"], c["mask"], c["alpha"], c["max_seq_len"], c["cfg"], has_time)
+    outs, out16 = rab.rab_backward_fused(*args), run_kernel(c16)
+    b16 = bf16_bounds(2 * valid_pairs(c) * 2 * 256, input_bytes(c16) + out16.numel() * 2)
+    runs = {
+        "hstu_rab_fwd": (lambda: run_kernel(c), lambda: run_plain(c), rab_bound(c)),
+        "hstu_rab_bwd": (lambda: rab.rab_backward_fused(*args), lambda: rab.dense_backward(*args[:-1], has_time), bwd_bound(c, g, "hstu_rab_bwd", outs)),
+        "hstu_rab_fwd_bf16": (lambda: run_kernel(c16), lambda: rab.plain_forward_bf16(*fwd16), dict(fp32=None, tensor=None, bound_ms=b16[0], bound_by=b16[1])),
+    }
+    timings = {}
+    reset_counts()
+    for name, (kernel, plain, b) in runs.items():
+        (ms, wall), (p_ms, _) = timed(kernel, cycles_per_ms, reps=10), timed(plain, cycles_per_ms, reps=3, warmup=1)  # the plain backward: 1 s a call
+        timings[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        extra = f"; fp32-FMA bound {b['fp32'][0]:.4f} ms ({b['fp32'][1]})" if b["fp32"] else f" (bf16 tensor-core FLOPs {b16[3]:.4f} ms, bytes {b16[2]:.4f} ms)"
+        print(f"  {wide_name(name)} at B8 H4 L1024 dqk = dv = 256: device {ms:.4f} ms ({ms / b['bound_ms']:.1f}x the bound), host clock {wall:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}){extra}; medians of 10 (the plain version's of 3)")
+    taken = read_counts()
+    if any(taken.get(name, 0) for name in runs) or not all(taken.get(wide_name(name), 0) for name in runs):
+        raise AssertionError(f"the timed calls at (256, 256) did not all take the width-tiled variants: {taken}")
+    del c, c16, g, args, outs, out16, runs
+    torch.cuda.empty_cache()
+
+    # the full-width model: one step card against CPU from the same weights, then evaluate in fp32 and bf16
+    kw = WIDE_MODEL
+    data = serving_data(kw["batch"], kw["seq_len"], kw["vocab"], seed=64)
+    reset_counts()
+    rab.launches_wide.clear()
+    trainers = {"cpu": wide_model(torch.device("cpu")), "card": wide_model(CARD)}
+    losses = {d: tr.train_one_epoch(SeqLoader(*data, batch_size=kw["batch"]), log_interval=0) for d, tr in trainers.items()}
+    if not (np.isfinite(list(losses.values())).all() and math.isclose(losses["card"], losses["cpu"], rel_tol=CTR_LOSS_RTOL, abs_tol=CTR_LOSS_ATOL)):
+        raise AssertionError(f"the d_model 1024 HSTU's step: loss card {losses['card']}, CPU {losses['cpu']}")
+    ratio, where = 0.0, ""
+    for (name, a), p in zip(trainers["card"].model.named_parameters(), trainers["cpu"].model.parameters(), strict=True):
+        r = ratio_of(a.grad, p.grad, GRAD_RTOL, GRAD_ATOL_REL * float(p.grad.abs().max()) + 1e-30)
+        if r > ratio:
+            ratio, where = r, name
+    print(f"  run_hstu.py's HSTU at --d_model 1024 (4 heads of 256, {kw['n_layers']} layers, V{kw['vocab']}, dropout 0), one step of B{kw['batch']} x L{kw['seq_len']} card "
+          f"against CPU from the same weights: loss {losses['card']:.7f} vs {losses['cpu']:.7f}; worst gradient max |d|/(atol+rtol|ref|) {ratio:.3f} ({where}; rtol {GRAD_RTOL}, "
+          f"atol {GRAD_ATOL_REL} x the tensor's max)")
+    if ratio > 1.0:
+        raise AssertionError(f"the d_model 1024 HSTU's gradients on the card disagree with the CPU's: {ratio:.3f} ({where})")
+    del trainers
+    loader = SeqLoader(*data, batch_size=kw["batch"])
+    evals = {precision: wide_model(CARD, precision).evaluate(loader) for precision in (None, "bf16")}
+    print(f"  evaluate (loss, top-1): fp32 {evals[None]}, bf16 {evals['bf16']}")
+    if not all(np.isfinite(v).all() for v in evals.values()) or not math.isclose(evals["bf16"][0], evals[None][0], rel_tol=BF16_LOSS_RTOL):
+        raise AssertionError(f"the d_model 1024 HSTU's evaluate: {evals}")
+    counts = read_counts()
+    n = kw["n_layers"]
+    expected = {**{k: 0 for k in COUNTERS}, wide_name("hstu_rab_fwd"): 2 * n, wide_name("hstu_rab_bwd"): n, wide_name("hstu_rab_fwd_bf16"): n}
+    print("  the model runs' launches: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    if counts != expected:
+        raise AssertionError(f"the d_model 1024 HSTU did not launch each kernel's width-tiled variant (and only it) once per layer: {counts}, expected {expected}")
+    torch.cuda.empty_cache()
+    return counts, {wide_name(name): {**t, "max_abs_err": worst[name]} for name, t in timings.items()}
+
+
+# ---------------------------------------------------------------------------
+# 21. the tutorials
+# ---------------------------------------------------------------------------
+
+TUTORIALS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tutorials_torch")
+TUTORIALS_PHASE_S = 120.0
+
+
+def tutorials_phase():
+    """Every code cell of the seven notebooks of ``tutorials_torch/`` in order, one namespace a notebook, from that
+    directory as Jupyter runs them, on the card (``TORCH_RECHUB_DEVICE`` unset); each notebook's seconds and the last
+    line it printed; its temporary directory removed."""
+    names = sorted(f for f in os.listdir(TUTORIALS_DIR) if f.endswith(".ipynb"))
+    if len(names) != 7:
+        raise AssertionError(f"tutorials_torch/ holds {names}, not the seven notebooks")
+    prior, cwd = os.environ.pop("TORCH_RECHUB_DEVICE", None), os.getcwd()
+    reset_counts()
+    t_phase = time.perf_counter()
+    try:
+        for name in names:
+            with open(os.path.join(TUTORIALS_DIR, name)) as f:
+                cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+            ns, buf = {}, io.StringIO()
+            os.chdir(TUTORIALS_DIR)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    for i, src in enumerate(cells):
+                        exec(compile(src, f"{name}::cell{i}", "exec"), ns)
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+            seconds = time.perf_counter() - t0
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+            print(f"  {name}: {len(cells)} code cells on {ns['DEVICE']} in {seconds:.2f} s; its last line: {lines[-1][:160] if lines else '(none)'}")
+            if ns["DEVICE"].type != "cuda":
+                raise AssertionError(f"{name} ran on {ns['DEVICE']}, not the card")
+            shutil.rmtree(ns["OUT"], ignore_errors=True)
+    finally:
+        if prior is not None:
+            os.environ["TORCH_RECHUB_DEVICE"] = prior
+    total = time.perf_counter() - t_phase
+    print(f"  the seven notebooks: {total:.1f} s (limit {TUTORIALS_PHASE_S:g} s); the port's kernels launched: " + (", ".join(f"{k} {v}" for k, v in read_counts().items() if v) or "none"))
+    if total > TUTORIALS_PHASE_S:
+        raise AssertionError(f"the tutorials took {total:.1f} s, beyond {TUTORIALS_PHASE_S:g} s")
+    if any(read_counts().values()):
+        raise AssertionError(f"a tutorial launched an HSTU attention kernel: {read_counts()}")
+
+
 def free_port():
     import socket
 
@@ -4899,15 +5208,15 @@ def main():
     print(f"  built in {seconds:.2f} s")
     for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
         occ = {**rab.occupancy(*shape), "hstu_attn_fwd": attn.occupancy(*shape[:3])}
-        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA" for k, (c, r, b) in occ.items()))
-    c, r, b = attn.occupancy(1024, 256, 128)
-    print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA")
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {v}" for k, (c, r, b, v) in occ.items()))
+    c, r, b, v = attn.occupancy(1024, 256, 128)
+    print(f"  dqk 256 dv 128 (32-key stages): hstu_attn_fwd: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {v}")
     for shape in ((256, 32, 32, 256, 128), (1024, 32, 32, 1024, 128)):
         occ = {**{k: rab.launch_shape_bf16(k, *shape) for k in ("hstu_rab_fwd_bf16",) + rab.BWD_ENTRIES_BF16},
                **{f"hstu_attn_fwd_bf16 ({name} bias)": attn.occupancy_bf16(*shape[:3], name == "bf16") for name in ("f32", "bf16")}}
-        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages" for k, (c, r, b, st) in occ.items()))
-    print("  dqk 256 dv 128, bf16: " + "; ".join(f"hstu_attn_fwd_bf16 ({name} bias): {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages"
-                                            for name in ("f32", "bf16") for c, r, b, st in [attn.occupancy_bf16(1024, 256, 128, name == "bf16")]))
+        print(f"  L{shape[0]} dqk {shape[1]} dv {shape[2]}, bf16: " + "; ".join(f"{k}: {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages, {v}" for k, (c, r, b, st, v) in occ.items()))
+    print("  dqk 256 dv 128, bf16: " + "; ".join(f"hstu_attn_fwd_bf16 ({name} bias): {c} CTAs per SM, {r} registers, {b:,} B shared per CTA, {st} ring stages, {v}"
+                                            for name in ("f32", "bf16") for c, r, b, st, v in [attn.occupancy_bf16(1024, 256, 128, name == "bf16")]))
 
     cycles_per_ms = spin_cycles_per_ms()
     cases = kernel_cases()
@@ -4933,7 +5242,7 @@ def main():
     torch.cuda.empty_cache()
 
     print("serving phase (full-width HSTU through SeqTrainer):")
-    launches = {name: 0 for name in COUNTERS}
+    launches = collections.defaultdict(int, {name: 0 for name in COUNTERS})  # wide_name(...) keys where a variant ran
     launches["hstu_rab_fwd"] = serving_phase(cycles_per_ms)
     print("training phase (full-width HSTU through SeqTrainer.train_one_epoch):")
     for name, n in training_phase(cycles_per_ms).items():
@@ -5005,12 +5314,34 @@ def main():
         launches[name] += n
     for name, err in example_errs.items():
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+    print("determinism phase (K2, K2a, K2-bf16 and K2a-bf16 twice at the serving shape, L1024 and the production recipe's shape: dpos and dts bit for bit, timed; "
+          "the serving HSTU's 4 steps twice under torch.use_deterministic_algorithms through the split pair):")
+    print("  " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0])
+    t0 = time.perf_counter()
+    for name, n in determinism_phase(cycles_per_ms).items():
+        launches[name] += n
+    print(f"  determinism phase: {time.perf_counter() - t0:.1f} s")
+    print("wide-head phase (the ten kernels at (dqk, dv) = (160, 160), (256, 256), (320, 64), (64, 320), (384, 384), L200 and L1024, fp32 and bf16, against their plain "
+          "versions; the width-tiled K1, K2 and K1-bf16 timed at (256, 256); run_hstu.py's HSTU at --d_model 1024: a step card against CPU, evaluate in fp32 and bf16):")
+    t0 = time.perf_counter()
+    wide_launches, wide_measured = wide_phase(cycles_per_ms)
+    for name, n in wide_launches.items():
+        launches[name] += n
+    print(f"  wide-head phase: {time.perf_counter() - t0:.1f} s")
+    print("tutorials phase (every code cell of the seven notebooks of tutorials_torch/ on the card):")
+    tutorials_phase()
 
     sources = {"hstu_rab_fwd": ("hstu_rab_fwd.cu", "hstu_rab_attention.py:267"), **{k: ("hstu_rab_bwd.cu", f"hstu_rab_attention.py:{v['line']}") for k, v in BWD_KERNELS.items()},
                "hstu_attn_fwd": ("hstu_attn_fwd.cu", "hstu_attention.py:45"), **BF16_KERNELS}
     launches["hstu_attn_fwd"] = k3.pop("launches")  # the op's own path: it lies on no model's path
     launches["hstu_attn_fwd_bf16"] = k3_bf16.pop("launches")
     measured.update(hstu_attn_fwd=k3, hstu_attn_fwd_bf16=k3_bf16)
+    measured.update(wide_measured)
+    for name in [name for name, n in launches.items() if n and name not in sources]:  # the width-tiled variants the paths launched
+        base = name.removesuffix("_wide")
+        if name not in measured:
+            raise AssertionError(f"{base}'s width-tiled variant ran on a path but was not timed: {dict(launches)}")
+        sources[name] = ("hstu_wide.cuh", sources[base][1])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -287,15 +287,17 @@ def test_split_bf16_wrappers_hand_the_kernels_their_buffers(fake_card):
     assert (trab.launches_bwd_dq, trab.launches_bwd_dkv, trab.launches_bwd_dq_bf16, trab.launches_bwd_dkv_bf16) == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)
     assert (dq.dtype, dk.dtype, dv.dtype, dpos.dtype, dts.dtype) == (BF16,) * 3 + (torch.float32,) * 2
     assert (dq.shape, dk.shape, dv.shape, dpos.shape, dts.shape) == (q.shape, k.shape, v.shape, pos_w.shape, ts_w.shape)
-    assert not dpos.any() and not dts.any()  # zeroed: the kernel adds its sums with atomics
+    assert not dpos.any() and not dts.any()  # zeroed: the kernel writes the rows L reaches, the rest stay 0
     (n1, a1), (n2, a2) = fake_card.calls
     assert (n1, n2) == ("hstu_rab_bwd_dq_bf16", "hstu_rab_bwd_dkv_bf16")
     inputs = tuple(t.data_ptr() for t in (q, k, v, g, pos_w, ts_w, thr, ts, mask))
     assert a1[:14] == inputs + (dq.data_ptr(), None, None, dpos.data_ptr(), dts.data_ptr())
     assert a2[:14] == inputs + (None, dk.data_ptr(), dv.data_ptr(), None, None)
-    # B, H, L, dqk, dv, max_seq_len, num_buckets, alpha, fn_log, minutes, divisor, stream
+    # K2a's scratch for its table slices (K2b has none), then B, H, L, dqk, dv, max_seq_len, num_buckets, alpha,
+    # fn_log, minutes, divisor, stream, and where the entry reports the variant it took
+    assert a1[14] is not None and a2[14] is None
     scalars = (2, 3, 40, 12, 20, maxl, 16, alpha, 1, 0, 2.0, 1234)
-    assert a1[14:] == a2[14:] == scalars
+    assert a1[15:-1] == a2[15:-1] == scalars
 
 
 def test_split_backward_of_the_op_takes_the_bf16_pair(fake_card, monkeypatch):
@@ -327,21 +329,21 @@ def test_k3_bf16_launch_hands_the_kernel_its_shapes_and_bias_layout(fake_card, s
     (name, args), = fake_card.calls
     assert name == "hstu_attn_fwd_bf16"
     assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr())
-    # B, H, L, dqk, dv, shared_bias, bias_bf16, alpha, norm, stream
-    assert args[6:] == (b, h, l, dqk, dv, int(shared), int(bias_dtype == BF16), 0.3, 64.0, 1234)
+    # B, H, L, dqk, dv, shared_bias, bias_bf16, alpha, norm, stream (then where the entry reports the variant it took)
+    assert args[6:-1] == (b, h, l, dqk, dv, int(shared), int(bias_dtype == BF16), 0.3, 64.0, 1234)
 
 
 def test_launch_shape_reads_the_ring_stages_from_a_fourth_field(fake_card, monkeypatch):
-    """``launch_shape_bf16`` asks K1-bf16 or, by index, K2-bf16 (0), K2a-bf16 (1) or K2b-bf16 (2) into a four-int
-    buffer, and returns all four fields (a name that is no bf16 rab kernel is refused); ``occupancy_bf16`` keeps
-    returning three."""
+    """``launch_shape_bf16`` asks K1-bf16 or, by index, K2-bf16 (0), K2a-bf16 (1) or K2b-bf16 (2) into a six-int
+    buffer (the sixth: the backward's dts tables), and returns the first four fields and the variant the fifth names
+    (a name that is no bf16 rab kernel is refused); ``occupancy_bf16`` keeps returning three and the variant."""
     stages = {(): 2, (0,): 1, (1,): 1, (2,): 2}  # the kernel's index -> the stages the fake reports
 
     def query(*args):
         which, info = args[:-6], args[-1]
         fake_card.calls.append((which, args[-6:-1]))
-        assert len(info) == 4
-        info[0], info[1], info[2], info[3] = 3, 80, 40_000, stages.get(which, 0)
+        assert len(info) == 6
+        info[0], info[1], info[2], info[3], info[4] = 3, 80, 40_000, stages.get(which, 0), which == (2,)
         return 0
 
     lib = type("Lib", (), {"hstu_rab_fwd_bf16_occupancy": staticmethod(query), "hstu_rab_bwd_bf16_occupancy": staticmethod(query)})()
@@ -350,19 +352,20 @@ def test_launch_shape_reads_the_ring_stages_from_a_fourth_field(fake_card, monke
     shape = (4096, 128, 128, 4096, 128)
     names = ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16
     got = {name: trab.launch_shape_bf16(name, *shape) for name in names}
-    assert got == {"hstu_rab_fwd_bf16": (3, 80, 40_000, 2), "hstu_rab_bwd_bf16": (3, 80, 40_000, 1), "hstu_rab_bwd_dq_bf16": (3, 80, 40_000, 1),
-                   "hstu_rab_bwd_dkv_bf16": (3, 80, 40_000, 2)}
+    tc, wide = trab.TENSOR_CORE, trab.WIDE
+    assert got == {"hstu_rab_fwd_bf16": (3, 80, 40_000, 2, tc), "hstu_rab_bwd_bf16": (3, 80, 40_000, 1, tc), "hstu_rab_bwd_dq_bf16": (3, 80, 40_000, 1, tc),
+                   "hstu_rab_bwd_dkv_bf16": (3, 80, 40_000, 2, wide)}
     assert fake_card.calls == [((), shape), ((0,), shape), ((1,), shape), ((2,), shape)]
     with pytest.raises(ValueError, match="not a bf16 rab kernel"):
         trab.launch_shape_bf16("hstu_rab_fwd", *shape)
-    assert trab.occupancy_bf16(256, 32, 32, 256, 128)["hstu_rab_fwd_bf16"] == (3, 80, 40_000)
+    assert trab.occupancy_bf16(256, 32, 32, 256, 128)["hstu_rab_fwd_bf16"] == (3, 80, 40_000, tc)
 
 
 def test_bf16_occupancy_queries_name_every_kernel(fake_card):
     """``occupancy_bf16`` asks for K1-bf16 and, by index, K2-, K2a- and K2b-bf16; K3-bf16's for its bias dtype (with
     its ring stages in a fourth field)."""
-    assert trab.occupancy_bf16(256, 32, 32, 256, 128) == {name: (0, 0, 0) for name in ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16}
-    assert tmod.occupancy_bf16(1024, 256, 128, bias_bf16=True) == (0, 0, 0, 0)
+    assert trab.occupancy_bf16(256, 32, 32, 256, 128) == {name: (0, 0, 0, trab.TENSOR_CORE) for name in ("hstu_rab_fwd_bf16",) + trab.BWD_ENTRIES_BF16}
+    assert tmod.occupancy_bf16(1024, 256, 128, bias_bf16=True) == (0, 0, 0, 0, trab.TENSOR_CORE)
     calls = [(name, args[:-1]) for name, args in fake_card.calls]
     assert calls == [("hstu_rab_fwd_bf16_occupancy", (256, 32, 32, 256, 128))] + [("hstu_rab_bwd_bf16_occupancy", (which, 256, 32, 32, 256, 128)) for which in range(3)] + [
         ("hstu_attn_fwd_bf16_occupancy", (1024, 256, 128, 1))]

@@ -161,8 +161,8 @@ def test_launches_pass_the_bucket_config(fake_card, cfg):
     names = [name for name, _ in fake_card.calls]
     assert names == ["hstu_rab_fwd", "hstu_rab_bwd", "hstu_rab_bwd_dq", "hstu_rab_bwd_dkv"]
     for _, args in fake_card.calls:
-        # ... num_buckets, alpha, fn_log, minutes, divisor, stream
-        assert args[-6:] == (c.num_buckets, 0.5, int(c.fn == "log"), int(c.unit == "minutes"), c.divisor, FakeStream.cuda_stream)
+        # ... num_buckets, alpha, fn_log, minutes, divisor, stream, and where the entry reports the variant it took
+        assert args[-7:-1] == (c.num_buckets, 0.5, int(c.fn == "log"), int(c.unit == "minutes"), c.divisor, FakeStream.cuda_stream)
 
 
 def test_function_hands_the_config_to_the_forward_launch(monkeypatch):
@@ -189,3 +189,18 @@ def test_occupancy_asks_for_every_rab_kernel(fake_card):
     assert [name for name, _ in fake_card.calls] == ["hstu_rab_fwd_occupancy"] + ["hstu_rab_bwd_occupancy"] * 3
     assert fake_card.calls[0][1][:5] == (256, 32, 24, 256, 128)
     assert [args[:6] for _, args in fake_card.calls[1:]] == [(which, 256, 32, 24, 256, 128) for which in range(3)]
+
+
+def test_backward_refuses_more_buckets_than_the_card_holds(fake_card):
+    """The one shape limit left: K2's and K2a's dts sums need num_buckets + 1 floats of shared memory, so past
+    ``MAX_BWD_BUCKETS`` they raise, naming it, before any launch; K2b (no table sums) and the forward take any."""
+    nb = tmod.MAX_BWD_BUCKETS + 1
+    q, k, v, pos_w, _, ts, mask, maxl = small_inputs()
+    ts_w = torch.zeros(nb + 1, q.shape[1])
+    thr = torch.zeros(nb + 1, dtype=torch.int32)
+    c = tmod.BucketCfg(nb)
+    for entry in ("hstu_rab_bwd", "hstu_rab_bwd_dq"):
+        with pytest.raises(ValueError, match=f"at most {tmod.MAX_BWD_BUCKETS}"):
+            tmod._launch_bwd(entry, q, k, v, torch.zeros_like(v), pos_w, ts_w, ts, mask, thr, 0.5, maxl, c, dq=torch.zeros_like(q), dpos=torch.zeros_like(pos_w), dts=torch.zeros_like(ts_w))
+    tmod._launch_bwd("hstu_rab_bwd_dkv", q, k, v, torch.zeros_like(v), pos_w, ts_w, ts, mask, thr, 0.5, maxl, c, dk=torch.zeros_like(k), dv=torch.zeros_like(v))
+    assert [name for name, _ in fake_card.calls] == ["hstu_rab_bwd_dkv"]

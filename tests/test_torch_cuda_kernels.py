@@ -120,15 +120,13 @@ def test_kernel_rejects_what_it_does_not_take(card):
         rab.hstu_attention_rab(*args(q=t["q"].half()))
     with pytest.raises(ValueError, match="contiguous"):
         rab.hstu_attention_rab(*args(k=t["k"].transpose(2, 3).contiguous().transpose(2, 3)))
-    with pytest.raises(ValueError, match="dv"):
-        rab.hstu_attention_rab(*args(v=torch.zeros((*t["v"].shape[:3], 160), device=card)))
     with pytest.raises(ValueError, match="is on cpu"):
         rab.hstu_attention_rab(*args(pos_w=t["pos_w"].cpu()))
 
 
 # Backward kernels against the plain backward (autograd of dense_forward).
 # dq, dk, dv: sums of up to L fp32 products, as the forward, but K2's dq is
-# a sum of per-tile fp32 atomics whose order changes from run to run.  dpos
+# a sum of per-tile fp32 reductions whose order changes from run to run.  dpos
 # and dts sum up to B*L^2/2 terms of either sign into one slot, in another
 # order than autograd's scatter-add: their error scales with the largest
 # slot, hence an absolute tolerance relative to max |ref| of the table.
@@ -213,9 +211,6 @@ def test_backward_kernels_reject_what_they_do_not_take(card):
             fn(*args(k=t["k"].half()))
         with pytest.raises(ValueError, match="is on cpu"):
             fn(*args(ts_w=t["ts_w"].cpu()))
-        wide = torch.zeros((*t["q"].shape[:3], 160), device=card)
-        with pytest.raises(ValueError, match="dqk, dv <= 128"):
-            fn(*args(q=wide, k=wide))
 
 
 # The exact bucket lookup of K1, K2, K2a and K2b on rab.bucket_sweep_stamps: |t_l - t_m|
@@ -263,14 +258,17 @@ def first_design_max_l(width, nb):
     return words // 2  # L words of position bias and L of its gradient
 
 
-# The layouts there (ring stages, dts copies), K2 and K2a alike: (2, 32) at d32 and d64,
-# (1, 32) at d128; with 2000 buckets (2, 1) at d32 and (1, 1) at d128.  K2b (no dts
-# copies) keeps two Q/G stages at all of them.
+# The layouts there: the dts sums shrink from a copy per warp and lane column to a table
+# a warp, then to one table the warps add to in turns (no dpos windows either), before
+# the ring drops to one stage; with one stage and one table no kernel needs more shared
+# memory than the first designs, so the tensor-core kernels take all of these shapes.
 @SPLIT
 @pytest.mark.parametrize("width,nb", [(32, 16), (64, 16), (128, 16), (32, 2000), (128, 2000)], ids=lambda x: str(x))
 def test_kernels_take_the_longest_l_of_the_first_designs(card, width, nb, split):
-    """K1 and the backward kernels take every L the first designs took: no new rejection at long sequences."""
+    """K1 and the backward kernels take every L the first designs took, with the tensor-core kernels: no new
+    rejection at long sequences, and no retreat to the width-tiled variant."""
     l = first_design_max_l(width, nb)
+    assert {v[3] for v in rab.occupancy(l, width, width, l, nb).values()} == {rab.TENSOR_CORE}
     t, kw = rab_inputs(card, b=1, h=1, l=l, maxl=l, d=width, dv=width, nb=nb, times="shuffled", mask="scattered", seed=width)
     names = ("q", "k", "v", "pos_w", "ts_w", "timestamps", "padding_mask")
     out = rab.hstu_attention_rab(*(t[n] for n in names), kw["alpha"], kw["max_seq_len"], kw["cfg"])
@@ -301,26 +299,25 @@ def test_kernels_read_a_mask_at_any_byte_offset(card, l, split):
 
 
 def test_fused_backward_twice_agrees(card):
-    """K2's dq, dpos and dts are sums of atomics whose order changes between runs: two runs agree within the tolerances."""
+    """K2's dq is a sum of reductions whose order changes between runs: two runs agree within the tolerances; dk, dv,
+    dpos and dts are sums in a fixed order and agree bit for bit."""
     t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
     g = torch.from_numpy(np.random.default_rng(12).normal(size=t["v"].shape).astype(np.float32)).to(card)
     first, second = (rab.rab_backward_fused(*bwd_args(t, kw, g)) for _ in range(2))
     torch.cuda.synchronize()
     assert_grads_close(first, second)
-    torch.testing.assert_close(first[1], second[1], rtol=0, atol=0)  # dk, dv: a fixed order of sums
-    torch.testing.assert_close(first[2], second[2], rtol=0, atol=0)
+    for i in range(1, 5):  # dk, dv, dpos, dts: a fixed order of sums
+        torch.testing.assert_close(first[i], second[i], rtol=0, atol=0)
 
 
 def test_split_backward_twice_agrees(card):
-    """K2a's dq and K2b's dk, dv are sums in a fixed order: equal bit for bit between two runs;
-    dpos and dts are sums of atomics and agree within the tolerances."""
+    """K2a's dq, dpos and dts and K2b's dk, dv are sums in a fixed order: equal bit for bit between two runs."""
     t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
     g = torch.from_numpy(np.random.default_rng(12).normal(size=t["v"].shape).astype(np.float32)).to(card)
     first, second = (run_backward(bwd_args(t, kw, g), split=True) for _ in range(2))
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+    for name, a, b in zip(GRAD_NAMES, first, second):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=lambda m: f"{name}: {m}")
-    assert_grads_close(first, second)
 
 
 def test_model_gradients_fused_match_unfused_on_card(card):
@@ -462,10 +459,10 @@ def test_attention_kernel_twice_agrees(card, shared):
 
 def test_attention_kernel_occupancy(card):
     """64-key stages at dqk = dv = 32 and 3 CTAs per SM; 32-key stages at dqk 256 with dv 128, which still fit."""
-    ctas, regs, smem = attn.occupancy(256, 32, 32)
-    assert ctas >= 3 and 0 < regs <= 85 and smem == attn.occupancy(4096, 32, 32)[2]  # shared memory does not grow with L
-    ctas, regs, smem = attn.occupancy(1024, 256, 128)
-    assert ctas >= 1 and smem <= 232448
+    ctas, regs, smem, variant = attn.occupancy(256, 32, 32)
+    assert ctas >= 3 and 0 < regs <= 85 and smem == attn.occupancy(4096, 32, 32)[2] and variant == rab.TENSOR_CORE  # shared memory does not grow with L
+    ctas, regs, smem, variant = attn.occupancy(1024, 256, 128)
+    assert ctas >= 1 and smem <= 232448 and variant == rab.TENSOR_CORE
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(card):
@@ -476,7 +473,5 @@ def test_attention_kernel_rejects_what_it_does_not_take(card):
         attn.hstu_attention(q, k, v, bias.transpose(2, 3), mask, alpha, n)
     with pytest.raises(ValueError, match="bias must be"):
         attn.hstu_attention(q, k, v, bias[:2].contiguous(), mask, alpha, n)
-    with pytest.raises(ValueError, match="dv"):
-        attn.hstu_attention(q, k, torch.zeros((*v.shape[:3], 160), device=card), bias, mask, alpha, n)
     with pytest.raises(ValueError, match="is on cpu"):
         attn.hstu_attention(q, k, v, bias.cpu(), mask, alpha, n)

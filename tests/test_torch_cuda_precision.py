@@ -169,7 +169,7 @@ def test_bf16_split_backward_twice_agrees_and_dkv_equals_fused(card):
 
 def test_bf16_forward_and_fused_dkv_twice_agree(card):
     """K1-bf16 sums its four key splits' partial outputs, and K2-bf16 its four query splits' partial dk, dv, in a
-    fixed order with no atomics: two runs agree bit for bit (K2-bf16's dq, summed with atomics, need not)."""
+    fixed order with no atomics: two runs agree bit for bit (K2-bf16's dq, summed with reductions, need not)."""
     t, kw = rab_inputs(card, b=4, times="shuffled", mask="scattered")
     t = to_bf16(t)
     g = grad_of(t, seed=13)
@@ -193,27 +193,42 @@ def test_bf16_rab_kernels_occupancy(card):
     names = ("hstu_rab_fwd_bf16",) + rab.BWD_ENTRIES_BF16
     for name in names:
         for shape, least in (((256, 32, 32, 256, 128), 2), ((4096, 128, 128, 4096, 128), 1)):
-            ctas, regs, smem, stages = rab.launch_shape_bf16(name, *shape)
-            assert ctas >= least and 0 < regs <= 255 and 0 < smem <= SMEM_LIMIT, (name, shape, ctas, regs, smem)
+            ctas, regs, smem, stages, variant = rab.launch_shape_bf16(name, *shape)
+            assert ctas >= least and 0 < regs <= 255 and 0 < smem <= SMEM_LIMIT and variant == rab.TENSOR_CORE, (name, shape, ctas, regs, smem, variant)
             if shape[0] == 256:
-                assert stages == 2 and (ctas, regs, smem) == rab.occupancy_bf16(*shape)[name], (name, stages)
+                assert stages == 2 and (ctas, regs, smem, variant) == rab.occupancy_bf16(*shape)[name], (name, stages)
     # two 64-row stages of K and V (K1-, K2a-bf16) or of Q and G (K2-bf16) at dqk = dv = 128 take 2 x 2 x 64 x 128 x 2
     # bytes; with pw [L] (and gpos [L]) in f32 beside them, two stages exceed the limit past these L
     for name, l in (("hstu_rab_fwd_bf16", 44_000), ("hstu_rab_bwd_bf16", 21_000), ("hstu_rab_bwd_dq_bf16", 21_000)):
         assert 2 * 2 * 64 * 128 * 2 + (4 if name == "hstu_rab_fwd_bf16" else 8) * l > SMEM_LIMIT
-        ctas, regs, smem, stages = rab.launch_shape_bf16(name, l, 128, 128, l, 128)
-        assert stages == 1 and ctas >= 1 and smem <= SMEM_LIMIT, (name, l, ctas, smem, stages)
+        ctas, regs, smem, stages, variant = rab.launch_shape_bf16(name, l, 128, 128, l, 128)
+        assert stages == 1 and ctas >= 1 and smem <= SMEM_LIMIT, (name, l, ctas, smem, stages, variant)
 
 
 def test_bf16_split_kernels_match_plain_on_one_ring_stage(card):
-    """K2a-bf16 with one K/V stage (refilled after a second barrier) and one dts table: at dqk = dv = 128, 12,000
-    buckets' tables (tw, thr and the dts sums, 12 bytes a bucket) leave no room for a second stage at L300.  Then
-    K2a-bf16 and K2b-bf16 against the plain bf16 backward, as on every case."""
+    """K2a-bf16 with one K/V stage (refilled after a second barrier) and one dts table, which the warps add to in
+    turns: at dqk = dv = 128, 12,000 buckets' tables (tw, thr and the dts sums, 12 bytes a bucket) leave no room
+    for a second stage at L300.  Then K2a-bf16 and K2b-bf16 against the plain bf16 backward, as on every case."""
     shape = (300, 128, 128, 300, 12_000)
-    assert rab.launch_shape_bf16("hstu_rab_bwd_dq_bf16", *shape)[3] == 1
+    assert rab.launch_shape_bf16("hstu_rab_bwd_dq_bf16", *shape)[3:] == (1, rab.TENSOR_CORE)
+    assert rab.dts_tables("hstu_rab_bwd_dq_bf16", *shape) == 1
     t, kw = rab_inputs(card, l=300, maxl=300, d=128, dv=128, nb=12_000, times="shuffled", mask="scattered")
     t = to_bf16(t)
     got, plain, f32 = kernel_and_plain(t, kw, grad_of(t, seed=15), split=True)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, plain, f32)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["K2", "K2a+K2b"])
+def test_bf16_kernels_match_plain_with_a_dts_table_a_warp(card, split):
+    """K2-bf16 and K2a-bf16 with a dts table per warp (no copies per lane column) and both ring stages: at
+    dqk = dv = 128 and L300, 2,000 buckets' 32 copies do not fit, 8 tables do."""
+    shape = (300, 128, 128, 300, 2_000)
+    for name in rab.BWD_ENTRIES_BF16[:2]:
+        assert rab.launch_shape_bf16(name, *shape)[3:] == (2, rab.TENSOR_CORE) and rab.dts_tables(name, *shape) == 8, name
+    t, kw = rab_inputs(card, l=300, maxl=300, d=128, dv=128, nb=2_000, times="shuffled", mask="scattered")
+    t = to_bf16(t)
+    got, plain, f32 = kernel_and_plain(t, kw, grad_of(t, seed=16), split=split)
     torch.cuda.synchronize()
     assert_bf16_close(got, plain, f32)
 
@@ -326,10 +341,10 @@ def test_bf16_attention_kernel_occupancy(card):
     """K3-bf16 (CTAs of 8 warps) with an f32 or a bf16 bias: at least 2 CTAs per SM and both ring stages at the
     serving shape; its shared memory does not grow with L; dqk 256 with dv 128 fits, with both stages."""
     for bias_bf16 in (False, True):
-        ctas, regs, smem, stages = attn.occupancy_bf16(256, 32, 32, bias_bf16)
-        assert ctas >= 2 and 0 < regs <= 255 and stages == 2 and smem == attn.occupancy_bf16(4096, 32, 32, bias_bf16)[2]
-        ctas, regs, smem, stages = attn.occupancy_bf16(1024, 256, 128, bias_bf16)
-        assert ctas >= 1 and smem <= SMEM_LIMIT and stages == 2
+        ctas, regs, smem, stages, variant = attn.occupancy_bf16(256, 32, 32, bias_bf16)
+        assert ctas >= 2 and 0 < regs <= 255 and stages == 2 and smem == attn.occupancy_bf16(4096, 32, 32, bias_bf16)[2] and variant == rab.TENSOR_CORE
+        ctas, regs, smem, stages, variant = attn.occupancy_bf16(1024, 256, 128, bias_bf16)
+        assert ctas >= 1 and smem <= SMEM_LIMIT and stages == 2 and variant == rab.TENSOR_CORE
 
 
 @pytest.mark.parametrize("l", [130, 258])

@@ -260,14 +260,18 @@ def bad_inputs(case):
     ("non_contiguous_bias", ValueError, "contiguous"),
     ("bias_batch_2_of_3", ValueError, "bias must be"),
     ("bias_wrong_length", ValueError, "bias must be"),
-    ("dv_160", ValueError, "dv <= 128"),
-    ("dqk_300", ValueError, "dqk <= 256"),
     ("float_mask", ValueError, "padding_mask"),
     ("bias_on_meta", ValueError, "is on meta"),
 ])
 def test_kernel_input_checks(case, error, match):
     with pytest.raises(error, match=match):
         tmod._check_kernel_inputs(*bad_inputs(case))
+
+
+@pytest.mark.parametrize("case", ["dv_160", "dqk_300"])
+def test_kernel_input_checks_take_any_width(case):
+    """No width is refused: past the tensor-core kernel's (dv 128, dqk 256) the entry takes its width-tiled variant."""
+    tmod._check_kernel_inputs(*bad_inputs(case))
 
 
 def test_kernel_input_checks_pass_both_bias_layouts():
@@ -310,11 +314,11 @@ def test_launch_hands_the_kernel_its_shapes_and_bias_layout(fake_card, shared, m
     (name, args), = fake_card.calls
     assert name == "hstu_attn_fwd"
     assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if m is None else m.data_ptr(), out.data_ptr())
-    # B, H, L, dqk, dv, shared_bias, alpha, norm, stream
-    assert args[6:] == (2, 3, 40, 12, 20, int(shared), ALPHA, NORM, 1234)
+    # B, H, L, dqk, dv, shared_bias, alpha, norm, stream (then where the entry reports the variant it took)
+    assert args[6:-1] == (2, 3, 40, 12, 20, int(shared), ALPHA, NORM, 1234)
 
 
 def test_occupancy_asks_the_kernel_for_its_shape(fake_card):
-    assert tmod.occupancy(1024, 256, 128) == (0, 0, 0)  # the fake fills nothing in
+    assert tmod.occupancy(1024, 256, 128) == (0, 0, 0, "tensor-core")  # the fake fills nothing in
     (name, args), = fake_card.calls
-    assert name == "hstu_attn_fwd_occupancy" and args[:3] == (1024, 256, 128) and len(args[3]) == 3
+    assert name == "hstu_attn_fwd_occupancy" and args[:3] == (1024, 256, 128) and len(args[3]) == 5

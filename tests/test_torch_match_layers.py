@@ -178,7 +178,7 @@ def test_l2_normalize_matches_jax():
     x = np.random.default_rng(9).normal(size=(5, 3, 4)).astype(np.float32)
     x[0] = 0.0  # F.normalize's eps: a zero vector stays 0
     for dim in (-1, 1):
-        np.testing.assert_allclose(l2_normalize(torch.from_numpy(x), dim=dim).numpy(), np.asarray(jl2(jnp.asarray(x), axis=dim)), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(l2_normalize(torch.from_numpy(x), axis=dim).numpy(), np.asarray(jl2(jnp.asarray(x), axis=dim)), rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

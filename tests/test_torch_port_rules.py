@@ -15,10 +15,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "torch_rechub_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_rechub_tpu", "benchmarks", "examples")
 EXAMPLES = ROOT / "examples_torch"
+TUTORIALS = ROOT / "tutorials_torch"
 
 
-def imported_modules(path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def imported_modules(path, source=None):
+    """The absolute imports of a source file (or of ``source``, a notebook cell's code)."""
+    for node in ast.walk(ast.parse(path.read_text() if source is None else source, filename=str(path))):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -26,13 +28,25 @@ def imported_modules(path):
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + sorted(EXAMPLES.rglob("*.py"))
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + sorted(EXAMPLES.rglob("*.py"))
+            + sorted(TUTORIALS.glob("*.py")))
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_no_jax(path):
     bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(TUTORIALS.glob("*.ipynb")), ids=lambda p: p.name)
+def test_tutorial_cells_import_no_jax(path):
+    """The port's notebooks: no code cell imports JAX, the JAX package, ``benchmarks`` or ``examples``."""
+    import json
+
+    cells = ["".join(c["source"]) for c in json.loads(path.read_text())["cells"] if c["cell_type"] == "code"]
+    for i, src in enumerate(cells):
+        bad = [m for m in imported_modules(path, src) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.name} cell {i} imports {bad}"
 
 
 # optional packages of the pipeline, the loggers and the retrieval backends: imported where they are used, never when a

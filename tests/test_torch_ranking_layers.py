@@ -65,9 +65,9 @@ def layer_case(name, rng):
         "CrossNetV2": lambda: (jlayers.CrossNetV2(3), tlayers.CrossNetV2(F * D, 3), [x2]),
         "CrossNetMix": lambda: (jlayers.CrossNetMix(num_layers=2, low_rank=3, num_experts=3), tlayers.CrossNetMix(F * D, 2, 3, 3), [x2]),
         "SENETLayer": lambda: (jlayers.SENETLayer(F, 2), tlayers.SENETLayer(F, 2), [x3]),
-        "BiLinear_field_all": lambda: (jlayers.BiLinearInteractionLayer(F, "field_all"), tlayers.BiLinearInteractionLayer(F, D, "field_all"), [x3]),
-        "BiLinear_field_each": lambda: (jlayers.BiLinearInteractionLayer(F, "field_each"), tlayers.BiLinearInteractionLayer(F, D, "field_each"), [x3]),
-        "BiLinear_field_interaction": lambda: (jlayers.BiLinearInteractionLayer(F), tlayers.BiLinearInteractionLayer(F, D), [x3]),
+        "BiLinear_field_all": lambda: (jlayers.BiLinearInteractionLayer(F, "field_all"), tlayers.BiLinearInteractionLayer(D, F, "field_all"), [x3]),
+        "BiLinear_field_each": lambda: (jlayers.BiLinearInteractionLayer(F, "field_each"), tlayers.BiLinearInteractionLayer(D, F, "field_each"), [x3]),
+        "BiLinear_field_interaction": lambda: (jlayers.BiLinearInteractionLayer(F), tlayers.BiLinearInteractionLayer(D, F), [x3]),
         "InteractingLayer": lambda: (jlayers.InteractingLayer(D, num_heads=2), tlayers.InteractingLayer(D, 2), [x3]),
         "InteractingLayer_no_residual": lambda: (jlayers.InteractingLayer(D, num_heads=4, residual=False), tlayers.InteractingLayer(D, 4, residual=False), [x3]),
         "FFM": lambda: (jlayers.FFM(F), tlayers.FFM(F), [normal(rng, B, F, F, D)]),
@@ -112,7 +112,7 @@ def test_layer_matches_jax(name):
 
 def test_pair_layers_raise_on_what_they_cannot_build():
     with pytest.raises(NotImplementedError):
-        tlayers.BiLinearInteractionLayer(F, D, "field_pairs")
+        tlayers.BiLinearInteractionLayer(D, F, "field_pairs")
     with pytest.raises(ValueError, match="halves"):
         tlayers.CIN(F, (3, 4))
     with pytest.raises(ValueError, match="divisible"):

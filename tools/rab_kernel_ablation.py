@@ -48,7 +48,7 @@ HEADER = {  # variants of hstu_rab_common.cuh
 }
 LIBRARY = {"hstu_rab_fwd": "hstu_rab_fwd", "hstu_rab_bwd": "hstu_rab_bwd", "hstu_rab_bwd_dq": "hstu_rab_bwd", "hstu_rab_bwd_dkv": "hstu_rab_bwd", "hstu_attn_fwd": "hstu_attn_fwd"}
 FUNCTION = {"hstu_rab_fwd": "hstu_rab_fwd_kernel", "hstu_rab_bwd": "bwd_fused_kernel", "hstu_rab_bwd_dq": "bwd_q_kernel", "hstu_rab_bwd_dkv": "bwd_kv_kernel", "hstu_attn_fwd": "hstu_attn_fwd_kernel"}
-ONE_STAGE = [("    f.stages = option < 2 ? 2 : 1;", "    f.stages = 1;")]  # K2, K2a and K2b choose their ring alike
+ONE_STAGE = [("    f.stages = option < 3 ? 2 : 1;", "    f.stages = 1;")]  # K2, K2a and K2b choose their ring alike
 VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
     "hstu_rab_fwd": {
         "unchanged": ([], []),
@@ -60,19 +60,19 @@ VARIANTS = {  # kernel: {name: (header substitutions, source substitutions)}
         "unchanged": ([], []),
         **{k: (v, []) for k, v in HEADER.items()},
         "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq[qq], tk_r[i >> 1]);", "              const int u = 3;")]),
-        "no dts sums": ([], [("        add_ts_grads<8>(my_gts, dsk, bkk);", "")]),
-        "no dpos sums": ([], [("        add_pos_grads<1>(gpos, part, l0 - m0, n_dist, g, t);", "")]),
+        "no dts sums": ([], [("          add_ts_grads<8>(my_gts, ts_copy, dsk, bkk);", "")]),
+        "no dpos sums": ([], [("        add_pos_grads<1>(turns ? gpos : win + kWin * warp, turns ? l0 - m0 : 15, turns ? n_dist : kWin, part, g, t);", "")]),
         "no dq atomics": ([], [("              red_add_v4(dst, x0, x1, x2, x3);", "")]),
-        "one CTA-wide dts table (no copies)": ([], [("    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;", "    f.ts_copies = 1;")]),
+        "one dts table a warp (no copies)": ([], [("    f.ts_copies = option % 3 == 0 ? kTsCopies : option % 3 == 1 ? kWarps2 : 1;", "    f.ts_copies = kWarps2;")]),
         "one Q/G stage (no ring)": ([], ONE_STAGE),
     },
     "hstu_rab_bwd_dq": {
         "unchanged": ([], []),
         **{k: (v, []) for k, v in HEADER.items()},
         "a constant bucket (no lookup)": ([], [("              const int u = bucket(tq_r[i >> 1], tk[c]);", "              const int u = 3;")]),
-        "no dts sums": ([], [("        add_ts_grads<8>(my_gts, dsr, bkr);", "")]),
-        "no dpos sums": ([], [("      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);", "")]),
-        "one CTA-wide dts table (no copies)": ([], [("    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;", "    f.ts_copies = 1;")]),
+        "no dts sums": ([], [("        add_ts_grads<8>(my_gts, ts_copy, dsr, bkr);", "")]),
+        "no dpos sums": ([], [("      add_pos_grads<-1>(turns ? gpos : win + ((kt & 1) * kWinWarps + warp) * kWin, turns ? r0 - m0 : 15, turns ? q_end : kWin, part, g, t);", "")]),
+        "one dts table a warp (no copies)": ([], [("    f.ts_copies = option % 3 == 0 ? kTsCopies : option % 3 == 1 ? kWarps2 : 1;", "    f.ts_copies = kWarps2;")]),
         "one K/V stage (no ring)": ([], ONE_STAGE),
     },
     "hstu_rab_bwd_dkv": {  # no table gradients: nothing of dts or dpos to take out
@@ -120,6 +120,7 @@ def build_all():
         if d not in procs:
             d.mkdir(parents=True, exist_ok=True)
             (d / "hstu_rab_common.cuh").write_text(header)
+            (d / "hstu_wide.cuh").write_text((_build.CSRC / "hstu_wide.cuh").read_text())  # the width-tiled variants, which every source includes
             (d / "k.cu").write_text(source)
             cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(d / "k.so"), str(d / "k.cu")]
             procs[d] = (key, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -297,8 +297,8 @@ class BiLinearInteractionLayer(nn.Module):
     (``w (P, D, D)``, one per pair).
     """
 
-    def __init__(self, num_fields: int, embed_dim: int, bilinear_type: str = "field_interaction", generator: Optional[torch.Generator] = None, device=None):
-        super().__init__()
+    def __init__(self, embed_dim: int, num_fields: int, bilinear_type: str = "field_interaction", generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()  # the input width first, as torch modules take it; then JAX's parameters in JAX's order
         n_pairs = num_fields * (num_fields - 1) // 2
         shapes = {"field_all": (embed_dim, embed_dim), "field_each": (num_fields, embed_dim, embed_dim), "field_interaction": (n_pairs, embed_dim, embed_dim)}
         if bilinear_type not in shapes:

@@ -112,9 +112,9 @@ _NORM_MARKERS = ("batchnorm", "layernorm", "groupnorm", "instancenorm", "_norm")
 _EMBED_MARKERS = ("embedding", "embed_table", "tables")
 
 
-def classify_param(name: str) -> str:
-    """``'norm' | 'embedding' | 'dense'`` by the parameter's name, as the JAX package sorts flax paths."""
-    p = name.lower()
+def classify_param(path_str: str) -> str:
+    """``'norm' | 'embedding' | 'dense'`` by the parameter's name (``path_str``, the JAX package's flax path), as the JAX package sorts them."""
+    p = path_str.lower()
     if any(m in p for m in _NORM_MARKERS):
         return "norm"
     if any(m in p for m in _EMBED_MARKERS):

@@ -52,7 +52,8 @@
 //   the 16 lanes of each half-warp (4 rows x 4 lanes) cover all 32 banks.
 // - Shared memory does not grow with L; widths that are not a multiple of
 //   8 are zero-padded in shared memory; rows and keys past L are masked
-//   here: any L, dqk <= 256 and dv <= 128, no host padding.
+//   here: any L, dqk <= 256 and dv <= 128, no host padding; wider heads
+//   take the width-tiled variant (hstu_wide.cuh).
 // The first design (PR 3: fp32 FMAs over a 64 x 64 tile per 256-thread
 // CTA, Q and K staged transposed by scalar loads, the bias by predicated
 // scalar loads into a shared P tile, three barriers per key tile, 256 CTAs
@@ -61,6 +62,7 @@
 // (chip_smoke.py prints it, with hstu_attn_fwd_occupancy).
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -321,7 +323,7 @@ size_t fit(Params& p) {
 template <int NV>
 cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   const size_t smem = fit(p);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   cudaError_t err = cudaFuncSetAttribute(hstu_attn_fwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info != nullptr) return occupancy(hstu_attn_fwd_kernel<NV>, kThreads, smem, info);
@@ -330,8 +332,9 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   return cudaGetLastError();
 }
 
-int run(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H, int L,
-        int dqk, int dv, int shared_bias, float alpha, float norm, void* stream, int* info) {
+int run_narrow(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H,
+               int L, int dqk, int dv, int shared_bias, float alpha, float norm, void* stream, int* info) {
+  if (dv > 128 || dqk > 256 || (L + kBlockQ - 1) / kBlockQ > kMaxGridY) return kNoFit;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -354,8 +357,6 @@ int run(const void* q, const void* k, const void* v, const void* bias, const voi
   p.vec_v = dv % 4 == 0 && aligned(v);
   p.vec_b = L % 4 == 0 && aligned(bias);  // then every 4-key chunk is 16-byte aligned, and wholly inside or past L
   auto st = static_cast<cudaStream_t>(stream);
-  if (dv < 1 || dv > 128 || dqk < 1 || dqk > 256 || L < 1 || (L + kBlockQ - 1) / kBlockQ > kMaxGridY || B * H < 1)
-    return cudaErrorInvalidValue;
   if (dv <= 8) return launch<1>(p, st, info);
   if (dv <= 16) return launch<2>(p, st, info);
   if (dv <= 32) return launch<4>(p, st, info);
@@ -363,23 +364,47 @@ int run(const void* q, const void* k, const void* v, const void* bias, const voi
   return launch<16>(p, st, info);
 }
 
+// The tensor-core kernel where it takes the shape, else the width-tiled variant (hstu_wide.cuh)
+int run(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H, int L,
+        int dqk, int dv, int shared_bias, float alpha, float norm, void* stream, int* info, int* taken) {
+  if (dv < 1 || dqk < 1 || L < 1 || (L + wide::kB - 1) / wide::kB > kMaxGridY || B * H < 1) return cudaErrorInvalidValue;
+  return wide::dispatch(
+      [&] {
+        return static_cast<cudaError_t>(run_narrow(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, alpha, norm,
+                                                   stream, info));
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v, w.bias = bias;
+        w.mask = static_cast<const uint8_t*>(mask), w.out0 = out;
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv, w.max_seq_len = L;
+        w.alpha = alpha, w.norm = norm, w.bk = Buckets{0, 0, 0, 1.f};
+        w.shared_bias = shared_bias;
+        const auto st = static_cast<cudaStream_t>(stream);
+        return wide::launch<float, wide::kFwd, false>(w, st, info);
+      },
+      taken, info);
+}
+
 }  // namespace
 
 // q, k: (B, H, L, dqk); v, out: (B, H, L, dv); bias: (B, H, L, L), or
 // (1, H, L, L) when shared_bias is nonzero; all fp32, contiguous.  mask:
 // (B, L) bool or null (all keys valid).  norm: the silu normaliser
-// (max_seq_len).  Returns the cudaError_t of the launch (0 on success).
+// (max_seq_len).  *taken (may be null): 0 the tensor-core kernel ran, 1 the
+// width-tiled variant.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int hstu_attn_fwd(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out,
                              int B, int H, int L, int dqk, int dv, int shared_bias, float alpha, float norm,
-                             void* stream) {
-  return run(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, alpha, norm, stream, nullptr);
+                             void* stream, int* taken) {
+  return run(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, alpha, norm, stream, nullptr, taken);
 }
 
 // The kernel that this shape would launch, without launching it: info[0]
 // resident CTAs per SM, info[1] registers per thread, info[2] dynamic
-// shared memory bytes per CTA.  Returns the cudaError_t.
+// shared memory bytes per CTA, info[4] 0 the tensor-core kernel, 1 the
+// width-tiled variant (info holds 5 ints).  Returns the cudaError_t.
 extern "C" int hstu_attn_fwd_occupancy(int L, int dqk, int dv, int* info) {
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv, 0, 1.f, 1.f, nullptr, info);
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv, 0, 1.f, 1.f, nullptr, info, nullptr);
 }
 
 extern "C" const char* hstu_attn_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

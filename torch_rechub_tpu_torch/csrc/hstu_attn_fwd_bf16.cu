@@ -73,6 +73,7 @@
 // and hstu_attn_fwd_bf16_occupancy (with the ring stages).
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -329,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, NV <= 4 ? 3 : 2) hstu_attn_fwd_bf16_
 template <int NV, typename TB>
 cudaError_t launch(const Params& p, cudaStream_t stream, int* info) {
   const size_t smem = layout(p.ldk, p.ldv, sizeof(TB)).total;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   const auto kernel = hstu_attn_fwd_bf16_kernel<NV, TB>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -356,10 +357,9 @@ cudaError_t dispatch(Params p, cudaStream_t st, int* info) {
   return launch<16, TB>(p, st, info);
 }
 
-int run(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H, int L,
-        int dqk, int dv, int shared_bias, int bias_bf16, float alpha, float norm, void* stream, int* info) {
-  if (dv < 1 || dv > 128 || dqk < 1 || dqk > 256 || L < 1 || (L + kBlockQ - 1) / kBlockQ > kMaxGridY || B * H < 1)
-    return cudaErrorInvalidValue;
+int run_narrow(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H,
+               int L, int dqk, int dv, int shared_bias, int bias_bf16, float alpha, float norm, void* stream, int* info) {
+  if (dv > 128 || dqk > 256 || (L + kBlockQ - 1) / kBlockQ > kMaxGridY) return kNoFit;
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -387,26 +387,52 @@ int run(const void* q, const void* k, const void* v, const void* bias, const voi
   return bias_bf16 ? dispatch<bf16>(p, st, info) : dispatch<float>(p, st, info);
 }
 
+// The tensor-core kernel where it takes the shape, else the width-tiled variant (hstu_wide.cuh)
+int run(const void* q, const void* k, const void* v, const void* bias, const void* mask, void* out, int B, int H, int L,
+        int dqk, int dv, int shared_bias, int bias_bf16, float alpha, float norm, void* stream, int* info, int* taken) {
+  if (dv < 1 || dqk < 1 || L < 1 || (L + wide::kB - 1) / wide::kB > kMaxGridY || B * H < 1) return cudaErrorInvalidValue;
+  return wide::dispatch(
+      [&] {
+        return static_cast<cudaError_t>(run_narrow(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, bias_bf16, alpha, norm,
+                                                   stream, info));
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v, w.bias = bias;
+        w.mask = static_cast<const uint8_t*>(mask), w.out0 = out;
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv, w.max_seq_len = L;
+        w.alpha = alpha, w.norm = norm, w.bk = Buckets{0, 0, 0, 1.f};
+        w.shared_bias = shared_bias;
+        const auto st = static_cast<cudaStream_t>(stream);
+        return bias_bf16 ? wide::launch<bf16, wide::kFwd, false, bf16>(w, st, info)
+                         : wide::launch<bf16, wide::kFwd, false, float>(w, st, info);
+      },
+      taken, info);
+}
+
 }  // namespace
 
 // q, k: (B, H, L, dqk) and v, out: (B, H, L, dv) bf16, contiguous, at any
 // element offset; bias: (B, H, L, L), or (1, H, L, L) when shared_bias is
 // nonzero, bf16 when bias_bf16 is nonzero else fp32, contiguous; mask: (B, L)
 // bool or null (all keys valid).  norm: the silu normaliser (max_seq_len).
-// dqk <= 256, dv <= 128.  Returns the cudaError_t of the launch (0 on success).
+// The tensor-core kernel at dqk <= 256, dv <= 128, else the width-tiled
+// variant: *taken (may be null) 0 or 1.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int hstu_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* bias, const void* mask,
                                   void* out, int B, int H, int L, int dqk, int dv, int shared_bias, int bias_bf16,
-                                  float alpha, float norm, void* stream) {
-  return run(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, bias_bf16, alpha, norm, stream, nullptr);
+                                  float alpha, float norm, void* stream, int* taken) {
+  return run(q, k, v, bias, mask, out, B, H, L, dqk, dv, shared_bias, bias_bf16, alpha, norm, stream, nullptr, taken);
 }
 
 // The kernel that this shape would launch, without launching it: info[0]
 // resident CTAs per SM, info[1] registers per thread, info[2] dynamic shared
-// memory bytes per CTA, info[3] its ring stages (2 at every shape it
-// takes).  Returns the cudaError_t.
+// memory bytes per CTA, info[3] its ring stages (2 at every shape the
+// tensor-core kernel takes, 1 for the variant), info[4] 0 the tensor-core
+// kernel, 1 the width-tiled variant.  Returns the cudaError_t.
 extern "C" int hstu_attn_fwd_bf16_occupancy(int L, int dqk, int dv, int bias_bf16, int* info) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv, 0, bias_bf16, 1.f, 1.f, nullptr,
-             info);
+             info, nullptr);
 }
 
 extern "C" const char* hstu_attn_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

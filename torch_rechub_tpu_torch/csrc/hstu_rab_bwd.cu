@@ -62,18 +62,23 @@
 //   fragments, two lanes swapping halves so each holds four consecutive
 //   floats, with one red.global.add.v4.f32 (scalar atomics where dqk % 4 or
 //   alignment forbid).  The order of these sums changes from run to run.
-// - Table gradients in shared memory (shared fp32 atomics are
-//   compare-and-swap loops on sm_90, so contention is what they must
-//   avoid).  dpos by causal distance into one CTA-wide gpos[L]: each lane
-//   first folds its fragment by distance (6 partials), the lanes that share
-//   a distance sum by shuffles along the warp, and the chain's head adds
-//   one shared atomic per distance.  dts by each lane's runs of equal
-//   buckets, key by key, with one shared atomic per run into a copy of the
-//   warp's lane column t (lanes that share a causal distance, and so most
-//   often a bucket, lie in different columns), or one warp sum when the
-//   warp's buckets agree; where the 32 copies do not fit, into one table.
-//   At the end the copies are added in a fixed order, and one global atomic
-//   per nonzero slot adds them to the zeroed outputs.
+// - Table gradients in a fixed order, with no float atomic (so dpos and
+//   dts are the same bit for bit from run to run; hstu_rab_common.cuh).
+//   dpos by causal distance: each lane folds its fragment by distance (6
+//   partials), the lanes that share a distance sum by shuffles along the
+//   warp, and the chain's head adds the sum into the warp's own window of
+//   31 distances; after the tile's second barrier 95 threads add the 8
+//   windows in warp order into the CTA's gpos[L].  dts by each lane's runs
+//   of equal buckets, key by key, into a copy of the warp's lane column t
+//   (lanes that share a causal distance, and so most often a bucket, lie
+//   in different columns; where the 32 copies do not fit, one table per
+//   warp): lanes that end a run on one slot at the same step add in lane
+//   order, and a warp whose buckets agree adds one butterfly sum.  Where
+//   the 8 tables do not fit either, no windows and one table, as the first
+//   designs had: the warps add to gpos and the table one at a time in warp
+//   order (wait_turn / pass_turn, named barriers).  At the end the copies
+//   are added in a fixed order into the CTA's slice of the scratch buffer,
+//   and reduce_table_slices adds the slices in CTA order into dpos and dts.
 // - dK and dV of the four query splits are summed in a fixed order at the
 //   end: they are the same bit for bit from run to run.
 //
@@ -97,23 +102,26 @@
 //   dQ's, without bank conflicts.
 // - dq: the four key splits' partials summed in a fixed order, (0 + 2) +
 //   (1 + 3), as K1 sums its outputs: the same bit for bit from run to run.
-// - dpos and dts: K2's machinery above, per q tile (one CTA-wide gpos; dts
-//   copies per warp and lane column t, or one table where they do not fit).
+// - dpos and dts: K2's machinery above, per q tile (the windows double
+//   buffered by tile parity, as K2a has one barrier a tile; dts copies per
+//   warp and lane column t, or one per warp, or one table in turns).
 //
-// Every shape the first designs took: dqk, dv <= 128, any L (rows and keys
-// past L are masked here, V/K rows past L zero-filled, no host padding),
-// widths that fill neither the 8-wide fragments nor the 16-byte copies
-// (zero-padded in shared memory; 4-byte copies), masks at any byte offset.
-// Where shared memory runs short the dts copies go first, then the second
-// ring stage; with one stage and one dts table no kernel needs more than
-// the first designs (fp32 FMAs over 64 x 64 tiles, Q/K/G/V staged
-// transposed by scalar loads) took, so every L they took fits.  Kept from
-// the first designs: the ownership (K2a a q tile, K2b a key tile),
-// pos_w staged by causal distance, fully masked rows giving zeros.
+// Shapes: dqk, dv <= 128, any L (rows and keys past L are masked here, V/K
+// rows past L zero-filled, no host padding), widths that fill neither the
+// 8-wide fragments nor the 16-byte copies (zero-padded in shared memory;
+// 4-byte copies), masks at any byte offset.  Where shared memory runs
+// short the dts copies go first (to one table per warp, then to one table
+// in turns, which needs no more than the first designs' one table), then
+// the second ring stage.  Wider heads, and shapes whose shared memory still does not
+// fit, take the width-tiled variants (hstu_wide.cuh): every entry runs
+// every shape.  Kept from the first designs: the ownership (K2a a q tile,
+// K2b a key tile), pos_w staged by causal distance, fully masked rows
+// giving zeros.
 // Registers, shared memory and CTAs per SM: ptxas's report in the build log
 // and hstu_rab_bwd_occupancy (chip_smoke.py prints both).
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -124,6 +132,7 @@ struct Args {
   const int *thr, *ts;
   const uint8_t* mask;
   float *dq, *dk, *dv, *dpos, *dts;
+  float* scratch;  // K2, K2a: a slice of table sums per CTA (write_table_slice)
   int B, H, L, dqk, dv_dim, max_seq_len;
   float alpha;
   Buckets bk;
@@ -132,19 +141,13 @@ struct Args {
 constexpr int kWarps2 = 8;
 constexpr int kThreads2 = 32 * kWarps2;
 constexpr int kTsCopies = 4 * kWarps2;  // dts sums: one copy per warp and lane column t
+static_assert(kWarps2 == kWinWarps, "a dpos window per warp");
 
-// The CTA's table sums into the global outputs (zeroed by the wrapper): the
-// dts copies added in a fixed order, one atomic per nonzero slot.
-__device__ __forceinline__ void flush_table_grads(const Args& a, const float* gpos, const float* gts, int n_dist,
-                                                  int copies, int nb4, int h) {
-  for (int d = threadIdx.x; d < n_dist; d += kThreads2)
-    if (gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * a.H + h], gpos[d]);
-  if (a.ts != nullptr)
-    for (int u = threadIdx.x; u <= a.bk.nb; u += kThreads2) {
-      float sum = 0.f;
-      for (int w = 0; w < copies; ++w) sum += gts[w * nb4 + u];
-      if (sum != 0.f) atomicAdd(&a.dts[(size_t)u * a.H + h], sum);
-    }
+// The dts table of this lane: its warp's copy for its lane column t, or its
+// warp's one table where the copies do not fit, or the CTA's one table
+// (added to in turns) where those do not fit either
+__device__ __forceinline__ float* lane_table(float* gts, int copies, int warp, int t, int nb4) {
+  return gts + (copies == kTsCopies ? 4 * warp + t : copies == kWarps2 ? warp : 0) * nb4;
 }
 
 inline int stride_a(int width) { return ((width + 7) & ~7) + 4; }  // 4 mod 8: A and row-major B fragments
@@ -171,19 +174,19 @@ struct Fused {
   int ldq, ldg, ldk, ldv;   // shared row strides: Q, G, V 4 mod 8 words; K 8 mod 32 (K2) or 4 mod 8 (K2b)
   int vec_q, vec_k, vec_v, vec_g, red_v4;
   int stages;               // the Q/G ring: 2 stages, or 1 where two do not fit
-  int ts_copies;            // dts sums: kTsCopies, or 1 (one CTA-wide table) where they do not fit
+  int ts_copies;            // dts sums: kTsCopies, or kWarps2 (one table per warp), or 1 (one table, in turns)
 };
 
 // Shared memory, in 4-byte words (each part a multiple of 4 words):
 //   K [kTileK][ldk]  V [kTileK][ldv]  tk [kTileK]  kvalid [kTileK]  dS [kTileQ][kLdS]
-//   pw [L]  tw [nb+1]  thr [nb+1]  gpos [L]  gts [ts_copies][nb+1]
+//   pw [L]  tw [nb+1]  thr [nb+1]  gpos [L]  gts [ts_copies][nb+1]  win [8][32] (none in turns)
 //   1 or 2 stages of { Q [kTileQ][ldq]  G [kTileQ][ldg]  tq [kTileQ] },
 //   the stages also holding the query splits' partial dK, dV at the end.
 // K2b (kFull false) has no dS, gpos or gts.  With one stage and one dts
 // table this is never more than the first design (fp32 FMAs over 64 x 64
 // tiles) took, so K2 and K2b take every shape it took.
 struct Layout2 {
-  int k, v, tk, kv, ds, pw, tw, th, gpos, gts, L4, nb4, stage, stage_words, sq, sg, stq, total;
+  int k, v, tk, kv, ds, pw, tw, th, gpos, gts, win, L4, nb4, stage, stage_words, sq, sg, stq, total;
 };
 
 template <bool kFull>
@@ -202,7 +205,8 @@ __host__ __device__ inline Layout2 layout2(const Fused& f, int L, int nb) {
   o.th = o.tw + nb4;
   o.gpos = o.th + nb4;
   o.gts = o.gpos + (kFull ? L4 : 0);
-  o.stage = o.gts + (kFull ? f.ts_copies * nb4 : 0);
+  o.win = o.gts + (kFull ? f.ts_copies * nb4 : 0);
+  o.stage = o.win + (kFull && f.ts_copies > 1 ? kWinWarps * kWin : 0);
   o.sq = 0;
   o.sg = o.sq + kTileQ * f.ldq;
   o.stq = o.sg + kTileQ * f.ldg;
@@ -231,6 +235,7 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
   float* gpos = smem + lay.gpos;
   float* tw = smem + lay.tw;
   float* gts = smem + lay.gts;
+  float* win = smem + lay.win;
   int* th = reinterpret_cast<int*>(smem + lay.th);
   float* stages = smem + lay.stage;
 
@@ -248,8 +253,9 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
   const float inv_norm = 1.f / (float)a.max_seq_len;
   const Lookup bucket(th, a.bk);
   const int n_dist = L - k0;  // causal distances this key tile can see: 0 .. L-1-k0
-  // lanes of one t share no distance chain; one table for all where the copies do not fit
-  float* my_gts = gts + (f.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  float* my_gts = lane_table(gts, f.ts_copies, warp, t, lay.nb4);
+  const int ts_copy = f.ts_copies == kTsCopies ? t : 0;
+  const bool turns = kFull && f.ts_copies == 1;  // one gpos and one dts table, the warps adding in turns
   const bool ring = f.stages == 2;  // else the next q tile is copied once the current one is consumed
 
   auto stage_ptr = [&](int s) { return stages + s * lay.stage_words; };
@@ -274,7 +280,7 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
   }
   for (int d = tid; d < n_dist; d += kThreads2) pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
   if constexpr (kFull)
-    for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
+    for (int i = tid; i < lay.stage - lay.gpos; i += kThreads2) gpos[i] = 0.f;  // gpos, gts, win
   if (has_time)
     for (int u = tid; u <= a.bk.nb; u += kThreads2) {
       tw[u] = a.ts_w[(size_t)u * H + h];
@@ -415,10 +421,11 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) part[nt - (i >> 1) + 1][i & 1] += da[nt][i];
-        add_pos_grads<1>(gpos, part, l0 - m0, n_dist, g, t);
+        wait_turn(turns, warp);
+        add_pos_grads<1>(turns ? gpos : win + kWin * warp, turns ? l0 - m0 : 15, turns ? n_dist : kWin, part, g, t);
         if (has_time) {
-          // dts into the warp's own sums, so no other warp contends: the lane's values key by
-          // key, so that its runs of equal buckets (neighbouring queries) fold before an atomic
+          // dts into the warp's own sums (in turns, the CTA's), so no other warp adds at once: the lane's
+          // values key by key, so that its runs of equal buckets (neighbouring queries) fold before an add
           float dsk[8];
           int bkk[8];
 #pragma unroll
@@ -427,9 +434,13 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
             dsk[e] = da[nt][2 * ii + j];
             bkk[e] = bk[nt][2 * ii + j];
           }
-          add_ts_grads<8>(my_gts, dsk, bkk);
+          add_ts_grads<8>(my_gts, ts_copy, dsk, bkk);
         }
+        pass_turn(turns, warp);
       }
+    } else {
+      wait_turn(turns, warp);  // no pairs: the turn passes on
+      pass_turn(turns, warp);
     }
 
     if constexpr (kFull) {
@@ -439,7 +450,10 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) dSs[(qq0 + 8 * nt + 2 * t + (i & 1)) * kLdS + kk0 + g + 8 * (i >> 1)] = da[nt][i];
     }
-    if (kFull || !ring) __syncthreads();  // B2: the tile's dS is complete; Q and G are consumed
+    if (kFull || !ring) __syncthreads();  // B2: the tile's dS and dpos windows are complete; Q and G are consumed
+    if (kFull && !turns)  // the tile's distances q0 - k0 - 31 + r, r < 95; warp w's window starts at r = 16 (qs - kg + 1)
+      flush_pos_windows(gpos, win, q0 - k0 - (kTileK - 1), n_dist,
+                        [](int w) { return 16 * (w / kKeyGroups - w % kKeyGroups + 1); });
     if (!ring) {
       if (qt + 1 < n_qt) issue(qt + 1, 0);
       cp_commit();
@@ -539,7 +553,9 @@ __device__ __forceinline__ void key_tile_body(const Fused& f) {
       }
     }
   }
-  if constexpr (kFull) flush_table_grads(a, gpos, gts, n_dist, f.ts_copies, lay.nb4, h);
+  if constexpr (kFull)
+    write_table_slice(a.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * (L + a.bk.nb + 1), gpos, gts, n_dist, L,
+                      f.ts_copies, a.bk.nb, lay.nb4, has_time, kThreads2);
 }
 
 template <int N>
@@ -566,19 +582,23 @@ cudaError_t launch_key_tiles(const Args& a, cudaStream_t stream, int* info) {
   f.vec_g = a.dv_dim % 4 == 0 && aligned16(a.g);
   f.red_v4 = a.dqk % 4 == 0 && aligned16(a.dq);
   // The most that fits: for long sequences or wide heads the dts copies go
-  // first, then the ring's second stage
+  // first (to one table per warp, then one table in turns), then the ring's
+  // second stage
   size_t smem = 0;
-  for (int option = 0; option < 4; ++option) {
-    f.stages = option < 2 ? 2 : 1;
-    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;
+  for (int option = 0; option < 6; ++option) {
+    f.stages = option < 3 ? 2 : 1;
+    f.ts_copies = option % 3 == 0 ? kTsCopies : option % 3 == 1 ? kWarps2 : 1;
     smem = sizeof(float) * layout2<kFull>(f, a.L, a.bk.nb).total;
     if (smem <= kMaxSmem) break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   const auto kernel = kFull ? bwd_fused_kernel<N> : bwd_kv_kernel<N>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (info != nullptr) return occupancy(kernel, kThreads2, smem, info);
+  if (info != nullptr) {
+    info[5] = kFull ? f.ts_copies : 0;
+    return occupancy(kernel, kThreads2, smem, info);
+  }
   const dim3 grid(a.B * a.H, (a.L + kTileK - 1) / kTileK);
   kernel<<<grid, kThreads2, smem, stream>>>(f);
   return cudaGetLastError();
@@ -601,17 +621,17 @@ struct DqArgs {
   int ldq, ldg, ldk, ldv;   // shared row strides, 4 mod 8 words
   int vec_q, vec_k, vec_v, vec_g;
   int stages;               // the K/V ring: 2 stages, or 1 where two do not fit
-  int ts_copies;            // dts sums: kTsCopies, or 1 (one CTA-wide table) where they do not fit
+  int ts_copies;            // dts sums: kTsCopies, or kWarps2 (one table per warp), or 1 (one table, in turns)
 };
 
 // Shared memory, in 4-byte words (each part a multiple of 4 words):
 //   Q [kTileQa][ldq]  G [kTileQa][ldg]  tq [kTileQa]  pw [L]  tw [nb+1]  thr [nb+1]
-//   gpos [L]  gts [ts_copies][nb+1]
+//   gpos [L]  gts [ts_copies][nb+1]  win [2][8][32] (a tile's dpos windows, by tile parity; none in turns)
 //   1 or 2 stages of { K [kTileKa][ldk]  V [kTileKa][ldv]  tk [kTileKa]  mask words [kTileKa/4 + 4] },
 //   the stages also holding two slots of partial dq per row group at the end.
 // With one stage and one dts table this is never more than the first design took.
 struct LayoutA {
-  int q, g, tq, pw, tw, th, gpos, gts, L4, nb4, stage, stage_words, k, v, tk, km, total;
+  int q, g, tq, pw, tw, th, gpos, gts, win, L4, nb4, stage, stage_words, k, v, tk, km, total;
 };
 
 __host__ __device__ inline LayoutA layout_dq(const DqArgs& f, int L, int nb) {
@@ -627,7 +647,8 @@ __host__ __device__ inline LayoutA layout_dq(const DqArgs& f, int L, int nb) {
   o.th = o.tw + nb4;
   o.gpos = o.th + nb4;
   o.gts = o.gpos + L4;
-  o.stage = o.gts + f.ts_copies * nb4;
+  o.win = o.gts + f.ts_copies * nb4;
+  o.stage = o.win + (f.ts_copies > 1 ? 2 * kWinWarps * kWin : 0);
   o.k = 0;
   o.v = o.k + kTileKa * f.ldk;
   o.tk = o.v + kTileKa * f.ldv;
@@ -654,6 +675,7 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
   int* th = reinterpret_cast<int*>(smem + lay.th);
   float* gpos = smem + lay.gpos;
   float* gts = smem + lay.gts;
+  float* win = smem + lay.win;
   float* stages = smem + lay.stage;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
@@ -670,9 +692,12 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
   const int* tsb = has_time ? a.ts + (size_t)b * L : nullptr;
   const float inv_norm = 1.f / (float)a.max_seq_len;
   const Lookup bucket(th, a.bk);
-  // lanes of one t share no distance chain; one table for all where the copies do not fit
-  float* my_gts = gts + (f.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  float* my_gts = lane_table(gts, f.ts_copies, warp, t, lay.nb4);
+  const int ts_copy = f.ts_copies == kTsCopies ? t : 0;
+  const bool turns = f.ts_copies == 1;  // one gpos and one dts table, the warps adding in turns
   const bool ring = f.stages == 2;  // else the next k tile is copied once the current one is consumed
+  // k tile kt's distances q0 - 64 kt - 63 + r, r < 95; warp w's window starts at r = 16 (rg - ks + 3)
+  const auto win_start = [](int w) { return 16 * (w % kRowGroups - w / kRowGroups + 3); };
 
   auto stage_ptr = [&](int s) { return stages + s * lay.stage_words; };
   auto issue = [&](int kt, int s) {
@@ -706,7 +731,7 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
   issue(0, 0);
   cp_commit();
   for (int d = tid; d < q_end; d += kThreads2) pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
-  for (int i = tid; i < lay.L4 + f.ts_copies * lay.nb4; i += kThreads2) gpos[i] = 0.f;  // gpos and every gts copy
+  for (int i = tid; i < lay.stage - lay.gpos; i += kThreads2) gpos[i] = 0.f;  // gpos, gts, win
   if (has_time)
     for (int u = tid; u <= a.bk.nb; u += kThreads2) {
       tw[u] = a.ts_w[(size_t)u * H + h];
@@ -722,11 +747,13 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
   const int n_kt = (q_end - 1) / kTileKa + 1;  // k tiles up to the causal frontier
   for (int kt = 0; kt < n_kt; ++kt) {
     cp_wait_all();
-    __syncthreads();  // B1: k tile kt visible; every warp is done with tile kt-1's stage
+    __syncthreads();  // B1: k tile kt visible; every warp is done with tile kt-1's stage and dpos windows
     if (ring) {
       if (kt + 1 < n_kt) issue(kt + 1, (kt + 1) & 1);
       cp_commit();
     }
+    if (kt > 0 && !turns)
+      flush_pos_windows(gpos, win + ((kt - 1) & 1) * kWinWarps * kWin, q0 - (kt - 1) * kTileKa - (kTileKa - 1), q_end, win_start);
     const float* st = stage_ptr(ring ? kt & 1 : 0);
     const float* Ks = st + lay.k;
     const float* Vs = st + lay.v;
@@ -820,10 +847,11 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) part[(i >> 1) - nt + 1][i & 1] += da[nt][i];
-      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);
+      wait_turn(turns, warp);
+      add_pos_grads<-1>(turns ? gpos : win + ((kt & 1) * kWinWarps + warp) * kWin, turns ? r0 - m0 : 15, turns ? q_end : kWin, part, g, t);
       if (has_time) {
         // dts into the warp's own sums: the lane's values key by key along each of
-        // its two rows, so that its runs of equal buckets fold before an atomic
+        // its two rows, so that its runs of equal buckets fold before an add
         float dsr[8];
         int bkr[8];
 #pragma unroll
@@ -832,8 +860,12 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
           dsr[e] = da[nt][2 * ii + j];
           bkr[e] = bk[nt][2 * ii + j];
         }
-        add_ts_grads<8>(my_gts, dsr, bkr);
+        add_ts_grads<8>(my_gts, ts_copy, dsr, bkr);
       }
+      pass_turn(turns, warp);
+    } else {
+      wait_turn(turns, warp);  // no pairs: the turn passes on
+      pass_turn(turns, warp);
     }
     if (!ring) {
       __syncthreads();  // B2: the stage is consumed
@@ -846,7 +878,9 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
   // through two slots per row group: splits 2 and 3 hand theirs to 0 and 1,
   // then split 1 its sum to split 0
   cp_wait_all();
-  __syncthreads();  // the stages are free
+  __syncthreads();  // the stages are free; the last tile's dpos windows are complete
+  if (!turns)
+    flush_pos_windows(gpos, win + ((n_kt - 1) & 1) * kWinWarps * kWin, q0 - (n_kt - 1) * kTileKa - (kTileKa - 1), q_end, win_start);
   auto slot = [&](int i) { return stages + (i * kRowGroups + rg) * 16 * ldq; };
   auto put = [&](float* dst) {
 #pragma unroll
@@ -890,7 +924,8 @@ __global__ void __launch_bounds__(kThreads2, N <= 4 ? 3 : 1) bwd_q_kernel(DqArgs
       }
     }
   }
-  flush_table_grads(a, gpos, gts, q_end, f.ts_copies, lay.nb4, h);
+  write_table_slice(a.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * (L + a.bk.nb + 1), gpos, gts, q_end, L,
+                    f.ts_copies, a.bk.nb, lay.nb4, has_time, kThreads2);
 }
 
 template <int N>
@@ -905,16 +940,19 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream, int* info) {
   f.vec_g = a.dv_dim % 4 == 0 && aligned16(a.g);
   // As K2: the dts copies go first, then the ring's second stage
   size_t smem = 0;
-  for (int option = 0; option < 4; ++option) {
-    f.stages = option < 2 ? 2 : 1;
-    f.ts_copies = option % 2 == 0 ? kTsCopies : 1;
+  for (int option = 0; option < 6; ++option) {
+    f.stages = option < 3 ? 2 : 1;
+    f.ts_copies = option % 3 == 0 ? kTsCopies : option % 3 == 1 ? kWarps2 : 1;
     smem = sizeof(float) * layout_dq(f, a.L, a.bk.nb).total;
     if (smem <= kMaxSmem) break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   cudaError_t err = cudaFuncSetAttribute(bwd_q_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (info != nullptr) return occupancy(bwd_q_kernel<N>, kThreads2, smem, info);
+  if (info != nullptr) {
+    info[5] = f.ts_copies;
+    return occupancy(bwd_q_kernel<N>, kThreads2, smem, info);
+  }
   const dim3 grid(a.B * a.H, (a.L + kTileQa - 1) / kTileQa);
   bwd_q_kernel<N><<<grid, kThreads2, smem, stream>>>(f);
   return cudaGetLastError();
@@ -927,8 +965,8 @@ cudaError_t dispatch(int which, const Args& a, cudaStream_t st, int* info) {
   return launch_key_tiles<N, false>(a, st, info);
 }
 
-int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
-        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts, int B,
+int run_narrow(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
+        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts, void* scratch, int B,
         int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,
         float divisor, void* stream, int* info) {
   Args a;
@@ -946,6 +984,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   a.dv = static_cast<float*>(dv);
   a.dpos = static_cast<float*>(dpos);
   a.dts = static_cast<float*>(dts);
+  a.scratch = static_cast<float*>(scratch);
   a.B = B;
   a.H = H;
   a.L = L;
@@ -956,14 +995,55 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   a.bk = Buckets{num_buckets, fn_log, minutes, divisor};
   auto st = static_cast<cudaStream_t>(stream);
   const int width = dqk > dv_dim ? dqk : dv_dim;
-  if (which < 0 || which > 2 || dqk < 1 || dv_dim < 1 || width > 128 || L < 1 || L > max_seq_len || num_buckets < 0)
-    return cudaErrorInvalidValue;
+  if (width > 128) return kNoFit;
   // N: 8-wide n-tiles of dq / dk / dv per warp
   if (width <= 8) return dispatch<1>(which, a, st, info);
   if (width <= 16) return dispatch<2>(which, a, st, info);
   if (width <= 32) return dispatch<4>(which, a, st, info);
   if (width <= 64) return dispatch<8>(which, a, st, info);
   return dispatch<16>(which, a, st, info);
+}
+
+// The backward of one entry (which: 0 K2, 1 K2a, 2 K2b): the tensor-core
+// kernel where it takes the shape, then for K2 and K2a the fixed-order sum
+// of the CTAs' table slices into dpos and dts; else the width-tiled
+// variants (hstu_wide.cuh), K2 being K2a's then K2b's.
+int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
+        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts,
+        void* scratch, int B, int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha,
+        int fn_log, int minutes, float divisor, void* stream, int* info, int* taken) {
+  if (which < 0 || which > 2 || dqk < 1 || dv_dim < 1 || L < 1 || L > max_seq_len || num_buckets < 0)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return wide::dispatch(
+      [&] {
+        const cudaError_t rc = static_cast<cudaError_t>(run_narrow(which, q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv,
+                                                                   dpos, dts, scratch, B, H, L, dqk, dv_dim, max_seq_len,
+                                                                   num_buckets, alpha, fn_log, minutes, divisor, stream, info));
+        if (rc != cudaSuccess || info != nullptr || which == 2) return rc;
+        return reduce_tables(static_cast<const float*>(scratch), (L + 31) / 32, B, H, L, num_buckets, max_seq_len,
+                             ts != nullptr, static_cast<float*>(dpos), static_cast<float*>(dts), st);
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v, w.g = g;
+        w.pos_w = static_cast<const float*>(pos_w), w.ts_w = static_cast<const float*>(ts_w);
+        w.thr = static_cast<const int*>(thr), w.ts = static_cast<const int*>(ts);
+        w.mask = static_cast<const uint8_t*>(mask);
+        w.scratch = static_cast<float*>(scratch), w.dpos = static_cast<float*>(dpos), w.dts = static_cast<float*>(dts);
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv_dim, w.max_seq_len = max_seq_len;
+        w.alpha = alpha, w.norm = (float)max_seq_len, w.bk = Buckets{num_buckets, fn_log, minutes, divisor};
+        w.out_f32 = which == 0;  // K2's dq: f32 either way
+        if (which != 2) {
+          w.out0 = dq;
+          const cudaError_t rc = wide::launch<float, wide::kDq, true>(w, st, info);
+          if (rc != cudaSuccess || which == 1) return rc;
+        }
+        if (info != nullptr && which == 0) return cudaSuccess;  // K2's occupancy: its first kernel's
+        w.out0 = dk, w.out1 = dv;
+        return wide::launch<float, wide::kDkv, true>(w, st, info);
+      },
+      taken, info);
 }
 
 }  // namespace
@@ -974,30 +1054,38 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
 // null (position bias only); mask (B, L) bool or null (all keys valid); the
 // bucket config fn_log (0 sqrt, 1 log), minutes (1: |dt| / 60 first),
 // divisor.  Outputs a kernel does not produce are ignored (pass null).  dq
-// of hstu_rab_bwd, and dpos / dts, must be zeroed by the caller: they are
-// accumulated with atomics.  Each returns the cudaError_t of its launch.
+// of hstu_rab_bwd must be zeroed by the caller: it is accumulated with
+// vector reductions.  dpos / dts: every row a distance 0 .. L-1 (every
+// bucket) reaches is written, the rest of dpos is the caller's (zeros).
+// scratch (K2, K2a): B * H * ceil(L / 32) * (L + num_buckets + 1) floats,
+// the CTAs' table slices.  *taken (may be null): 0 the tensor-core kernel
+// ran, 1 the width-tiled variant (any dqk, dv).  Each returns the
+// cudaError_t of its launch.
 #define RAB_BWD_ARGS                                                                                              \
   const void *q, const void *k, const void *v, const void *g, const void *pos_w, const void *ts_w, const void *thr, \
-      const void *ts, const void *mask, void *dq, void *dk, void *dv, void *dpos, void *dts, int B, int H, int L,     \
-      int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes, float divisor,     \
-      void *stream
+      const void *ts, const void *mask, void *dq, void *dk, void *dv, void *dpos, void *dts, void *scratch, int B,    \
+      int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,     \
+      float divisor, void *stream, int *taken
 #define RAB_BWD_PASS                                                                                                 \
-  q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len, num_buckets, alpha, \
-      fn_log, minutes, divisor, stream
+  q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, scratch, B, H, L, dqk, dv_dim, max_seq_len,      \
+      num_buckets, alpha, fn_log, minutes, divisor, stream
 
-extern "C" int hstu_rab_bwd(RAB_BWD_ARGS) { return run(0, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd(RAB_BWD_ARGS) { return run(0, RAB_BWD_PASS, nullptr, taken); }
 
-extern "C" int hstu_rab_bwd_dq(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd_dq(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullptr, taken); }
 
-extern "C" int hstu_rab_bwd_dkv(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd_dkv(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr, taken); }
 
 // A backward kernel (which: 0 K2, 1 K2a, 2 K2b) as this shape would launch
 // it, without launching it: info[0] resident CTAs per SM, info[1] registers
-// per thread, info[2] dynamic shared memory bytes per CTA.  Returns the
-// cudaError_t.
+// per thread, info[2] dynamic shared memory bytes per CTA, info[4] 0 the
+// tensor-core kernel, 1 the width-tiled variant, info[5] the tensor-core
+// K2's or K2a's dts tables (32, 8, or 1 added to in turns; left as it is
+// otherwise).  info holds 6 ints.  Returns the cudaError_t.
 extern "C" int hstu_rab_bwd_occupancy(int which, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, int* info) {
   return run(which, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             nullptr, nullptr, nullptr, 1, 1, L, dqk, dv_dim, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
+             nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv_dim, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr,
+             info, nullptr);
 }
 
 extern "C" const char* hstu_rab_bwd_error_string(int code) {

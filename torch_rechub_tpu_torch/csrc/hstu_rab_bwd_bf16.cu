@@ -60,10 +60,13 @@
 //   buffer's alignment forbid).  The order of these sums changes from run
 //   to run; the wrapper rounds dq to bf16.
 // - dpos and dts from the unrounded dS before the dV and dK products, so
-//   the pairs' buckets are dead by then: K2's sums (hstu_rab_common.cuh) into
-//   one CTA-wide gpos and a dts copy per warp and lane column (32), or one
-//   table where the copies do not fit; one global atomic per nonzero slot
-//   at the end.
+//   the pairs' buckets are dead by then: fp32 K2's fixed-order sums
+//   (hstu_rab_common.cuh, no float atomic) through per-warp windows into one
+//   CTA-wide gpos and a dts copy per warp and lane column (32), or one per
+//   warp where the copies do not fit, or where those do not fit either no
+//   windows and one table, which the warps add to in turns (wait_turn /
+//   pass_turn); the CTA's sums into its slice of the scratch buffer, which
+//   reduce_table_slices adds in CTA order.
 // - dK and dV: the four query splits' partials summed in f32 in a fixed
 //   order, (0 + 2) + (1 + 3), through one slot per key group in the freed
 //   ring: the same bits from run to run.
@@ -97,9 +100,10 @@
 //   (0 + 2) + (1 + 3) through one slot per row group in the freed ring,
 //   times alpha, rounded to bf16 and written once: the same bits from run to
 //   run.
-// - dpos and dts from the unrounded dS with K2's sums, per q tile
-//   (distances 0 .. q_end-1): one CTA-wide gpos, a dts copy per warp and
-//   lane column, or one table where the copies do not fit.
+// - dpos and dts from the unrounded dS with K2's fixed-order sums, per q
+//   tile (distances 0 .. q_end-1; the windows double buffered by tile
+//   parity): one CTA-wide gpos, a dts copy per warp and lane column, or one
+//   per warp, or one table in turns, the most that fits.
 // - Registers: launch bounds of 3 CTAs (24 warps) per SM at dqk, dv <= 32.
 //   At the serving shape on an H100: 78 registers, no spills, 46,400 B of
 //   shared memory, 3 CTAs per SM, both ring stages.
@@ -110,6 +114,7 @@
 // log, and hstu_rab_bwd_bf16_occupancy (with every kernel's ring stages).
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -125,13 +130,14 @@ struct Args {
   bf16* dq16;  // K2a: written once
   bf16 *dk, *dv;
   float *dpos, *dts;
+  float* scratch;   // K2, K2a: a slice of table sums per CTA (write_table_slice)
   int B, H, L, dqk, dv_dim, max_seq_len;
   float alpha;
   Buckets bk;
   int pk, pv;       // padded widths (multiples of 16)
   int ldk, ldv;     // shared row strides in elements, 8 mod 16: pk + 8 (Q, K), pv + 8 (G, V)
   int vec_q, vec_k, vec_v, vec_g;
-  int ts_copies;    // dts copies per warp and lane column, or 1 where they do not fit
+  int ts_copies;    // dts copies per warp and lane column, or one per warp, or 1 (one table, in turns)
   int stages;       // the Q/G ring (K2, K2b) or the K/V ring (K2a): 2 stages, or 1 where two do not fit
   int red_v4;       // K2: dq by vector reductions
 };
@@ -140,18 +146,19 @@ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The CTA's table sums into the zeroed global outputs: the dts copies added
-// in a fixed order, one atomic per nonzero slot
+// The CTA's table sums into its slice of the scratch buffer (reduce_tables
+// adds the slices in CTA order into dpos and dts)
 __device__ __forceinline__ void flush_table_grads(const Args& a, const float* gpos, const float* gts, int n_dist,
-                                                  int nb4, int h, int nthreads) {
-  for (int d = threadIdx.x; d < n_dist; d += nthreads)
-    if (gpos[d] != 0.f) atomicAdd(&a.dpos[(size_t)(a.max_seq_len - 1 - d) * a.H + h], gpos[d]);
-  if (a.ts != nullptr)
-    for (int u = threadIdx.x; u <= a.bk.nb; u += nthreads) {
-      float sum = 0.f;
-      for (int w = 0; w < a.ts_copies; ++w) sum += gts[w * nb4 + u];
-      if (sum != 0.f) atomicAdd(&a.dts[(size_t)u * a.H + h], sum);
-    }
+                                                  int nb4, int nthreads) {
+  write_table_slice(a.scratch + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * (a.L + a.bk.nb + 1), gpos, gts, n_dist,
+                    a.L, a.ts_copies, a.bk.nb, nb4, a.ts != nullptr, nthreads);
+}
+
+// The dts table of this lane: its warp's copy for its lane column t, or its
+// warp's one table where the copies do not fit, or the CTA's one table
+// (added to in turns) where those do not fit either
+__device__ __forceinline__ float* lane_table(float* gts, int copies, int copies_max, int warp, int t, int nb4) {
+  return gts + (copies == copies_max ? 4 * warp + t : copies > 1 ? warp : 0) * nb4;
 }
 
 // ---------------------------------------------------------------------------
@@ -170,7 +177,7 @@ static_assert(kQuerySplits == 4, "the partial dK, dV are summed as (0 + 2) + (1 
 
 // Shared memory in bytes, each part 16-byte aligned:
 //   K [kTileKK][ldk]  V [kTileKK][ldv] (bf16)  tk [kTileKK]  kvalid [kTileKK] (int)  dS^T [kTileKK][kLdST] (bf16)
-//   pw [L]  tw [nb+1] (f32)  thr [nb+1] (int)  gpos [L]  gts [ts_copies][nb+1] (f32)
+//   pw [L]  tw [nb+1] (f32)  thr [nb+1] (int)  gpos [L]  gts [ts_copies][nb+1]  win [8][32] (f32; none in turns)
 //   1 or 2 stages of { Q [kTileQK][ldk]  G [kTileQK][ldv] (bf16)  tq [kTileQK] (int) },
 //   the stages also holding one slot of partial dK, dV per key group at the
 //   end, [kKeyGroups][16][ldk + ldv] f32: no more than a stage's Q and G.
@@ -178,7 +185,7 @@ static_assert(kQuerySplits == 4, "the partial dK, dV are summed as (0 + 2) + (1 
 // table this is never more than the first design (4 warps over 64-key
 // tiles, Q, G, K, V and dS 64 rows each) took.
 struct KeyLayout {
-  int k, v, tk, kv, ds, pw, tw, th, gpos, gts, nb4, stage, stage_bytes, sq, sg, stq, total;
+  int k, v, tk, kv, ds, pw, tw, th, gpos, gts, win, nb4, stage, stage_bytes, sq, sg, stq, total;
 };
 
 template <bool kFull>
@@ -195,7 +202,8 @@ __host__ __device__ inline KeyLayout key_layout(int ldk, int ldv, int L, int nb,
   o.th = o.tw + 4 * o.nb4;
   o.gpos = o.th + 4 * o.nb4;
   o.gts = o.gpos + (kFull ? align16(4 * L) : 0);
-  o.stage = o.gts + (kFull ? 4 * ts_copies * o.nb4 : 0);
+  o.win = o.gts + (kFull ? 4 * ts_copies * o.nb4 : 0);
+  o.stage = o.win + (kFull && ts_copies > 1 ? 4 * kWinWarps * kWin : 0);
   o.sq = 0;
   o.sg = o.sq + align16(2 * kTileQK * ldk);
   o.stq = o.sg + align16(2 * kTileQK * ldv);
@@ -224,6 +232,7 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
   int* th = reinterpret_cast<int*>(smem + lay.th);
   float* gpos = reinterpret_cast<float*>(smem + lay.gpos);
   float* gts = reinterpret_cast<float*>(smem + lay.gts);
+  float* win = reinterpret_cast<float*>(smem + lay.win);
   unsigned char* stages = smem + lay.stage;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
@@ -241,8 +250,9 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
   const Lookup bucket(th, a.bk);
   const LdsmLane ll(lane);
   const int n_dist = L - k0;  // causal distances this key tile can see: 0 .. L-1-k0
-  // lanes of one t share no distance chain; one table for all where the copies do not fit
-  float* my_gts = gts + (a.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  float* my_gts = lane_table(gts, a.ts_copies, kTsCopiesK, warp, t, lay.nb4);
+  const int ts_copy = a.ts_copies == kTsCopiesK ? t : 0;
+  const bool turns = kFull && a.ts_copies == 1;  // one gpos and one dts table, the warps adding in turns
   const bool ring = a.stages == 2;  // else the next q tile is copied once the current one is consumed
 
   auto stage_ptr = [&](int s) { return stages + s * lay.stage_bytes; };
@@ -276,7 +286,7 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
     if constexpr (kFull) gpos[d] = 0.f;
   }
   if constexpr (kFull)
-    for (int i = tid; i < a.ts_copies * lay.nb4; i += kThreadsK) gts[i] = 0.f;
+    for (int i = tid; i < (lay.stage - lay.gts) / 4; i += kThreadsK) gts[i] = 0.f;  // gts and win
   if (has_time)
     for (int u = tid; u <= a.bk.nb; u += kThreadsK) {
       tw[u] = a.ts_w[(size_t)u * H + h];
@@ -376,10 +386,11 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) part[nt - (i >> 1) + 1][i & 1] += da[nt][i];
-        add_pos_grads<1>(gpos, part, l0 - m0, n_dist, g, t);
+        wait_turn(turns, warp);
+        add_pos_grads<1>(turns ? gpos : win + kWin * warp, turns ? l0 - m0 : 15, turns ? n_dist : kWin, part, g, t);
         if (has_time) {
           // dts into the warp's own sums: the lane's values key by key, so that its runs of
-          // equal buckets (neighbouring queries) fold before an atomic
+          // equal buckets (neighbouring queries) fold before an add
           float dsk[8];
           int bkk[8];
 #pragma unroll
@@ -388,8 +399,9 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
             dsk[e] = da[nt][2 * ii + j];
             bkk[e] = bk[nt][2 * ii + j];
           }
-          add_ts_grads<8>(my_gts, dsk, bkk);
+          add_ts_grads<8>(my_gts, ts_copy, dsk, bkk);
         }
+        pass_turn(turns, warp);
       }
 
       // dV += P^T G and dK += dS^T Q over the warp's 16 queries: P^T and dS^T, rounded to bf16
@@ -426,6 +438,9 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
           mma_bf16(dk[j], sf, bf);
         }
       }
+    } else {
+      wait_turn(turns, warp);  // no pairs: the turn passes on
+      pass_turn(turns, warp);
     }
 
     if constexpr (kFull) {
@@ -436,7 +451,10 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
         for (int half = 0; half < 2; ++half)
           *reinterpret_cast<uint32_t*>(dST + (kk0 + g + 8 * half) * kLdST + qq0 + 8 * nt + 2 * t) = sf[2 * nt + half];
     }
-    if (kFull || !ring) __syncthreads();  // B2: the tile's dS^T is complete; Q and G are consumed
+    if (kFull || !ring) __syncthreads();  // B2: the tile's dS^T and dpos windows are complete; Q and G are consumed
+    if (kFull && !turns)  // the tile's distances q0 - k0 - 31 + r, r < 95; warp w's window starts at r = 16 (qs - kg + 1)
+      flush_pos_windows(gpos, win, q0 - k0 - (kTileKK - 1), n_dist,
+                        [](int w) { return 16 * (w / kKeyGroups - w % kKeyGroups + 1); });
     if (!ring) {
       if (qt + 1 < n_qt) issue(qt + 1, 0);
       cp_commit();
@@ -560,7 +578,7 @@ __device__ __forceinline__ void key_tile_body(const Args& a) {
       }
     }
   }
-  if constexpr (kFull) flush_table_grads(a, gpos, gts, n_dist, lay.nb4, h, kThreadsK);
+  if constexpr (kFull) flush_table_grads(a, gpos, gts, n_dist, lay.nb4, kThreadsK);
 }
 
 template <int N>  // 3 CTAs (24 warps) per SM where N <= 4
@@ -587,14 +605,14 @@ static_assert(kKeySplits == 4, "the partial dq are summed as (0 + 2) + (1 + 3)")
 
 // Shared memory in bytes, each part 16-byte aligned:
 //   Q [kTileQa][ldk]  G [kTileQa][ldv] (bf16)  tq [kTileQa] (int)  pw [L]  tw [nb+1] (f32)  thr [nb+1] (int)
-//   gpos [L]  gts [ts_copies][nb+1] (f32)
+//   gpos [L]  gts [ts_copies][nb+1]  win [2][8][32] (f32; a tile's dpos windows, by tile parity; none in turns)
 //   1 or 2 stages of { K [kTileKa][ldk]  V [kTileKa][ldv] (bf16)  tk [kTileKa] (int)  mask words [kTileKa/4 + 4] },
 //   the stages also holding one slot of partial dq per row group at the end,
 //   [kRowGroups][16][ldk] f32: no more than a stage's K.  With one stage and
 //   one dts table this is never more than the first design (4 warps over
 //   64-row q tiles, Q, G, K and V 64 rows each) took.
 struct QLayout {
-  int q, g, tq, pw, tw, th, gpos, gts, nb4, stage, stage_bytes, k, v, tk, km, total;
+  int q, g, tq, pw, tw, th, gpos, gts, win, nb4, stage, stage_bytes, k, v, tk, km, total;
 };
 
 __host__ __device__ inline QLayout q_layout(int ldk, int ldv, int L, int nb, int ts_copies, int stages) {
@@ -608,7 +626,8 @@ __host__ __device__ inline QLayout q_layout(int ldk, int ldv, int L, int nb, int
   o.th = o.tw + 4 * o.nb4;
   o.gpos = o.th + 4 * o.nb4;
   o.gts = o.gpos + align16(4 * L);
-  o.stage = o.gts + 4 * ts_copies * o.nb4;
+  o.win = o.gts + 4 * ts_copies * o.nb4;
+  o.stage = o.win + (ts_copies > 1 ? 4 * 2 * kWinWarps * kWin : 0);
   o.k = 0;
   o.v = o.k + align16(2 * kTileKa * ldk);
   o.tk = o.v + align16(2 * kTileKa * ldv);
@@ -634,6 +653,7 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
   int* th = reinterpret_cast<int*>(smem + lay.th);
   float* gpos = reinterpret_cast<float*>(smem + lay.gpos);
   float* gts = reinterpret_cast<float*>(smem + lay.gts);
+  float* win = reinterpret_cast<float*>(smem + lay.win);
   unsigned char* stages = smem + lay.stage;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
@@ -651,9 +671,12 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
   const float inv_n = 1.f / (float)a.max_seq_len;
   const Lookup bucket(th, a.bk);
   const LdsmLane ll(lane);
-  // lanes of one t share no distance chain; one table for all where the copies do not fit
-  float* my_gts = gts + (a.ts_copies > 1 ? 4 * warp + t : 0) * lay.nb4;
+  float* my_gts = lane_table(gts, a.ts_copies, kTsCopiesK, warp, t, lay.nb4);
+  const int ts_copy = a.ts_copies == kTsCopiesK ? t : 0;
+  const bool turns = a.ts_copies == 1;  // one gpos and one dts table, the warps adding in turns
   const bool ring = a.stages == 2;  // else the next key tile is copied once the current one is consumed
+  // key tile kt's distances q0 - 64 kt - 63 + r, r < 95; warp w's window starts at r = 16 (rg - ks + 3)
+  const auto win_start = [](int w) { return 16 * (w % kRowGroups - w / kRowGroups + 3); };
 
   auto stage_ptr = [&](int s) { return stages + s * lay.stage_bytes; };
   auto issue = [&](int kt, int s) {
@@ -693,7 +716,7 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
     pw[d] = a.pos_w[(size_t)(a.max_seq_len - 1 - d) * H + h];
     gpos[d] = 0.f;
   }
-  for (int i = tid; i < a.ts_copies * lay.nb4; i += kThreadsK) gts[i] = 0.f;
+  for (int i = tid; i < (lay.stage - lay.gts) / 4; i += kThreadsK) gts[i] = 0.f;  // gts and win
   if (has_time)
     for (int u = tid; u <= a.bk.nb; u += kThreadsK) {
       tw[u] = a.ts_w[(size_t)u * H + h];
@@ -709,11 +732,13 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
   const int n_kt = (q_end - 1) / kTileKa + 1;  // key tiles up to the causal frontier
   for (int kt = 0; kt < n_kt; ++kt) {
     cp_wait_all();
-    __syncthreads();  // B1: key tile kt visible; every warp is done with tile kt-1's stage
+    __syncthreads();  // B1: key tile kt visible; every warp is done with tile kt-1's stage and dpos windows
     if (ring) {
       if (kt + 1 < n_kt) issue(kt + 1, (kt + 1) & 1);
       cp_commit();
     }
+    if (kt > 0 && !turns)
+      flush_pos_windows(gpos, win + ((kt - 1) & 1) * kWinWarps * kWin, q0 - (kt - 1) * kTileKa - (kTileKa - 1), q_end, win_start);
     const unsigned char* st = stage_ptr(ring ? kt & 1 : 0);
     const bf16* Ks = reinterpret_cast<const bf16*>(st + lay.k);
     const bf16* Vs = reinterpret_cast<const bf16*>(st + lay.v);
@@ -795,10 +820,11 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) part[(i >> 1) - nt + 1][i & 1] += da[nt][i];
-      add_pos_grads<-1>(gpos, part, r0 - m0, q_end, g, t);
+      wait_turn(turns, warp);
+      add_pos_grads<-1>(turns ? gpos : win + ((kt & 1) * kWinWarps + warp) * kWin, turns ? r0 - m0 : 15, turns ? q_end : kWin, part, g, t);
       if (has_time) {
         // dts into the warp's own sums: the lane's values key by key along each of
-        // its two rows, so that its runs of equal buckets fold before an atomic
+        // its two rows, so that its runs of equal buckets fold before an add
         float dsr[8];
         int bkr[8];
 #pragma unroll
@@ -807,8 +833,12 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
           dsr[e] = da[nt][2 * ii + j];
           bkr[e] = bk[nt][2 * ii + j];
         }
-        add_ts_grads<8>(my_gts, dsr, bkr);
+        add_ts_grads<8>(my_gts, ts_copy, dsr, bkr);
       }
+      pass_turn(turns, warp);
+    } else {
+      wait_turn(turns, warp);  // no pairs: the turn passes on
+      pass_turn(turns, warp);
     }
     if (!ring) {
       __syncthreads();  // B2: the stage is consumed
@@ -821,7 +851,9 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
   // one slot per row group: split 2 hands its partial to split 0, split 3 to
   // split 1, then split 1 its sum to split 0
   cp_wait_all();
-  __syncthreads();  // the stages are free
+  __syncthreads();  // the stages are free; the last tile's dpos windows are complete
+  if (!turns)
+    flush_pos_windows(gpos, win + ((n_kt - 1) & 1) * kWinWarps * kWin, q0 - (n_kt - 1) * kTileKa - (kTileKa - 1), q_end, win_start);
   float* slot = reinterpret_cast<float*>(stages) + rg * 16 * ldk;
   auto put = [&]() {
 #pragma unroll
@@ -870,27 +902,29 @@ __global__ void __launch_bounds__(kThreadsK, N <= 4 ? 3 : 1) bwd_q_kernel(Args a
       }
     }
   }
-  flush_table_grads(a, gpos, gts, q_end, lay.nb4, h, kThreadsK);
+  flush_table_grads(a, gpos, gts, q_end, lay.nb4, kThreadsK);
 }
 
 template <int N, bool kFull>  // K2 (kFull) or K2b
 cudaError_t launch_key_tiles(Args a, cudaStream_t stream, int* info) {
   a.red_v4 = a.dqk % 4 == 0 && aligned16(a.dq);
   // The most that fits: for long sequences or wide heads the dts copies go
-  // first, then the ring's second stage
+  // first (to one table per warp, then one table in turns), then the ring's
+  // second stage
   size_t smem = 0;
-  for (int option = 0; option < 4; ++option) {
-    a.stages = option < 2 ? 2 : 1;
-    a.ts_copies = option % 2 == 0 ? kTsCopiesK : 1;
+  for (int option = 0; option < 6; ++option) {
+    a.stages = option < 3 ? 2 : 1;
+    a.ts_copies = option % 3 == 0 ? kTsCopiesK : option % 3 == 1 ? kWarpsK : 1;
     smem = key_layout<kFull>(a.ldk, a.ldv, a.L, a.bk.nb, a.ts_copies, a.stages).total;
     if (smem <= kMaxSmem) break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   const auto kernel = kFull ? hstu_rab_bwd_bf16_kernel<N> : bwd_kv_kernel<N>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info != nullptr) {
     info[3] = a.stages;
+    info[5] = kFull ? a.ts_copies : 0;
     return occupancy(kernel, kThreadsK, smem, info);
   }
   const dim3 grid(a.B * a.H, (a.L + kTileKK - 1) / kTileKK);
@@ -902,17 +936,18 @@ template <int N>  // K2a
 cudaError_t launch_q_tiles(Args a, cudaStream_t stream, int* info) {
   // As K2: the dts copies go first, then the ring's second stage
   size_t smem = 0;
-  for (int option = 0; option < 4; ++option) {
-    a.stages = option < 2 ? 2 : 1;
-    a.ts_copies = option % 2 == 0 ? kTsCopiesK : 1;
+  for (int option = 0; option < 6; ++option) {
+    a.stages = option < 3 ? 2 : 1;
+    a.ts_copies = option % 3 == 0 ? kTsCopiesK : option % 3 == 1 ? kWarpsK : 1;
     smem = q_layout(a.ldk, a.ldv, a.L, a.bk.nb, a.ts_copies, a.stages).total;
     if (smem <= kMaxSmem) break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   cudaError_t err = cudaFuncSetAttribute(bwd_q_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info != nullptr) {
     info[3] = a.stages;
+    info[5] = a.ts_copies;
     return occupancy(bwd_q_kernel<N>, kThreadsK, smem, info);
   }
   const dim3 grid(a.B * a.H, (a.L + kTileQa - 1) / kTileQa);
@@ -928,13 +963,11 @@ cudaError_t launch(int which, const Args& a, cudaStream_t stream, int* info) {
   return launch_key_tiles<N, false>(a, stream, info);
 }
 
-int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
-        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts, int B,
+int run_narrow(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
+        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts, void* scratch, int B,
         int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,
         float divisor, void* stream, int* info) {
-  if (which < 0 || which > 2 || dv_dim < 1 || dv_dim > 128 || dqk < 1 || dqk > 128 || L < 1 || L > max_seq_len ||
-      num_buckets < 0)
-    return cudaErrorInvalidValue;
+  if (dv_dim > 128 || dqk > 128) return kNoFit;
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -951,6 +984,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   a.dv = static_cast<bf16*>(dv);
   a.dpos = static_cast<float*>(dpos);
   a.dts = static_cast<float*>(dts);
+  a.scratch = static_cast<float*>(scratch);
   a.B = B;
   a.H = H;
   a.L = L;
@@ -976,6 +1010,48 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
   return launch<16>(which, a, st, info);
 }
 
+// The backward of one entry (which: 0 K2, 1 K2a, 2 K2b): the tensor-core
+// kernel where it takes the shape, then for K2 and K2a the fixed-order sum
+// of the CTAs' table slices into dpos and dts; else the width-tiled
+// variants (hstu_wide.cuh), K2 being K2a's then K2b's.
+int run(int which, const void* q, const void* k, const void* v, const void* g, const void* pos_w, const void* ts_w,
+        const void* thr, const void* ts, const void* mask, void* dq, void* dk, void* dv, void* dpos, void* dts,
+        void* scratch, int B, int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha,
+        int fn_log, int minutes, float divisor, void* stream, int* info, int* taken) {
+  if (which < 0 || which > 2 || dqk < 1 || dv_dim < 1 || L < 1 || L > max_seq_len || num_buckets < 0)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return wide::dispatch(
+      [&] {
+        const cudaError_t rc = static_cast<cudaError_t>(run_narrow(which, q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv,
+                                                                   dpos, dts, scratch, B, H, L, dqk, dv_dim, max_seq_len,
+                                                                   num_buckets, alpha, fn_log, minutes, divisor, stream, info));
+        if (rc != cudaSuccess || info != nullptr || which == 2) return rc;
+        return reduce_tables(static_cast<const float*>(scratch), (L + 31) / 32, B, H, L, num_buckets, max_seq_len,
+                             ts != nullptr, static_cast<float*>(dpos), static_cast<float*>(dts), st);
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v, w.g = g;
+        w.pos_w = static_cast<const float*>(pos_w), w.ts_w = static_cast<const float*>(ts_w);
+        w.thr = static_cast<const int*>(thr), w.ts = static_cast<const int*>(ts);
+        w.mask = static_cast<const uint8_t*>(mask);
+        w.scratch = static_cast<float*>(scratch), w.dpos = static_cast<float*>(dpos), w.dts = static_cast<float*>(dts);
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv_dim, w.max_seq_len = max_seq_len;
+        w.alpha = alpha, w.norm = (float)max_seq_len, w.bk = Buckets{num_buckets, fn_log, minutes, divisor};
+        w.out_f32 = which == 0;  // K2's dq: the caller's f32 sums; K2a's bf16
+        if (which != 2) {
+          w.out0 = dq;
+          const cudaError_t rc = wide::launch<bf16, wide::kDq, true>(w, st, info);
+          if (rc != cudaSuccess || which == 1) return rc;
+        }
+        if (info != nullptr && which == 0) return cudaSuccess;  // K2's occupancy: its first kernel's
+        w.out0 = dk, w.out1 = dv;
+        return wide::launch<bf16, wide::kDkv, true>(w, st, info);
+      },
+      taken, info);
+}
+
 }  // namespace
 
 // All three take the same arguments.  q, k: (B, H, L, dqk), v, g: (B, H, L,
@@ -984,31 +1060,37 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
 // kernel does not produce are ignored (pass null).  dq: hstu_rab_bwd_bf16's
 // (B, H, L, dqk) fp32 sums, zeroed by the caller; hstu_rab_bwd_dq_bf16's
 // bf16, every element written.  dk, dv bf16, every element written; dpos,
-// dts fp32, zeroed by the caller.  dqk, dv <= 128.  Each returns the
+// dts fp32, written as hstu_rab_bwd writes them, from the scratch slices
+// (its size there).  The tensor-core kernels at dqk, dv <= 128, else the
+// width-tiled variants: *taken (may be null) 0 or 1.  Each returns the
 // cudaError_t of its launch.
 #define RAB_BWD_ARGS                                                                                              \
   const void *q, const void *k, const void *v, const void *g, const void *pos_w, const void *ts_w, const void *thr, \
-      const void *ts, const void *mask, void *dq, void *dk, void *dv, void *dpos, void *dts, int B, int H, int L,     \
-      int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes, float divisor,     \
-      void *stream
+      const void *ts, const void *mask, void *dq, void *dk, void *dv, void *dpos, void *dts, void *scratch, int B,    \
+      int H, int L, int dqk, int dv_dim, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,     \
+      float divisor, void *stream, int *taken
 #define RAB_BWD_PASS                                                                                                 \
-  q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, B, H, L, dqk, dv_dim, max_seq_len, num_buckets, alpha, \
-      fn_log, minutes, divisor, stream
+  q, k, v, g, pos_w, ts_w, thr, ts, mask, dq, dk, dv, dpos, dts, scratch, B, H, L, dqk, dv_dim, max_seq_len,      \
+      num_buckets, alpha, fn_log, minutes, divisor, stream
 
-extern "C" int hstu_rab_bwd_bf16(RAB_BWD_ARGS) { return run(0, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd_bf16(RAB_BWD_ARGS) { return run(0, RAB_BWD_PASS, nullptr, taken); }
 
-extern "C" int hstu_rab_bwd_dq_bf16(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd_dq_bf16(RAB_BWD_ARGS) { return run(1, RAB_BWD_PASS, nullptr, taken); }
 
-extern "C" int hstu_rab_bwd_dkv_bf16(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr); }
+extern "C" int hstu_rab_bwd_dkv_bf16(RAB_BWD_ARGS) { return run(2, RAB_BWD_PASS, nullptr, taken); }
 
 // A backward kernel (which: 0 K2, 1 K2a, 2 K2b) as this shape would launch
 // it, without launching it: info[0] resident CTAs per SM, info[1] registers
 // per thread, info[2] dynamic shared memory bytes per CTA, info[3] its ring
-// stages (2, or 1 where two do not fit).  Returns the cudaError_t.
+// stages (2, or 1 where two do not fit), info[4] 0 the tensor-core kernel,
+// 1 the width-tiled variant, info[5] the tensor-core K2's or K2a's dts
+// tables (32, 8, or 1 added to in turns; left as it is otherwise).  info
+// holds 6 ints.  Returns the cudaError_t.
 extern "C" int hstu_rab_bwd_bf16_occupancy(int which, int L, int dqk, int dv, int max_seq_len, int num_buckets,
                                            int* info) {
   return run(which, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-             nullptr, nullptr, nullptr, 1, 1, L, dqk, dv, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
+             nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv, max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr,
+             info, nullptr);
 }
 
 extern "C" const char* hstu_rab_bwd_error_string(int code) {

@@ -14,6 +14,9 @@ namespace rab {
 
 constexpr int kIntMax = 2147483647;
 constexpr size_t kMaxSmem = 232448;  // per-block dynamic shared memory limit on sm_90
+// a tensor-core kernel's launcher where the shape is not one it takes (its
+// width, or shared memory beyond kMaxSmem): the width-tiled variant takes it
+constexpr cudaError_t kNoFit = static_cast<cudaError_t>(-1);
 
 // info[0] resident CTAs per SM, info[1] registers per thread, info[2] the
 // dynamic shared memory bytes of a launch of kernel with this block and smem
@@ -334,47 +337,93 @@ struct Lookup {
 };
 
 // ---------------------------------------------------------------------------
-// Table gradients of a warp's 16 x 16 fragment pair (the backward kernels)
+// Table gradients of a warp's 16 x 16 fragment pair (the backward kernels),
+// summed in a fixed order: no float atomic adds into dpos or dts, so both are
+// the same bit for bit from run to run.  Within a CTA, where the sums fit:
+// each warp adds into its own (a window of 31 distances a tile, a dts table
+// per warp or per warp and lane column), lanes that would add to one slot at
+// once taking turns in lane order; the tile's windows are added into the
+// CTA's gpos in warp order; the dts tables in table order at the end.  Where
+// they do not fit (long L, many buckets), one CTA-wide gpos and one dts
+// table, which the warps add to one at a time in warp order, a tile at a
+// time (wait_turn / pass_turn).  Across CTAs: each CTA writes its sums to a slice of
+// its own, and reduce_tables adds the slices in CTA order into dpos and dts.
 // ---------------------------------------------------------------------------
 
-// dts of one thread's values (bucket -1: none): fold its runs of equal
-// buckets, then the warp's when all its lanes hold one bucket.
+constexpr int kWinWarps = 8;      // warps of a backward CTA, each with a 32-float window
+constexpr int kWin = 32;          // a window's floats: the 31 local distances -15 .. 15
+constexpr int kPosSpan = 95;      // distances a 64 x 32 (K2) or 32 x 64 (K2a) tile spans
+
+// dts of one warp's values (bucket -1: none) into its table gts (this
+// lane's copy; copy: which copy it is, 0 .. 3, where the lanes of a warp
+// hold different copies, else 0).  All the warp's values on one bucket: one
+// butterfly sum, added by lane 0.  Else each lane folds its runs of equal
+// buckets, and a run is added where it ends; the lanes that end a run on
+// one slot at the same step add theirs one after another in lane order, a
+// __syncwarp apart.  Warp-collective.
 template <int NVAL>
-__device__ __forceinline__ void add_ts_grads(float* gts, const float* ds, const int* bk) {
+__device__ __forceinline__ void add_ts_grads(float* gts, int copy, const float* ds, const int* bk) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int lo = kIntMax, hi = -1;
+#pragma unroll
+  for (int i = 0; i < NVAL; ++i)
+    if (bk[i] >= 0) {
+      lo = min(lo, bk[i]);
+      hi = max(hi, bk[i]);
+    }
+  const int wlo = __reduce_min_sync(full, lo), whi = __reduce_max_sync(full, hi);
+  if (whi < 0) return;
+  if (wlo == whi) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NVAL; ++i) sum += bk[i] >= 0 ? ds[i] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
+    if (lane == 0) gts[whi] += sum;
+    __syncwarp();
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
   int cur = -1;
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < NVAL; ++i) {
-    const int u = bk[i];
-    if (u < 0) continue;
-    if (u != cur) {
-      if (cur >= 0) atomicAdd(&gts[cur], acc);
-      cur = u;
+  for (int i = 0; i <= NVAL; ++i) {
+    const int u = i < NVAL ? bk[i] : -1;
+    const bool close = cur >= 0 && (i == NVAL || (u >= 0 && u != cur));
+    const int key = close ? (cur << 2) | copy : -1;
+    if (__any_sync(full, close)) {
+      const unsigned peers = __match_any_sync(full, key);
+      const int rank = __popc(peers & below);
+      const int turns = __reduce_max_sync(full, close ? __popc(peers) : 0);
+      for (int r = 0; r < turns; ++r) {
+        if (close && rank == r) gts[cur] += acc;
+        __syncwarp();
+      }
+    }
+    if (close) {
+      cur = -1;
       acc = 0.f;
     }
-    acc += ds[i];
-  }
-  const unsigned full = 0xffffffffu;
-  const int top = __reduce_max_sync(full, cur);
-  if (__all_sync(full, cur == top || cur < 0)) {
-    float sum = acc;  // 0 where cur < 0
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(full, sum, off);
-    if ((threadIdx.x & 31) == 0 && top >= 0) atomicAdd(&gts[top], sum);
-  } else if (cur >= 0) {
-    atomicAdd(&gts[cur], acc);
+    if (u >= 0) {
+      cur = u;
+      acc += ds[i];
+    }
   }
 }
 
-// dpos of one warp's 16 x 16 fragment pair.  part[n][j] holds the lane's
-// values at local causal distance 8 (n - 1) + kSign (2t - g + j) (kSign: +1
-// where the fragment is keys x queries, K2; -1 where it is rows x keys,
-// K2a); lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same
+// dpos of one warp's 16 x 16 fragment pair into out: its window (base 15,
+// n kWin) or the CTA's gpos (base: the fragment's causal distance, n: the
+// distances the tile can see).  part[n][j] holds the lane's values at local
+// causal distance 8 (n - 1) + kSign (2t - g + j) (kSign: +1 where the
+// fragment is keys x queries, K2; -1 where it is rows x keys, K2a), in
+// -15 .. 15; lanes (t, g), (t+1, g+2), (t+2, g+4), (t+3, g+6) hold the same
 // distances, so they sum along that chain by shuffles and the chain's head
-// adds one shared atomic per distance at base + its local distance, for
-// distances in [0, n_dist).
+// adds the sum at out[base + its local distance] where that lies in
+// [0, n).  The heads of one (n, j) hold distinct distances; the six (n, j)
+// add a __syncwarp apart.  Warp-collective.
 template <int kSign>
-__device__ __forceinline__ void add_pos_grads(float* gpos, float part[3][2], int base, int n_dist, int g, int t) {
+__device__ __forceinline__ void add_pos_grads(float* out, int base, int n_out, float part[3][2], int g, int t) {
   const unsigned full = 0xffffffffu;
   const bool step1 = t <= 2 && g <= 5, step2 = t <= 1 && g <= 3;
 #pragma unroll
@@ -393,9 +442,90 @@ __device__ __forceinline__ void add_pos_grads(float* gpos, float part[3][2], int
   for (int n = 0; n < 3; ++n)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int dist = base + 8 * (n - 1) + kSign * (2 * t - g + j);
-      if (head && dist >= 0 && dist < n_dist) atomicAdd(&gpos[dist], part[n][j]);
+      const int d = base + 8 * (n - 1) + kSign * (2 * t - g + j);
+      if (head && d >= 0 && d < n_out) out[d] += part[n][j];
+      __syncwarp();
     }
+}
+
+// Where a CTA's warps share one gpos and one dts table (turns): each
+// warp's adds of a tile between wait_turn and pass_turn, one warp at a time
+// in warp order.  Warp w's wait returns once warp w - 1 has passed (named
+// barrier w of two warps: the arrive releases warp w - 1's shared stores,
+// the sync acquires them).  Every warp of the CTA calls both once a tile,
+// between the same two CTA barriers; the non-aligned forms, as warps call
+// them from different branches.
+__device__ __forceinline__ void wait_turn(bool turns, int warp) {
+  if (turns && warp > 0) asm volatile("barrier.sync %0, 64;" ::"r"(warp) : "memory");
+}
+
+__device__ __forceinline__ void pass_turn(bool turns, int warp) {
+  if (turns && warp + 1 < kWinWarps) asm volatile("barrier.arrive %0, 64;" ::"r"(warp + 1) : "memory");
+}
+
+// A tile's windows into the CTA's gpos: thread r < kPosSpan adds, in warp
+// order, the window slots that hold distance start + r (warp w's slot
+// r - off(w)), zeroes them, and adds their sum to gpos[start + r] when that
+// lies in [0, n_dist).  Call between barriers: after every warp's adds of
+// the tile, before any warp's adds into the same windows.
+template <typename Off>
+__device__ __forceinline__ void flush_pos_windows(float* gpos, float* win, int start, int n_dist, Off off) {
+  const int r = threadIdx.x;
+  if (r < kPosSpan) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWinWarps; ++w) {
+      const int x = r - off(w);
+      if (x >= 0 && x < kWin - 1) {
+        sum += win[w * kWin + x];
+        win[w * kWin + x] = 0.f;
+      }
+    }
+    const int d = start + r;
+    if (d >= 0 && d < n_dist) gpos[d] += sum;
+  }
+}
+
+// The CTA's sums into its slice of the scratch buffer, (L + nb + 1) floats:
+// gpos by distance 0 .. L-1 (zero from n_dist on), then dts, its tables
+// added in table order (not written without stamps).
+__device__ __forceinline__ void write_table_slice(float* slice, const float* gpos, const float* gts, int n_dist, int L,
+                                                  int tables, int nb, int nb4, bool has_time, int nthreads) {
+  for (int d = threadIdx.x; d < L; d += nthreads) slice[d] = d < n_dist ? gpos[d] : 0.f;
+  if (has_time)
+    for (int u = threadIdx.x; u <= nb; u += nthreads) {
+      float sum = 0.f;
+      for (int w = 0; w < tables; ++w) sum += gts[w * nb4 + u];
+      slice[L + u] = sum;
+    }
+}
+
+// dpos[max_seq_len-1-d, h] and dts[u, h] as the sums of the slices of head
+// h, batch by batch and CTA by CTA in order (slices per (b, h)): one thread
+// a slot, writing it (the rows of dpos past L are the caller's zeros).
+__global__ void reduce_table_slices(const float* scratch, int slices, int B, int H, int L, int nb, int max_seq_len,
+                                    int has_time, float* dpos, float* dts) {
+  const int stride = L + nb + 1;
+  const int h = blockIdx.y, slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= (has_time ? stride : L)) return;
+  float sum = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = scratch + (size_t)(b * H + h) * slices * stride + slot;
+#pragma unroll 4
+    for (int y = 0; y < slices; ++y) sum += p[(size_t)y * stride];
+  }
+  if (slot < L)
+    dpos[(size_t)(max_seq_len - 1 - slot) * H + h] = sum;
+  else
+    dts[(size_t)(slot - L) * H + h] = sum;
+}
+
+inline cudaError_t reduce_tables(const float* scratch, int slices, int B, int H, int L, int nb, int max_seq_len,
+                                 bool has_time, float* dpos, float* dts, cudaStream_t stream) {
+  const int slots = has_time ? L + nb + 1 : L;
+  reduce_table_slices<<<dim3((slots + 127) / 128, H), 128, 0, stream>>>(scratch, slices, B, H, L, nb, max_seq_len,
+                                                                        has_time, dpos, dts);
+  return cudaGetLastError();
 }
 
 }  // namespace rab

@@ -52,6 +52,7 @@
 // (chip_smoke.py prints it, with cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -85,7 +86,9 @@ inline int stride_of(int width) { return ((width + 7) & ~7) + 4; }
 //   2 stages of { K [bk][ldk]  V [bk][ldv]  tk [bk]  mask words [bk/4 + 4] },
 //   the stages also holding two slots of partial outputs per row group at
 //   the end.  With 32-key stages this is never more than the first design
-//   (fp32 FMAs over 64 x 64 tiles) took, so K1 takes every shape it took.
+//   (fp32 FMAs over 64 x 64 tiles) took, so K1 takes every shape it took;
+//   a wider head, or a shape that still does not fit, takes the width-tiled
+//   variant (hstu_wide.cuh).
 struct Layout {
   int q, tq, pw, tw, th, stage, stage_words, k, v, tk, km, total;
 };
@@ -313,7 +316,7 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
     p.block_k = 32;
     smem = sizeof(float) * layout(32, p.ldk, p.ldv, p.L, nb).total;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   cudaError_t err = cudaFuncSetAttribute(hstu_rab_fwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info != nullptr) return occupancy(hstu_rab_fwd_kernel<NV>, kThreads, smem, info);
@@ -322,9 +325,10 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   return cudaGetLastError();
 }
 
-int run(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
-        const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
-        int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info) {
+int run_narrow(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
+               const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
+               int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info) {
+  if (dv > 128 || dqk > 256) return kNoFit;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -349,13 +353,34 @@ int run(const void* q, const void* k, const void* v, const void* pos_w, const vo
   p.vec_k = dqk % 4 == 0 && aligned(q) && aligned(k);
   p.vec_v = dv % 4 == 0 && aligned(v);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dv < 1 || dv > 128 || dqk < 1 || dqk > 256 || L < 1 || L > max_seq_len || num_buckets < 0)
-    return cudaErrorInvalidValue;
   if (dv <= 8) return launch<1>(p, st, info);
   if (dv <= 16) return launch<2>(p, st, info);
   if (dv <= 32) return launch<4>(p, st, info);
   if (dv <= 64) return launch<8>(p, st, info);
   return launch<16>(p, st, info);
+}
+
+// The tensor-core kernel where it takes the shape, else the width-tiled variant (hstu_wide.cuh)
+int run(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
+        const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
+        int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info, int* taken) {
+  if (dv < 1 || dqk < 1 || L < 1 || L > max_seq_len || num_buckets < 0) return cudaErrorInvalidValue;
+  return wide::dispatch(
+      [&] {
+        return static_cast<cudaError_t>(run_narrow(q, k, v, pos_w, ts_w, thr, ts, mask, out, B, H, L, dqk, dv,
+                                                   max_seq_len, num_buckets, alpha, fn_log, minutes, divisor, stream, info));
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v;
+        w.pos_w = static_cast<const float*>(pos_w), w.ts_w = static_cast<const float*>(ts_w);
+        w.thr = static_cast<const int*>(thr), w.ts = static_cast<const int*>(ts);
+        w.mask = static_cast<const uint8_t*>(mask), w.out0 = out;
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv, w.max_seq_len = max_seq_len;
+        w.alpha = alpha, w.norm = (float)max_seq_len, w.bk = Buckets{num_buckets, fn_log, minutes, divisor};
+        return wide::launch<float, wide::kFwd, true>(w, static_cast<cudaStream_t>(stream), info);
+      },
+      taken, info);
 }
 
 }  // namespace
@@ -364,21 +389,24 @@ int run(const void* q, const void* k, const void* v, const void* pos_w, const vo
 // ts_w: (num_buckets+1, H); all fp32, contiguous.  thr: (num_buckets+1,) int32.
 // ts: (B, L) int32 or null (position bias only); mask: (B, L) bool or null
 // (all keys valid).  The bucket config: fn_log (0 sqrt, 1 log), minutes (1:
-// |dt| / 60 first), divisor.  Returns the cudaError_t of the launch (0 on success).
+// |dt| / 60 first), divisor.  *taken (may be null): 0 the tensor-core kernel
+// ran, 1 the width-tiled variant.  Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int hstu_rab_fwd(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w,
                             const void* thr, const void* ts, const void* mask, void* out, int B, int H, int L,
                             int dqk, int dv, int max_seq_len, int num_buckets, float alpha, int fn_log, int minutes,
-                            float divisor, void* stream) {
+                            float divisor, void* stream, int* taken) {
   return run(q, k, v, pos_w, ts_w, thr, ts, mask, out, B, H, L, dqk, dv, max_seq_len, num_buckets, alpha, fn_log,
-             minutes, divisor, stream, nullptr);
+             minutes, divisor, stream, nullptr, taken);
 }
 
 // The kernel that this shape would launch, without launching it: info[0]
 // resident CTAs per SM, info[1] registers per thread, info[2] dynamic
-// shared memory bytes per CTA.  Returns the cudaError_t.
+// shared memory bytes per CTA, info[4] 0 the tensor-core kernel, 1 the
+// width-tiled variant (info holds 5 ints).  Returns the cudaError_t.
 extern "C" int hstu_rab_fwd_occupancy(int L, int dqk, int dv, int max_seq_len, int num_buckets, int* info) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv,
-             max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
+             max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info, nullptr);
 }
 
 extern "C" const char* hstu_rab_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -52,6 +52,7 @@
 //   ring stages for any shape.
 
 #include "hstu_rab_common.cuh"
+#include "hstu_wide.cuh"
 
 namespace {
 
@@ -311,7 +312,7 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
     smem = layout(p.ldk, p.ldv, p.L, p.bk.nb, p.stages).total;
     if (smem <= kMaxSmem) break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return kNoFit;
   cudaError_t err = cudaFuncSetAttribute(hstu_rab_fwd_bf16_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (info != nullptr) {
@@ -323,11 +324,10 @@ cudaError_t launch(Params p, cudaStream_t stream, int* info) {
   return cudaGetLastError();
 }
 
-int run(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
-        const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
-        int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info) {
-  if (dv < 1 || dv > 128 || dqk < 1 || dqk > 256 || L < 1 || L > max_seq_len || num_buckets < 0)
-    return cudaErrorInvalidValue;
+int run_narrow(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
+               const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
+               int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info) {
+  if (dv > 128 || dqk > 256) return kNoFit;
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -362,6 +362,29 @@ int run(const void* q, const void* k, const void* v, const void* pos_w, const vo
   return launch<16>(p, st, info);
 }
 
+// The tensor-core kernel where it takes the shape, else the width-tiled variant (hstu_wide.cuh)
+int run(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w, const void* thr,
+        const void* ts, const void* mask, void* out, int B, int H, int L, int dqk, int dv, int max_seq_len,
+        int num_buckets, float alpha, int fn_log, int minutes, float divisor, void* stream, int* info, int* taken) {
+  if (dv < 1 || dqk < 1 || L < 1 || L > max_seq_len || num_buckets < 0) return cudaErrorInvalidValue;
+  return wide::dispatch(
+      [&] {
+        return static_cast<cudaError_t>(run_narrow(q, k, v, pos_w, ts_w, thr, ts, mask, out, B, H, L, dqk, dv,
+                                                   max_seq_len, num_buckets, alpha, fn_log, minutes, divisor, stream, info));
+      },
+      [&] {
+        wide::Args w{};
+        w.q = q, w.k = k, w.v = v;
+        w.pos_w = static_cast<const float*>(pos_w), w.ts_w = static_cast<const float*>(ts_w);
+        w.thr = static_cast<const int*>(thr), w.ts = static_cast<const int*>(ts);
+        w.mask = static_cast<const uint8_t*>(mask), w.out0 = out;
+        w.B = B, w.H = H, w.L = L, w.dqk = dqk, w.dv = dv, w.max_seq_len = max_seq_len;
+        w.alpha = alpha, w.norm = (float)max_seq_len, w.bk = Buckets{num_buckets, fn_log, minutes, divisor};
+        return wide::launch<bf16, wide::kFwd, true>(w, static_cast<cudaStream_t>(stream), info);
+      },
+      taken, info);
+}
+
 }  // namespace
 
 // q, k: (B, H, L, dqk) and v, out: (B, H, L, dv) bf16, contiguous, at any
@@ -372,17 +395,18 @@ int run(const void* q, const void* k, const void* v, const void* pos_w, const vo
 extern "C" int hstu_rab_fwd_bf16(const void* q, const void* k, const void* v, const void* pos_w, const void* ts_w,
                                  const void* thr, const void* ts, const void* mask, void* out, int B, int H, int L,
                                  int dqk, int dv, int max_seq_len, int num_buckets, float alpha, int fn_log,
-                                 int minutes, float divisor, void* stream) {
+                                 int minutes, float divisor, void* stream, int* taken) {
   return run(q, k, v, pos_w, ts_w, thr, ts, mask, out, B, H, L, dqk, dv, max_seq_len, num_buckets, alpha, fn_log,
-             minutes, divisor, stream, nullptr);
+             minutes, divisor, stream, nullptr, taken);
 }
 
 // info[0] resident CTAs per SM, info[1] registers per thread, info[2]
 // dynamic shared memory bytes per CTA of the kernel this shape would launch,
-// info[3] its K/V ring stages (2, or 1 where two do not fit).
+// info[3] its K/V ring stages (2, or 1 where two do not fit), info[4] 0 the
+// tensor-core kernel, 1 the width-tiled variant.
 extern "C" int hstu_rab_fwd_bf16_occupancy(int L, int dqk, int dv, int max_seq_len, int num_buckets, int* info) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, L, dqk, dv,
-             max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info);
+             max_seq_len, num_buckets, 1.f, 0, 0, 1.f, nullptr, info, nullptr);
 }
 
 extern "C" const char* hstu_rab_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

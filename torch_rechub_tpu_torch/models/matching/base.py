@@ -15,6 +15,6 @@ from __future__ import annotations
 import torch
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """``x / max(|x|₂, eps)`` along ``dim``: ``F.normalize(p=2)``'s semantics."""
-    return x / torch.clamp_min(torch.sqrt((x * x).sum(dim, keepdim=True)), eps)
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """``x / max(|x|₂, eps)`` along ``axis`` (the JAX package's keyword): ``F.normalize(p=2)``'s semantics."""
+    return x / torch.clamp_min(torch.sqrt((x * x).sum(axis, keepdim=True)), eps)

@@ -29,10 +29,10 @@ class DSSM(nn.Module):
         self.item_mlp = MLP(squeeze_width(self.item_features), **item_params, output_layer=False, generator=generator, device=device)
 
     def user_tower(self, x: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), dim=1)
+        return l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), axis=1)
 
     def item_tower(self, x: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return l2_normalize(self.item_mlp(self.embedding(x, self.item_features, squeeze_dim=True), generator=generator), dim=1)
+        return l2_normalize(self.item_mlp(self.embedding(x, self.item_features, squeeze_dim=True), generator=generator), axis=1)
 
     def towers(self, x, generator=None):
         return self.user_tower(x, generator), self.item_tower(x, generator)
@@ -66,7 +66,7 @@ class DSSMSENet(nn.Module):
     def _tower(self, x, features, n_fields, senet, mlp, generator):
         inp = self.embedding(x, features, squeeze_dim=True)
         inp = senet(inp.reshape(inp.shape[0], n_fields, -1)).reshape(inp.shape[0], -1)
-        return l2_normalize(mlp(inp, generator=generator), dim=1)
+        return l2_normalize(mlp(inp, generator=generator), axis=1)
 
     def user_tower(self, x, generator=None):
         return self._tower(x, self.user_features, self.n_user, self.user_senet, self.user_mlp, generator)

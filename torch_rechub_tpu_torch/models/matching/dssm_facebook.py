@@ -29,13 +29,13 @@ class FaceBookDSSM(nn.Module):
         self.item_mlp = MLP(squeeze_width(self.pos_item_features), **item_params, output_layer=False, generator=generator, device=device)
 
     def user_tower(self, x, generator=None):
-        return l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), dim=1)
+        return l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), axis=1)
 
     def item_tower(self, x, generator=None):
         return self.item_mlp(self.embedding(x, self.pos_item_features, squeeze_dim=True), generator=generator)
 
     def towers(self, x, generator=None):
-        return self.user_tower(x, generator), l2_normalize(self.item_tower(x, generator), dim=1)
+        return self.user_tower(x, generator), l2_normalize(self.item_tower(x, generator), axis=1)
 
     def forward(self, x, mode=None, generator=None):
         if mode == "user":
@@ -43,6 +43,6 @@ class FaceBookDSSM(nn.Module):
         if mode == "item":
             return self.item_tower(x, generator)
         user = self.user_tower(x, generator)
-        pos = l2_normalize(self.item_mlp(self.embedding(x, self.pos_item_features, squeeze_dim=True), generator=generator), dim=1)
-        neg = l2_normalize(self.item_mlp(self.embedding(x, self.neg_item_features, squeeze_dim=True), generator=generator), dim=1)
+        pos = l2_normalize(self.item_mlp(self.embedding(x, self.pos_item_features, squeeze_dim=True), generator=generator), axis=1)
+        neg = l2_normalize(self.item_mlp(self.embedding(x, self.neg_item_features, squeeze_dim=True), generator=generator), axis=1)
         return (user * pos).sum(1), (user * neg).sum(1)

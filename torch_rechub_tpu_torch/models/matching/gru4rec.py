@@ -40,7 +40,7 @@ class GRU4Rec(nn.Module):
         h_last = None
         for i in range(self.num_layers):
             h, h_last = getattr(self, f"gru_layers_{i}")(h)
-        emb = l2_normalize(self.user_mlp(torch.cat([input_user, h_last], dim=-1), generator=generator), dim=-1)
+        emb = l2_normalize(self.user_mlp(torch.cat([input_user, h_last], dim=-1), generator=generator), axis=-1)
         return emb[:, None, :] if keep_dim else emb
 
     def item_tower(self, x, generator=None, with_negatives: bool = False):

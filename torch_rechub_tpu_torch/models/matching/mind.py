@@ -45,7 +45,7 @@ class MultiInterestFrame(nn.Module):
         mask = (x[self.history_features[0].name] > 0).to(torch.float32)
         interests = self._interests(hist, mask, generator)  # (B, K, D)
         combined = torch.cat([input_user.expand(-1, self.interest_num, -1), interests], dim=-1)
-        return l2_normalize(promote(combined) @ self.convert_user_weight, dim=-1)
+        return l2_normalize(promote(combined) @ self.convert_user_weight, axis=-1)
 
     def item_tower(self, x, generator=None, with_negatives: bool = False):
         return item_tower_with_negatives(self.embedding, x, self.item_features, self.neg_item_feature, with_negatives)

@@ -20,10 +20,10 @@ from .base import l2_normalize
 
 def item_tower_with_negatives(embedding, x, item_features, neg_item_feature, with_negatives: bool) -> torch.Tensor:
     """The L2-normalised positive item ``(B, D)``, or with the negatives ``(B, 1 + n_neg, D)``."""
-    pos = l2_normalize(embedding(x, item_features), dim=-1)  # (B, 1, D)
+    pos = l2_normalize(embedding(x, item_features), axis=-1)  # (B, 1, D)
     if not with_negatives:
         return pos[:, 0, :]
-    neg = l2_normalize(embedding(x, neg_item_feature)[:, 0], dim=-1)  # (B, n_neg, D)
+    neg = l2_normalize(embedding(x, neg_item_feature)[:, 0], axis=-1)  # (B, n_neg, D)
     return torch.cat([pos, neg], dim=1)
 
 
@@ -36,7 +36,7 @@ class YoutubeDNN(nn.Module):
         self.user_mlp = MLP(squeeze_width(self.user_features), **user_params, output_layer=False, generator=generator, device=device)
 
     def user_tower(self, x, generator=None, keep_dim: bool = False):
-        emb = l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), dim=-1)
+        emb = l2_normalize(self.user_mlp(self.embedding(x, self.user_features, squeeze_dim=True), generator=generator), axis=-1)
         return emb[:, None, :] if keep_dim else emb
 
     def item_tower(self, x, generator=None, with_negatives: bool = False):

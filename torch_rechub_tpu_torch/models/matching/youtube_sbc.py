@@ -47,7 +47,7 @@ class YoutubeSBC(nn.Module):
             return self.item_tower(x, generator)
         user, item = self.towers(x, generator)
         b = user.shape[0]
-        pred = l2_normalize(user, dim=1) @ l2_normalize(item, dim=1).T  # (B, B) cosine
+        pred = l2_normalize(user, axis=1) @ l2_normalize(item, axis=1).T  # (B, B) cosine
         sample_weight = self.embedding(x, self.sample_weight_feature, squeeze_dim=True).reshape(b)
         scores = pred - torch.log(sample_weight)  # the sampling-bias correction
         cols = (torch.arange(b, device=scores.device)[:, None] + torch.arange(self.n_neg + 1, device=scores.device)[None, :]) % b

@@ -31,7 +31,7 @@ class FiBiNet(nn.Module):
         embed_dim = self.features[0].embed_dim
         self.EmbeddingCollection_0 = EmbeddingCollection(self.features, generator=generator, device=device)
         self.SENETLayer_0 = SENETLayer(num_fields, reduction_ratio, generator, device)
-        self.BiLinearInteractionLayer_0 = BiLinearInteractionLayer(num_fields, embed_dim, bilinear_type, generator, device)
+        self.BiLinearInteractionLayer_0 = BiLinearInteractionLayer(embed_dim, num_fields, bilinear_type, generator, device)
         self.MLP_0 = MLP(num_fields * (num_fields - 1) * embed_dim, **mlp_params, generator=generator, device=device)
 
     def forward(self, x: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -23,6 +23,10 @@ TPU's ``_fwd_kernel`` (K3):
   kept in f32 for ``attn @ v`` (as three bf16 terms hi + mid + lo), only
   the output rounded to bf16 (:func:`plain_forward_bf16` is its plain
   version).
+- any width: where the tensor-core kernel does not take the shape (dv > 128
+  or dqk > 256) the same entry launches its width-tiled variant
+  (``csrc/hstu_wide.cuh``, the materialised bias read by element), in
+  either dtype; ``launches_wide`` counts those launches.
 
 The backward is autograd of :func:`dense_forward` on the saved inputs: the
 same recompute as the JAX package's XLA backward (``_hstu_bwd``), which has
@@ -43,13 +47,12 @@ import torch
 
 from ...basic.precision import einsum, promote, silu, weak
 from . import _build
+from .hstu_rab_attention import variant_name
 
 # kernel launches of this process; reset and read by chip_smoke.py
 launches = 0  # K3, hstu_attn_fwd
 launches_bf16 = 0  # K3 in bf16, hstu_attn_fwd_bf16
-
-MAX_DV = 128
-MAX_DQK = 256
+launches_wide = {}  # entry name -> launches that took the width-tiled variant (each also counts on the entry's own count)
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +104,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("hstu_attn_fwd")
     if lib.hstu_attn_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hstu_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [f, f, p]
+        lib.hstu_attn_fwd.argtypes = [p] * 6 + [i] * 6 + [f, f, p, p]  # ..., stream, taken
         lib.hstu_attn_fwd.restype = i
         lib.hstu_attn_fwd_occupancy.argtypes = [i] * 3 + [p]
         lib.hstu_attn_fwd_occupancy.restype = i
@@ -114,7 +117,7 @@ def _lib_bf16() -> ctypes.CDLL:
     lib = _build.load("hstu_attn_fwd_bf16")
     if lib.hstu_attn_fwd_bf16.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hstu_attn_fwd_bf16.argtypes = [p] * 6 + [i] * 7 + [f, f, p]  # shared_bias, then bias_bf16
+        lib.hstu_attn_fwd_bf16.argtypes = [p] * 6 + [i] * 7 + [f, f, p, p]  # shared_bias, then bias_bf16; ..., stream, taken
         lib.hstu_attn_fwd_bf16.restype = i
         lib.hstu_attn_fwd_bf16_occupancy.argtypes = [i] * 4 + [p]
         lib.hstu_attn_fwd_bf16_occupancy.restype = i
@@ -145,10 +148,8 @@ def _check_kernel_inputs(q, k, v, bias, padding_mask):
         raise ValueError(f"hstu_attention: bias must be (1 or {b}, {h}, {l}, {l}), got {tuple(bias.shape)}")
     if padding_mask is not None and (padding_mask.dtype != torch.bool or tuple(padding_mask.shape) != (b, l)):
         raise ValueError("hstu_attention: padding_mask must be bool (B, L)")
-    if not (1 <= dv <= MAX_DV and 1 <= dqk <= MAX_DQK):
-        raise ValueError(f"hstu_attention: the CUDA kernel takes dv <= {MAX_DV} and dqk <= {MAX_DQK}, got dqk={dqk} dv={dv}")
-    if -(-l // 32) > 65535:
-        raise ValueError(f"hstu_attention: L = {l} exceeds the grid limit of 65535 tiles of 32 rows")
+    if -(-l // 64) > 65535:
+        raise ValueError(f"hstu_attention: L = {l} exceeds the card's grid limit of 65535 tiles of 64 rows")
 
 
 def _launch(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float) -> torch.Tensor:
@@ -162,14 +163,17 @@ def _launch(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float) -> to
     out = torch.empty((b, h, l, dv), dtype=q.dtype, device=q.device)
     lib = _lib_bf16() if bf16 else _lib()
     layout = (int(bias.shape[0] == 1), int(bias.dtype == torch.bfloat16)) if bf16 else (int(bias.shape[0] == 1),)
+    taken = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
-            out.data_ptr(), b, h, l, dqk, dv, *layout, float(alpha), float(max_seq_len), stream,
+            out.data_ptr(), b, h, l, dqk, dv, *layout, float(alpha), float(max_seq_len), stream, ctypes.byref(taken),
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.hstu_attn_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
+    if taken.value:
+        launches_wide[name] = launches_wide.get(name, 0) + 1
     if bf16:
         launches_bf16 += 1
     else:
@@ -178,26 +182,28 @@ def _launch(q, k, v, bias, padding_mask, alpha: float, max_seq_len: float) -> to
 
 
 def occupancy(l: int, dqk: int, dv: int) -> tuple:
-    """K3 as this shape would launch it: ``(CTAs per SM, registers per thread, shared bytes per CTA)``.
+    """K3 as this shape would launch it: ``(CTAs per SM, registers per thread, shared bytes per CTA, variant)``, the
+    variant ``"tensor-core"`` or ``"width-tiled"``.
 
     From ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
     ``cudaFuncGetAttributes`` through the C interface; nothing is launched.
     """
-    info = (ctypes.c_int * 3)()
+    info = (ctypes.c_int * 5)()
     rc = _lib().hstu_attn_fwd_occupancy(l, dqk, dv, info)
     if rc != 0:
         raise RuntimeError(f"hstu_attn_fwd occupancy query failed: error {rc}")
-    return tuple(info)
+    return (*tuple(info)[:3], variant_name(info))
 
 
 def occupancy_bf16(l: int, dqk: int, dv: int, bias_bf16: bool = False) -> tuple:
     """K3-bf16 (with a bf16 or an f32 bias) as :func:`occupancy` reports K3, and its ring stages: ``(CTAs per SM,
-    registers per thread, shared bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit."""
-    info = (ctypes.c_int * 4)()
+    registers per thread, shared bytes per CTA, ring stages, variant)``, the stages 2 (1 for the width-tiled
+    variant)."""
+    info = (ctypes.c_int * 5)()
     rc = _lib_bf16().hstu_attn_fwd_bf16_occupancy(l, dqk, dv, int(bias_bf16), info)
     if rc != 0:
         raise RuntimeError(f"hstu_attn_fwd_bf16 occupancy query failed: error {rc}")
-    return tuple(info)
+    return (*tuple(info)[:4], variant_name(info))
 
 
 class _AttentionKernel(torch.autograd.Function):

@@ -16,9 +16,19 @@ Kernels, CUDA C++ for Hopper (sm_90a), bound through ctypes:
 - backward, ``csrc/hstu_rab_bwd.cu``: ``hstu_rab_bwd`` replaces the fused
   ``_bwd_fused_kernel`` (K2, the default), ``hstu_rab_bwd_dq`` and
   ``hstu_rab_bwd_dkv`` the split pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
-  (K2a per q tile, K2b per key tile), taken when ``_FUSED_BWD[0]`` is False,
-  as in the JAX package.  All three are built as K1 is: 3xTF32 products,
-  P and dS in registers, ``cp.async`` rings.  The source notes have the designs.
+  (K2a per q tile, K2b per key tile), taken when ``_FUSED_BWD[0]`` is False
+  (as in the JAX package) or deterministic algorithms are on.  All three
+  are built as K1 is: 3xTF32 products, P and dS in registers, ``cp.async``
+  rings.  The source notes have the designs.  dpos and dts are summed in a
+  fixed order (per-warp sums added in warp order, then the CTAs' slices of
+  a scratch buffer added in CTA order by a second small kernel): the same
+  bit for bit from run to run, in K2 and K2a alike.
+- any width, and any L: where a tensor-core kernel does not take the shape
+  (forward dv > 128 or dqk > 256, backward dqk or dv > 128, or shared memory
+  beyond the SM's at a long L) the same entry launches its width-tiled
+  variant (``csrc/hstu_wide.cuh``: 64-column output chunks over the grid,
+  the scores K-looped over the full width, fp32 FMAs), which takes every
+  shape; K2's is K2a's variant then K2b's.  ``launches_wide`` counts them.
 - bf16 (the mixed-precision policy, ``basic/precision.py``):
   ``csrc/hstu_rab_fwd_bf16.cu`` (K1) and ``csrc/hstu_rab_bwd_bf16.cu`` (K2,
   and the split pair K2a, K2b) take bf16 q, k, v and g with f32 tables,
@@ -68,12 +78,20 @@ launches_bf16 = 0  # K1 in bf16, hstu_rab_fwd_bf16
 launches_bwd_bf16 = 0  # K2 in bf16, hstu_rab_bwd_bf16
 launches_bwd_dq_bf16 = 0  # K2a in bf16, hstu_rab_bwd_dq_bf16
 launches_bwd_dkv_bf16 = 0  # K2b in bf16, hstu_rab_bwd_dkv_bf16
+launches_wide = {}  # entry name -> launches that took the width-tiled variant (each also counts on the entry's own count)
 
 _FUSED_BWD = [True]  # False takes the split pair K2a + K2b (the JAX package's A/B switch)
 
-MAX_DV = 128
-MAX_DQK = 256
-MAX_BWD_WIDTH = 128  # the backward kernels keep dq / dk / dv rows of up to 128 in registers
+WIDE = "width-tiled"  # the variant a shape takes, as the occupancy queries report it; else TENSOR_CORE
+TENSOR_CORE = "tensor-core"
+# K2's and K2a's dts sums keep a table of num_buckets + 1 floats in shared memory, one at least beside the
+# width-tiled variant's 51,200 bytes of tiles: 232,448 bytes an SM's CTA may take hold 45,312 (hstu_wide.cuh)
+MAX_BWD_BUCKETS = 45_311
+
+
+def _count_wide(name: str, taken) -> None:
+    if taken.value:
+        launches_wide[name] = launches_wide.get(name, 0) + 1
 
 
 class BucketCfg(NamedTuple):
@@ -283,7 +301,7 @@ def _load_fwd(name: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p, p]  # ..., stream, taken
         fn.restype = i
         occ = getattr(lib, name + "_occupancy")
         occ.argtypes = [i] * 5 + [p]
@@ -328,8 +346,6 @@ def _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresho
         raise ValueError("hstu_attention_rab: timestamps must be int32 (B, L)")
     if padding_mask is not None and (padding_mask.dtype != torch.bool or tuple(padding_mask.shape) != (b, l)):
         raise ValueError("hstu_attention_rab: padding_mask must be bool (B, L)")
-    if not (1 <= dv <= MAX_DV and 1 <= dqk <= MAX_DQK):
-        raise ValueError(f"hstu_attention_rab: the CUDA kernel takes dv <= {MAX_DV} and dqk <= {MAX_DQK}, got dqk={dqk} dv={dv}")
     if b * h > 65535:
         raise ValueError(f"hstu_attention_rab: B*H = {b * h} exceeds the grid limit 65535")
 
@@ -345,15 +361,17 @@ def _launch(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: f
     name = "hstu_rab_fwd_bf16" if bf16 else "hstu_rab_fwd"
     out = torch.empty((b, h, l, dv), dtype=q.dtype, device=q.device)
     lib = _lib_bf16() if bf16 else _lib()
+    taken = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
             None if timestamps is None else timestamps.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
-            out.data_ptr(), b, h, l, dqk, dv, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream,
+            out.data_ptr(), b, h, l, dqk, dv, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream, ctypes.byref(taken),
         )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.hstu_rab_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv})")
+    _count_wide(name, taken)
     if bf16:
         launches_bf16 += 1
     else:
@@ -371,7 +389,7 @@ def _load_bwd(name: str, entries) -> ctypes.CDLL:
     if getattr(lib, entries[0]).argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (getattr(lib, entry) for entry in entries):
-            fn.argtypes = [p] * 14 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p]
+            fn.argtypes = [p] * 15 + [i] * 7 + [ctypes.c_float, i, i, ctypes.c_float, p, p]  # ..., dts, scratch, ..., stream, taken
             fn.restype = i
         occ = getattr(lib, name + "_occupancy")
         occ.argtypes = [i] * 6 + [p]
@@ -389,16 +407,25 @@ def _lib_bwd() -> ctypes.CDLL:
     return _load_bwd("hstu_rab_bwd", BWD_ENTRIES)
 
 
+def table_scratch(b: int, h: int, l: int, num_buckets: int, device) -> torch.Tensor:
+    """K2's and K2a's scratch: a slice of ``L + num_buckets + 1`` table sums for each CTA, ``ceil(L / 32)`` CTAs per
+    (batch, head) (the width-tiled variants use half of them), which the second kernel adds in CTA order."""
+    return torch.empty(b * h * (-(-l // 32)) * (l + num_buckets + 1), dtype=torch.float32, device=device)
+
+
 def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, thresholds, alpha: float, max_seq_len: int, cfg: BucketCfg, dq=None, dk=None, dv=None, dpos=None, dts=None) -> None:
-    """Launch one backward kernel into the given outputs (None: not produced)."""
+    """Launch one backward kernel into the given outputs (None: not produced); K2 and K2a with a scratch buffer for
+    their table sums."""
     num_buckets = ts_w.shape[0] - 1
     _check_kernel_inputs(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, max_seq_len, num_buckets)
     b, h, l, dqk = q.shape
     dv_dim = v.shape[-1]
     if g.device != q.device or g.dtype != v.dtype or g.shape != v.shape or not g.is_contiguous():
         raise ValueError(f"{entry}: the output gradient must be a contiguous {v.dtype} {tuple(v.shape)} tensor on {q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
-    if max(dqk, dv_dim) > MAX_BWD_WIDTH:
-        raise ValueError(f"{entry}: the backward kernels take dqk, dv <= {MAX_BWD_WIDTH}, got dqk={dqk} dv={dv_dim}")
+    if dpos is not None and num_buckets > MAX_BWD_BUCKETS:
+        raise ValueError(f"{entry}: {num_buckets} time buckets: the card's shared memory holds the dts sums of at most {MAX_BWD_BUCKETS} (one table of "
+                         f"num_buckets + 1 floats beside the tiles, 232,448 bytes a CTA)")
+    scratch = None if dpos is None else table_scratch(b, h, l, num_buckets, q.device)
     if q.dtype == torch.bfloat16:
         lib, entry = _lib_bwd_bf16(), entry + "_bf16"
     else:
@@ -407,19 +434,22 @@ def _launch_bwd(entry: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, t
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    taken = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), thresholds.data_ptr(),
-            ptr(timestamps), ptr(padding_mask), ptr(dq), ptr(dk), ptr(dv), ptr(dpos), ptr(dts),
-            b, h, l, dqk, dv_dim, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream,
+            ptr(timestamps), ptr(padding_mask), ptr(dq), ptr(dk), ptr(dv), ptr(dpos), ptr(dts), ptr(scratch),
+            b, h, l, dqk, dv_dim, max_seq_len, num_buckets, float(alpha), *bucket_codes(cfg), stream, ctypes.byref(taken),
         )
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: {lib.hstu_rab_bwd_error_string(rc).decode()} (B={b} H={h} L={l} dqk={dqk} dv={dv_dim})")
+    _count_wide(entry, taken)
 
 
 def occupancy(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> dict:
-    """K1, K2, K2a and K2b as this shape would launch them: ``{name: (CTAs per SM, registers per thread, shared bytes per CTA)}``.
+    """K1, K2, K2a and K2b as this shape would launch them: ``{name: (CTAs per SM, registers per thread, shared bytes
+    per CTA, variant)}``, the variant :data:`TENSOR_CORE` or :data:`WIDE` (K2's: its first kernel, K2a's).
 
     From ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
     ``cudaFuncGetAttributes`` through the C interface; nothing is launched.
@@ -438,8 +468,9 @@ def occupancy_bf16(l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int
 
 def launch_shape_bf16(name: str, l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> tuple:
     """A bf16 rab kernel (by entry name) as this shape would launch it: ``(CTAs per SM, registers per thread, shared
-    bytes per CTA, ring stages)``, the stages 2, or 1 where two do not fit (K1-bf16's and K2a-bf16's K/V ring, K2's
-    and K2b's Q/G ring); raises where the shape does not fit at all.  Nothing is launched."""
+    bytes per CTA, ring stages, variant)``, the stages 2, or 1 where two do not fit (K1-bf16's and K2a-bf16's K/V
+    ring, K2's and K2b's Q/G ring; the width-tiled variant has none: 1), the variant :data:`TENSOR_CORE` or
+    :data:`WIDE`.  Nothing is launched."""
     if name == "hstu_rab_fwd_bf16":
         query = (name, _lib_bf16().hstu_rab_fwd_bf16_occupancy, ())
     elif name in BWD_ENTRIES_BF16:
@@ -449,14 +480,36 @@ def launch_shape_bf16(name: str, l: int, dqk: int, dv: int, max_seq_len: int, nu
     return _query_occupancy([query], l, dqk, dv, max_seq_len, num_buckets, full=True)[name]
 
 
+def dts_tables(name: str, l: int, dqk: int, dv: int, max_seq_len: int, num_buckets: int) -> int:
+    """How K2 or K2a (by entry name, fp32 or bf16) would sum dts at this shape in shared memory: 32 tables (a copy
+    per warp and lane column), 8 (one a warp) or 1 (one table, which the warps add to in turns, as they add to
+    dpos); 0 where the width-tiled variant takes the shape (tables of its own).  Nothing is launched."""
+    if name in BWD_ENTRIES[:2]:
+        query, which = _lib_bwd().hstu_rab_bwd_occupancy, BWD_ENTRIES.index(name)
+    elif name in BWD_ENTRIES_BF16[:2]:
+        query, which = _lib_bwd_bf16().hstu_rab_bwd_bf16_occupancy, BWD_ENTRIES_BF16.index(name)
+    else:
+        raise ValueError(f"dts_tables: {name} sums no dts; {', '.join(BWD_ENTRIES[:2] + BWD_ENTRIES_BF16[:2])} do")
+    info = (ctypes.c_int * 6)()
+    rc = query(which, l, dqk, dv, max_seq_len, num_buckets, info)
+    if rc != 0:
+        raise RuntimeError(f"{name} occupancy query failed: error {rc}")
+    return 0 if info[4] else info[5]
+
+
+def variant_name(info) -> str:
+    """The variant an occupancy query's ``info[4]`` names."""
+    return WIDE if info[4] else TENSOR_CORE
+
+
 def _query_occupancy(queries, l, dqk, dv, max_seq_len, num_buckets, full=False) -> dict:
     out = {}
     for name, query, which in queries:
-        info = (ctypes.c_int * 4)()  # the bf16 kernels also give their ring stages in info[3]
+        info = (ctypes.c_int * 6)()  # the bf16 kernels also give their ring stages in info[3]; info[4] the variant; info[5] dts_tables'
         rc = query(*which, l, dqk, dv, max_seq_len, num_buckets, info)
         if rc != 0:
             raise RuntimeError(f"{name} occupancy query failed: error {rc}")
-        out[name] = tuple(info) if full else tuple(info)[:3]
+        out[name] = (*tuple(info)[:4 if full else 3], variant_name(info))
     return out
 
 
@@ -473,10 +526,11 @@ def _dispatch_bwd(name: str, q, k, v, g, pos_w, ts_w, timestamps, padding_mask, 
 def rab_backward_fused(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: float, max_seq_len: int, cfg: BucketCfg, thresholds: Optional[torch.Tensor] = None):
     """K2: ``(dq, dk, dv, dpos, dts)`` in one pass (the plain version on the CPU).
 
-    dq and the table gradients are sums of fp32 atomics across CTAs, whose
-    order changes from run to run.  On bf16 inputs (the bf16 variant) dq is
-    summed into an f32 buffer and rounded to bf16 after the kernel, as the
-    JAX package rounds the Pallas kernel's f32 dq.
+    dq is a sum of fp32 vector reductions across CTAs, whose order changes
+    from run to run; dk, dv, dpos and dts are summed in a fixed order, the
+    same bit for bit from run to run.  On bf16 inputs (the bf16 variant) dq
+    is summed into an f32 buffer and rounded to bf16 after the kernel, as
+    the JAX package rounds the Pallas kernel's f32 dq.
     """
     global launches_bwd, launches_bwd_bf16
     plain, thresholds = _dispatch_bwd("rab_backward_fused", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
@@ -499,8 +553,8 @@ def rab_backward_dq(q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha: fl
     """K2a: ``(dq, dpos, dts)`` (the plain version's on the CPU), dq in q's dtype.
 
     dq is written once per row, its partials summed in a fixed order (in
-    f32 registers, rounded once for bf16): the same bit for bit from run to
-    run; dpos and dts are sums of fp32 atomics.
+    f32 registers, rounded once for bf16), and dpos and dts in a fixed order
+    too: all three the same bit for bit from run to run.
     """
     global launches_bwd_dq, launches_bwd_dq_bf16
     plain, thresholds = _dispatch_bwd("rab_backward_dq", q, k, v, g, pos_w, ts_w, timestamps, padding_mask, alpha, max_seq_len, cfg, thresholds)
@@ -575,7 +629,14 @@ def _op_forward(q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds, alph
 
 
 class _RabAttentionKernel(torch.autograd.Function):
-    """K1 forward (through the registered op); K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False.
+    """K1 forward (through the registered op); K2 backward, or K2a then K2b when ``_FUSED_BWD[0]`` is False or
+    ``torch.are_deterministic_algorithms_enabled()``.
+
+    K2's dq is summed by fp32 reductions in an order that changes from run
+    to run; the split pair sums every gradient in a fixed order.  So under
+    ``torch.use_deterministic_algorithms(True)`` the backward takes the
+    split pair and is the same bit for bit from run to run; otherwise the
+    fused K2 (one pass, faster).
 
     Saves the inputs, the tables, the stamps, the mask and the thresholds,
     and no ``(L, L)`` tensor: the backward kernels rebuild every tile.  On
@@ -595,7 +656,7 @@ class _RabAttentionKernel(torch.autograd.Function):
         g = grad_out.contiguous()
         q, k, v, pos_w, ts_w, timestamps, padding_mask, thresholds = ctx.saved_tensors
         args = (q, k, v, g, pos_w, ts_w, timestamps, padding_mask, ctx.alpha, ctx.max_seq_len, ctx.cfg, thresholds)
-        if _FUSED_BWD[0]:
+        if _FUSED_BWD[0] and not torch.are_deterministic_algorithms_enabled():
             dq, dk, dv, dpos, dts = rab_backward_fused(*args)
         else:
             dq, dpos, dts = rab_backward_dq(*args)

@@ -332,8 +332,9 @@ def _broadcast_flat(tensors, src: int, group=None) -> None:
                 offset += t.numel()
 
 
-def shard_params(model: torch.nn.Module, mesh: Optional[DeviceMesh]) -> torch.nn.Module:
-    """Place ``model``'s parameters on the mesh, in place, by :func:`param_shardings`: each sharded table keeps
+def shard_params(params: torch.nn.Module, mesh: Optional[DeviceMesh]) -> torch.nn.Module:
+    """Place the parameters of the module ``params`` on the mesh, in place, by :func:`param_shardings` (the JAX
+    package's argument is the parameter pytree; here the module that holds them): each sharded table keeps
     this rank's rows (equal to those of data index 0, which are broadcast over the data group) and carries a
     :class:`RowShard`; the rest, and the buffers, are broadcast from rank 0.
 
@@ -341,7 +342,8 @@ def shard_params(model: torch.nn.Module, mesh: Optional[DeviceMesh]) -> torch.nn
     :func:`table_rows` (its ``row_shardable`` names); another raises.
     """
     if mesh is None:
-        return model
+        return params
+    model = params
     plan = param_shardings(model, mesh)
     n_model = mesh.shape[MODEL_AXIS]
     replicated, shards = [], []

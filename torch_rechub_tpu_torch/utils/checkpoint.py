@@ -64,9 +64,15 @@ def check_state_shapes(restored: Any, template: Any, target: str) -> None:
 
 
 class TrainCheckpointer:
-    """Versioned train-state checkpoints: ``save(step, state)`` / ``restore(template)``."""
+    """Versioned train-state checkpoints: ``save(step, state)`` / ``restore(template)``.
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    ``use_orbax`` is the JAX package's switch between an Orbax manager and
+    flax msgpack files.  The port has one format, ``ckpt_<step>.pt`` written
+    by ``torch.save``, which either value selects: it is taken so that a JAX
+    caller's ``TrainCheckpointer(directory, 3, False)`` runs unchanged.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 3, use_orbax: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)

@@ -346,8 +346,9 @@ class SequenceDataGenerator:
                      for i, idx in enumerate(parts))
 
 
-def neg_sample(click_hist, item_size: int, rng: random.Random) -> int:
+def neg_sample(click_hist, item_size: int, rng: Optional[random.Random] = None) -> int:
     """Rejection-sample one negative item id in ``[1, item_size]`` not in ``click_hist``."""
+    rng = random if rng is None else rng  # None: the random module's own state, as the JAX package draws
     neg = rng.randint(1, item_size)
     while neg in click_hist:
         neg = rng.randint(1, item_size)
@@ -365,7 +366,7 @@ def _label_encode(data):
     return data.astype("int32")
 
 
-def generate_seq_feature(data, user_col, item_col, time_col, item_attribute_cols=None, min_item=0, shuffle=True, max_len=50, *, rng: random.Random):
+def generate_seq_feature(data, user_col, item_col, time_col, item_attribute_cols=None, min_item=0, shuffle=True, max_len=50, *, rng: Optional[random.Random] = None):
     """Sliding-window sequence samples with 1:1 negatives for ranking.
 
     Every column is label-encoded 1-based (0 is PAD); per user, in time
@@ -374,7 +375,8 @@ def generate_seq_feature(data, user_col, item_col, time_col, item_attribute_cols
     ``i``; the last position goes to test, the one before to validation.
     Returns ``(train, val, test)`` frames with the columns ``[label,
     target_item_id, <user_col>, hist_item_id, (hist_<attr>, target_<attr>)...]``.
-    The negatives and the shuffles draw from ``rng``.
+    The negatives and the shuffles draw from ``rng`` (None: the ``random``
+    module's own state, as the JAX package draws).
     """
     import pandas as pd
 
@@ -407,7 +409,7 @@ def generate_seq_feature(data, user_col, item_col, time_col, item_attribute_cols
         col_name += ["hist_" + attr_col, "target_" + attr_col]
     if shuffle:
         for bucket in (train_data, val_data, test_data):
-            rng.shuffle(bucket)
+            (random if rng is None else rng).shuffle(bucket)
     return tuple(pd.DataFrame(bucket, columns=col_name) for bucket in (train_data, val_data, test_data))
 
 
@@ -419,7 +421,7 @@ def array_replace_with_dict(array, dic):
     return v[idx[np.searchsorted(k, array, sorter=idx)]]
 
 
-def create_seq_features(data, seq_feature_col=("item_id", "cate_id"), max_len=50, drop_short=3, shuffle=True, *, rng: random.Random):
+def create_seq_features(data, seq_feature_col=("item_id", "cate_id"), max_len=50, drop_short=3, shuffle=True, *, rng: Optional[random.Random] = None):
     """DIN-style sequence samples from the columns ``user_id, item_id, cate_id, time``.
 
     Every column label-encoded 1-based; per user, the first ``max_len``
@@ -428,7 +430,8 @@ def create_seq_features(data, seq_feature_col=("item_id", "cate_id"), max_len=50
     zero-post-padded item and category histories; the last click goes to
     test, the one before to validation.  Returns ``(train, val, test)``
     frames with ``user_id, history_item, history_cate, target_item,
-    target_cate, label``.  The negatives and the shuffles draw from ``rng``.
+    target_cate, label``.  The negatives and the shuffles draw from ``rng``
+    (None: the ``random`` module's own state, as the JAX package draws).
     """
     import pandas as pd
 
@@ -459,7 +462,7 @@ def create_seq_features(data, seq_feature_col=("item_id", "cate_id"), max_len=50
                 train_data += [pos, neg]
     if shuffle:
         for bucket in (train_data, val_data, test_data):
-            rng.shuffle(bucket)
+            (random if rng is None else rng).shuffle(bucket)
     cols = ["user_id", "history_item", "history_cate", "target_item", "target_cate", "label"]
     return tuple(pd.DataFrame(bucket, columns=cols) for bucket in (train_data, val_data, test_data))
 
