@@ -36,6 +36,7 @@ from ...ops.sparse_update import gather_rows
 from ...parallel.distributed import gather_replicated, replicated_input
 from ...parallel.mesh import row_shard, table_rows, with_row_shard
 from ...utils.hstu_utils import bucketize_time
+from ...utils.profiling import annotate
 
 
 class HSTUModel(nn.Module):
@@ -71,48 +72,49 @@ class HSTUModel(nn.Module):
             self.output_projection_bias = nn.Parameter(torch.zeros(vocab_size, device=device)) if use_output_bias else None
 
     def forward(self, x: torch.Tensor, time_diffs: Optional[torch.Tensor] = None, return_hidden: bool = False, generator: Optional[torch.Generator] = None):
-        b, l = x.shape
-        if l > self.max_seq_len:
-            raise ValueError(f"Input seq_len ({l}) exceeds max_seq_len ({self.max_seq_len}).")
-        x = x.to(torch.int64)
-        padding_mask = x != 0
+        with annotate("rechub.hstu.forward"):
+            b, l = x.shape
+            if l > self.max_seq_len:
+                raise ValueError(f"Input seq_len ({l}) exceeds max_seq_len ({self.max_seq_len}).")
+            x = x.to(torch.int64)
+            padding_mask = x != 0
 
-        token_emb = table_rows(self.token_embedding, x) if self.tie_embeddings else gather_rows(self.token_embedding, x)
-        if self.scale_input_embedding:
-            token_emb = token_emb * (self.d_model**0.5)
-        emb = token_emb + self.position_embedding[None, :l, :]
-        if self.use_time_embedding:
-            td = time_diffs if time_diffs is not None else torch.zeros((b, l), dtype=torch.int32, device=x.device)
-            buckets = bucketize_time(td, self.num_time_buckets, self.time_bucket_fn, self.time_bucket_divisor, self.time_bucket_unit, max_bucket=self.num_time_buckets - 1)
-            emb = emb + self.time_embedding[buckets]
-        emb = dropout(emb * padding_mask[..., None].to(emb.dtype), self.dropout, self.training, generator).to(compute_dtype())
+            token_emb = table_rows(self.token_embedding, x) if self.tie_embeddings else gather_rows(self.token_embedding, x)
+            if self.scale_input_embedding:
+                token_emb = token_emb * (self.d_model**0.5)
+            emb = token_emb + self.position_embedding[None, :l, :]
+            if self.use_time_embedding:
+                td = time_diffs if time_diffs is not None else torch.zeros((b, l), dtype=torch.int32, device=x.device)
+                buckets = bucketize_time(td, self.num_time_buckets, self.time_bucket_fn, self.time_bucket_divisor, self.time_bucket_unit, max_bucket=self.num_time_buckets - 1)
+                emb = emb + self.time_embedding[buckets]
+            emb = dropout(emb * padding_mask[..., None].to(emb.dtype), self.dropout, self.training, generator).to(compute_dtype())
 
-        out = self.hstu_block(emb, padding_mask=padding_mask, time_diffs=time_diffs, generator=generator)
-        out = out * padding_mask[..., None].to(out.dtype)
+            out = self.hstu_block(emb, padding_mask=padding_mask, time_diffs=time_diffs, generator=generator)
+            out = out * padding_mask[..., None].to(out.dtype)
 
-        if self.tie_embeddings:
-            weight, bias = self.token_embedding, self.output_bias
-        else:
-            weight, bias = self.output_projection, self.output_projection_bias
-        if self.score_norm == "l2":  # the norms in f32
-            out, weight = self._l2(out.to(torch.float32)).to(out.dtype), with_row_shard(self._l2(weight), weight)
+            if self.tie_embeddings:
+                weight, bias = self.token_embedding, self.output_bias
+            else:
+                weight, bias = self.output_projection, self.output_projection_bias
+            if self.score_norm == "l2":  # the norms in f32
+                out, weight = self._l2(out.to(torch.float32)).to(out.dtype), with_row_shard(self._l2(weight), weight)
 
-        if return_hidden:
-            # for the chunked large-vocab CE: score-normalised hidden states
-            # and output table; the caller folds in self.temperature
-            return {"hidden": out, "weight": weight, "bias": bias}
+            if return_hidden:
+                # for the chunked large-vocab CE: score-normalised hidden states
+                # and output table; the caller folds in self.temperature
+                return {"hidden": out, "weight": weight, "bias": bias}
 
-        shard = row_shard(weight)
-        if shard is not None:  # the hidden states enter this rank's vocab columns
-            out = replicated_input(out, shard.group)
-        logits = torch.einsum("bld,vd->blv", out, weight.to(out.dtype)).to(torch.float32)
-        if shard is not None:  # every owner's columns, in order
-            logits = gather_replicated(logits, shard.group, dim=-1)
-        if bias is not None:
-            logits = logits + bias
-        if self.temperature != 1.0:
-            logits = logits / self.temperature
-        return logits
+            shard = row_shard(weight)
+            if shard is not None:  # the hidden states enter this rank's vocab columns
+                out = replicated_input(out, shard.group)
+            logits = torch.einsum("bld,vd->blv", out, weight.to(out.dtype)).to(torch.float32)
+            if shard is not None:  # every owner's columns, in order
+                logits = gather_replicated(logits, shard.group, dim=-1)
+            if bias is not None:
+                logits = logits + bias
+            if self.temperature != 1.0:
+                logits = logits / self.temperature
+            return logits
 
     def _l2(self, t: torch.Tensor) -> torch.Tensor:
         return t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), self.l2_norm_eps)

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import row_shard, table_rows
+from ..utils.profiling import annotate
 
 TABLE_PREFIX = "fused_d"
 TABLE_SUFFIX = "_table"
@@ -194,10 +195,11 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, gather=None) -> torch.Te
     recorded leaf (:meth:`RowRecorder.gather`); else ``gather(table, ids)``,
     plain indexing (of a row shard's whole table) by default.
     """
-    rec = getattr(_STATE, "recorder", None)
-    if rec is not None and rec.owns(table):
-        return rec.gather(table, ids)
-    return table_rows(table, ids) if gather is None else gather(table, ids)
+    with annotate("rechub.sparse.gather"):
+        rec = getattr(_STATE, "recorder", None)
+        if rec is not None and rec.owns(table):
+            return rec.gather(table, ids)
+        return table_rows(table, ids) if gather is None else gather(table, ids)
 
 
 def outside_hooks(table: torch.Tensor) -> torch.Tensor:

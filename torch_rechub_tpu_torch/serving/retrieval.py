@@ -32,6 +32,7 @@ import torch
 from ..parallel.distributed import all_gather
 from ..parallel.mesh import check_mesh
 from ..trainers.base import resolve_device
+from ..utils.profiling import annotate
 
 
 def as_matrix(x, device) -> torch.Tensor:
@@ -41,7 +42,9 @@ def as_matrix(x, device) -> torch.Tensor:
 
 def topk_scores(users: torch.Tensor, items: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ids, scores)`` of the ``k`` best items of each user of one batch, on the tensors' device."""
-    scores, ids = torch.topk(users @ items.T, k, dim=1)
+    product = users @ items.T
+    with annotate("rechub.retrieval.topk"):
+        scores, ids = torch.topk(product, k, dim=1)
     return ids, scores
 
 

@@ -41,6 +41,7 @@ from ..ops.sparse_update import record_rows
 from ..parallel import distributed as pdist
 from ..parallel import mesh as mesh_lib
 from ..utils.data import pad_batch
+from ..utils.profiling import annotate
 from .sparse import apply_sparse_table_updates, init_sparse_opt_state, validate_method
 
 
@@ -245,20 +246,26 @@ class TorchTrainer:
 
         The sparse tables' gather hooks record inside the loss; after the
         dense optimizer, their rows update (``trainers/sparse.py``).  With
-        no sparse tables nothing records and nothing more is done.
+        no sparse tables nothing records and nothing more is done.  Under a
+        profiler the step and its four stages are spans
+        (``utils/profiling.py``).
         """
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        with record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
-            loss = self.loss_fn(*batch)
-        loss.backward()
-        group = None if self.mesh is None else self.mesh.data_group
-        if group is not None:
-            pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], group)
-        self.optimizer.step()
-        apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
-        self.step += 1
-        return loss.detach()
+        with annotate("rechub.train_step"):
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            with annotate("rechub.train.forward"), record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
+                loss = self.loss_fn(*batch)
+            group = None if self.mesh is None else self.mesh.data_group
+            with annotate("rechub.train.backward"):
+                loss.backward()
+                if group is not None:
+                    pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], group)
+            with annotate("rechub.train.optimizer"):
+                self.optimizer.step()
+            with annotate("rechub.train.sparse_update"):
+                apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
+            self.step += 1
+            return loss.detach()
 
     def penalty(self, reg_loss_fn, named_parameters) -> torch.Tensor:
         """``reg_loss_fn`` over ``named_parameters``; under a mesh its value is the whole model's (a row shard's part
