@@ -4391,10 +4391,19 @@ def mesh_rqvae(rank, sk_epsilons):
     forward = rq_module.ResidualVectorQuantizer.forward
     owner = {id(t.model.rq): key for key, t in trainers.items()}
 
+    latest = {}  # each trainer's codes of its latest step, written by its forward inside a replayed CUDA graph too
+
     def recorded(self, *args, **kw):
         out = forward(self, *args, **kw)
-        codes[owner[id(self)]].append(out[2].detach())
+        key = owner[id(self)]
+        if key not in latest:  # a trainer's first step is eager: the buffer is made outside any capture
+            latest[key] = torch.empty_like(out[2])
+        latest[key].copy_(out[2])
         return out
+
+    def step(key, x):
+        losses[key].append(trainers[key].train_step(x))
+        codes[key].append(latest[key].clone())
 
     def record_diffs():
         for key, p in (("mesh", params), ("shuffled", shuffled_params)):
@@ -4405,23 +4414,23 @@ def mesh_rqvae(rank, sk_epsilons):
     rq_module.ResidualVectorQuantizer.forward = recorded
     try:
         with CollectiveClock(inside=((rq_module, "sinkhorn_algorithm"), (rq_module, "center_distances"))) as clock:
-            for step, xb in enumerate(ref._iter_batches(data, b, epoch=0)):
+            for step_i, xb in enumerate(ref._iter_batches(data, b, epoch=0)):
                 x = torch.from_numpy(xb).to(CARD)
                 orders.append(torch.randperm(b, generator=order_gen).to(CARD))
-                losses["shuffled"].append(shuffled.train_step(x[orders[-1]]))
-                if step:
-                    losses["mesh"].append(tr.train_step(shard_batch(x, mesh)))
-                    losses["none"].append(ref.train_step(x))
+                step("shuffled", x[orders[-1]])
+                if step_i:
+                    step("mesh", shard_batch(x, mesh))
+                    step("none", x)
                     record_diffs()
                     continue
                 p0 = {k: p.detach().clone() for k, p in ref_params.items()}
                 masks = []
                 with kink_branches(masks, replay=False):
-                    losses["mesh"].append(tr.train_step(shard_batch(x, mesh)))
+                    step("mesh", shard_batch(x, mesh))
                 with clock.paused():
                     masks = [pdist.all_gather(m.to(CARD), mesh.data_group) for m in masks]
                 with kink_branches(masks, replay=True) as crossed:
-                    losses["none"].append(ref.train_step(x))
+                    step("none", x)
                 first = first_step_check(params, ref_params, p0, lr, wd, invariant)
                 control_flips = first_step_check(shuffled_params, ref_params, p0, lr, wd, invariant)["flips"]
                 record_diffs()

@@ -42,6 +42,7 @@ from ..parallel import distributed as pdist
 from ..parallel import mesh as mesh_lib
 from ..utils.data import pad_batch
 from ..utils.profiling import annotate
+from .graph_step import StepGraphs
 from .sparse import apply_sparse_table_updates, init_sparse_opt_state, validate_method
 
 
@@ -173,6 +174,20 @@ def make_optimizer(parameters: Iterable, optimizer_params: Optional[Dict] = None
     return SplitOptimizer(*parts), lr
 
 
+def set_capturable(optimizer, on: bool, device) -> None:
+    """Set the ``capturable`` option of every Adam in ``optimizer`` (a :class:`SplitOptimizer`'s parts too), its
+    step counts moved to match: on, float32 on ``device``, where Adam computes its bias corrections and a CUDA graph
+    can capture its step; off, on the CPU.  A loaded state carries the option of the trainer that saved it."""
+    for opt in getattr(optimizer, "optimizers", [optimizer]):
+        if not isinstance(opt, torch.optim.Adam):
+            continue
+        for group in opt.param_groups:
+            group["capturable"] = on
+        for state in opt.state.values():
+            if "step" in state:
+                state["step"] = state["step"].to(device=device, dtype=torch.float32) if on else state["step"].cpu()
+
+
 def step_lr(lr0: float, epoch: int, scheduler_params: Optional[Dict]) -> float:
     """StepLR at epoch granularity: ``lr0 * gamma ** (epoch // step_size)``."""
     if not scheduler_params:
@@ -220,6 +235,11 @@ class TorchTrainer:
             self.sparse_tables, self.sparse_accums, dense = init_sparse_opt_state(self.model, sparse_names)
         self.optimizer, self.lr0 = make_optimizer(dense + list(extra_params), optimizer_params)
         self.lr = self.lr0  # the learning rate of the epoch (set_lr); the sparse table updates read it
+        # the step as CUDA graphs (trainers/graph_step.py): on the card without a mesh, for the step of this class;
+        # Adam is capturable on the card under a mesh too, so that a mesh trains as mesh=None does bit for bit
+        self._capturable = self.device.type == "cuda" and type(self).train_step is TorchTrainer.train_step
+        self._graphs = StepGraphs(self) if self._capturable and mesh is None else None
+        set_capturable(self.optimizer, self._capturable, self.device)
         self.scheduler_params = scheduler_params
         self.n_epoch = n_epoch
         self.earlystop_patience = earlystop_patience
@@ -247,25 +267,49 @@ class TorchTrainer:
         The sparse tables' gather hooks record inside the loss; after the
         dense optimizer, their rows update (``trainers/sparse.py``).  With
         no sparse tables nothing records and nothing more is done.  Under a
-        profiler the step and its four stages are spans
-        (``utils/profiling.py``).
+        profiler the step and its stages are spans (``utils/profiling.py``).
+
+        On the CPU and under a mesh the step is eager (on a CUDA device Adam
+        is capturable under a mesh too).  On a CUDA device without a mesh it
+        runs as CUDA graphs (``trainers/graph_step.py``): the first step of a
+        batch signature (its tensors' shapes, dtypes and devices, the
+        learning rate, the precision, the kernels' switches) is eager, the
+        second captures forward, backward and optimizer and the sparse
+        update, and later ones replay them; a signature whose capture fails
+        (the step reads the device from the host, copies from host memory,
+        or makes a shape from the data) stays eager.  Each step returns a
+        loss of its own.
         """
         with annotate("rechub.train_step"):
             self.model.train()
-            self.optimizer.zero_grad(set_to_none=True)
-            with annotate("rechub.train.forward"), record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
-                loss = self.loss_fn(*batch)
-            group = None if self.mesh is None else self.mesh.data_group
-            with annotate("rechub.train.backward"):
-                loss.backward()
-                if group is not None:
-                    pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], group)
-            with annotate("rechub.train.optimizer"):
-                self.optimizer.step()
-            with annotate("rechub.train.sparse_update"):
-                apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, rec.records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
+            loss = self._eager_step(batch) if self._graphs is None else self._graphs.step(batch)
             self.step += 1
-            return loss.detach()
+            return loss
+
+    def _dense_step(self, batch):
+        """Forward and loss under the row recorder, backward (and the gradients' all-reduce under a mesh), the dense
+        optimizer: ``(loss, the recorded rows)``."""
+        self.optimizer.zero_grad(set_to_none=True)
+        with annotate("rechub.train.forward"), record_rows(self.sparse_tables) as rec, pdist.data_parallel(self.mesh):
+            loss = self.loss_fn(*batch)
+        with annotate("rechub.train.backward"):
+            loss.backward()
+            if self.mesh is not None:
+                pdist.all_reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]], self.mesh.data_group)
+        with annotate("rechub.train.optimizer"):
+            self.optimizer.step()
+        return loss.detach(), rec.records
+
+    def _sparse_step(self, records) -> None:
+        """The sparse tables' row updates from the recorded rows, at the epoch's learning rate."""
+        group = None if self.mesh is None else self.mesh.data_group
+        with annotate("rechub.train.sparse_update"):
+            apply_sparse_table_updates(self.sparse_tables, self.sparse_accums, records, self.sparse_embedding, self.lr, self.spare_rows, data_group=group)
+
+    def _eager_step(self, batch) -> torch.Tensor:
+        loss, records = self._dense_step(batch)
+        self._sparse_step(records)
+        return loss
 
     def penalty(self, reg_loss_fn, named_parameters) -> torch.Tensor:
         """``reg_loss_fn`` over ``named_parameters``; under a mesh its value is the whole model's (a row shard's part
@@ -315,14 +359,22 @@ class TorchTrainer:
         accums = {k: fn(v, self.sparse_tables[k]) for k, v in state["sparse_accums"].items()}
         return {**state, "model": model, "optimizer": optimizer, "sparse_accums": accums}
 
+    def _drop_graphs(self) -> None:
+        """Drop the step's held CUDA graphs (they hold the addresses of the state a load replaces); the next steps
+        capture anew."""
+        if self._graphs is not None:
+            self._graphs.drop()
+
     def load_train_state(self, state: Dict) -> None:
         """Load a state of :meth:`train_state`'s structure into this trainer, in place (under a mesh, this rank's
         rows of each row shard's whole-table tensors)."""
         if self.mesh is not None:
             state = self._map_shards(state, mesh_lib.reshard)
+        self._drop_graphs()
         self.model.load_state_dict(state["model"])
         check_optimizer_state(state["optimizer"], self.optimizer)
         self.optimizer.load_state_dict(state["optimizer"])
+        set_capturable(self.optimizer, self._capturable, self.device)
         with torch.no_grad():
             for name, acc in self.sparse_accums.items():
                 acc.copy_(state["sparse_accums"][name])
@@ -425,6 +477,7 @@ class TorchTrainer:
             params = dict(self.model.named_parameters())
             state = {k: mesh_lib.reshard(v, params[k]) if k in params else v for k, v in state.items()}
         check_table_rows(state, self.model.state_dict(), target)
+        self._drop_graphs()
         self.model.load_state_dict(state)
 
     def load(self, name: str = "model.pt") -> torch.nn.Module:

@@ -13,6 +13,9 @@ Counterpart of ``torch_rechub_tpu/utils/profiling.py``:
   a user annotation over the kernels launched inside it), and it records
   ``(name, parent, start_ns, end_ns)`` in memory (``spans()``).
 - ``spans()`` / ``clear_spans()`` / ``dropped_spans()``: that record.
+- ``count(name)`` / ``counters()``: counters of the program's events,
+  kept with or without a profiler (a dict update under a lock, no clock
+  read); ``clear_spans()`` resets them too.
 - ``device_memory_stats()``: ``torch.cuda.memory_stats`` of every visible card.
 
 The program's spans, every one named ``rechub.*``, and where each opens:
@@ -23,13 +26,27 @@ The program's spans, every one named ``rechub.*``, and where each opens:
   ``rechub.train.backward`` (``loss.backward()``, and the gradients'
   all-reduce under a mesh), ``rechub.train.optimizer``
   (``optimizer.step()``) and ``rechub.train.sparse_update``
-  (``apply_sparse_table_updates``).
+  (``apply_sparse_table_updates``).  A step replayed as CUDA graphs
+  (``trainers/graph_step.py``) opens instead ``rechub.train.graph`` (the
+  copies of the batch into the graph's inputs and the replay of forward,
+  backward and dense optimizer) and ``rechub.train.sparse_update`` (the
+  replay of the sparse update's graph); a replay runs no forward,
+  backward, optimizer or gather on the host, so their spans do not open.
 - ``rechub.sparse.gather``: ``ops/sparse_update.py`` ``gather_rows``, a
   table's gather, the recorded leaf or the plain read.
 - ``rechub.hstu.forward``: ``models/generative/hstu.py``
   ``HSTUModel.forward``, the whole forward.
 - ``rechub.retrieval.topk``: ``serving/retrieval.py`` ``topk_scores``,
   ``torch.topk`` alone, after the product ``users @ items.T``.
+
+The trainer's graph path counts, in ``counters()``:
+``rechub.train.graph.capture`` (steps that captured their signature's
+graphs, then replayed them), ``rechub.train.graph.replay`` (steps that
+replayed held graphs, the capturing steps too), ``rechub.train.graph.eager``
+(steps on the card without a mesh that ran eagerly: a signature's first
+step, and every step of one that cannot be captured) and
+``rechub.train.graph.refused`` (captures that failed, whose signature then
+stays eager).
 
 ``with trace(log_dir):`` (or any ``torch.profiler.profile``) captures them.
 After the capture, ``spans()`` lists the recorded spans in the order they
@@ -46,8 +63,9 @@ that step's ``rechub.train_step``::
     stages = {name: (end - start) / 1e6 for name, parent, start, end in record if parent == step}  # host ms
 
 Reading does not clear the record (several readers may read one capture);
-``clear_spans()`` does.  It keeps at most ``MAX_SPANS``, drops the newest
-beyond them and counts those in ``dropped_spans()``.
+``clear_spans()`` does, and resets the counters.  It keeps at most
+``MAX_SPANS``, drops the newest beyond them and counts those in
+``dropped_spans()``.
 """
 
 from __future__ import annotations
@@ -69,6 +87,7 @@ _RECORD: List[list] = []  # [name, parent, start_ns, end_ns], in the order the s
 _DROPPED = 0
 _GENERATION = object()  # replaced at each clear: a span opened before it is no later span's parent
 _LOCAL = threading.local()  # .open: (record index, generation) of this thread's open spans, innermost last
+_COUNTS: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -132,12 +151,25 @@ def spans() -> List[Span]:
 
 
 def clear_spans() -> None:
-    """Empty the record and its count of dropped spans."""
+    """Empty the record and its count of dropped spans, and reset the counters."""
     global _DROPPED, _GENERATION
     with _LOCK:
         _RECORD.clear()
         _DROPPED = 0
         _GENERATION = object()
+        _COUNTS.clear()
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name``, with or without a profiler."""
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters since the last ``clear_spans()``, ``{name: count}``; does not clear."""
+    with _LOCK:
+        return dict(_COUNTS)
 
 
 def dropped_spans() -> int:
