@@ -77,6 +77,8 @@ TORCH_TRAILING = {
     "device": "where a module, loader or result is placed (JAX places by sharding)",
     "rng": "the numpy Generator of the data helpers' shuffles and samples (JAX's use numpy's global state)",
     "use_fused_kernel": "HSTUModel's switch between the card's kernels and the plain version (one fused op in JAX)",
+    "backbone": "HLLMModel's user-model block, the default transformer (JAX's) or a public LM's block the JAX package lacks",
+    "backbone_config": "that block's config.json keys, for a backbone other than the default",
 }
 # the input widths that a torch module needs when it is made, where flax infers them at its first call: the only
 # parameters the port may add in front of JAX's

@@ -46,6 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate, count
+
 
 def default_backend(num_processes: int) -> str:
     """``"nccl"`` when every one of ``num_processes`` ranks of this host can have a card of its own, else ``"gloo"``."""
@@ -125,21 +127,29 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+def _counted(tensor: torch.Tensor) -> None:
+    count("rechub.dist.calls")
+    count("rechub.dist.bytes", tensor.numel() * tensor.element_size())
+
+
 def all_reduce(tensor: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The reduction of ``tensor`` over ``group`` (a new tensor; the input is left as it is)."""
+    _counted(tensor)
     out = tensor.detach().to("cpu" if host_staged(tensor, group) else tensor.device, copy=True).contiguous()
     dist.all_reduce(out, op=op, group=group)
     return out.to(tensor.device)
 
 
 def all_gather(tensor: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along ``dim``, in the group's rank order."""
-    src = tensor.detach().movedim(dim, 0).contiguous()
-    if host_staged(src, group):
-        src = src.cpu()
-    out = torch.empty((group_size(group) * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.to(tensor.device).movedim(0, dim)
+    """The group's tensors concatenated along ``dim``, in the group's rank order (span ``rechub.dist.all_gather``)."""
+    _counted(tensor)
+    with annotate("rechub.dist.all_gather"):
+        src = tensor.detach().movedim(dim, 0).contiguous()
+        if host_staged(src, group):
+            src = src.cpu()
+        out = torch.empty((group_size(group) * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.to(tensor.device).movedim(0, dim)
 
 
 def broadcast_(tensor: torch.Tensor, src: int, group=None) -> torch.Tensor:
@@ -290,10 +300,12 @@ def sum_tensors(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
 
 
 def all_reduce_gradients(parameters: Sequence[torch.Tensor], group) -> None:
-    """Sum the ``.grad`` of ``parameters`` over ``group`` in place, one flat buffer per dtype."""
-    grads = [p.grad for p in parameters if p.grad is not None]
-    for g, total in zip(grads, sum_tensors(grads, group)):
-        g.copy_(total)
+    """Sum the ``.grad`` of ``parameters`` over ``group`` in place, one flat buffer per dtype (span
+    ``rechub.dist.all_reduce``)."""
+    with annotate("rechub.dist.all_reduce"):
+        grads = [p.grad for p in parameters if p.grad is not None]
+        for g, total in zip(grads, sum_tensors(grads, group)):
+            g.copy_(total)
 
 
 # ---------------------------------------------------------------------------
@@ -304,27 +316,62 @@ def all_reduce_gradients(parameters: Sequence[torch.Tensor], group) -> None:
 def _rank_main(fn, rank: int, nprocs: int, init_method: str, backend: Optional[str], args):
     initialize(init_method, nprocs, rank, backend)
     try:
-        fn(rank, *args)
+        return fn(rank, *args)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # an aborted group (``_abort_if_a_rank_fails``) is gone already
+            dist.destroy_process_group()
 
 
-def spawn(fn, nprocs: int, args=(), backend: Optional[str] = None, timeout_s: float = 600.0) -> None:
+def _abort_if_a_rank_fails(procs, done: threading.Event) -> None:
+    """Aborts this process's groups 5 s after one of ``procs`` failed, unless ``done`` is set by then: a collective
+    of this process that waits on the failed rank then raises instead of waiting for the group's timeout."""
+    while not done.wait(0.2):
+        if any(p.exitcode not in (None, 0) for p in procs) and not done.wait(5.0):
+            if dist.is_initialized():
+                dist.distributed_c10d._abort_process_group()
+            return
+
+
+def spawn(fn, nprocs: int, args=(), backend: Optional[str] = None, timeout_s: float = 600.0, here: Optional[int] = None):
     """Run ``fn(rank, *args)`` in ``nprocs`` processes started by ``spawn``, each with the process group up.
 
     The rendezvous is a file in a fresh temporary directory (no port to
     collide with).  Raises a ``RuntimeError`` naming the ranks that failed,
     or that were still running after ``timeout_s`` seconds, or 5 seconds
     after another rank failed (they are killed).  ``fn`` must be importable by name (a module-level function).
+
+    ``here``: the rank that runs in the calling process instead of a new one
+    (its process group is up while ``fn`` runs and destroyed after); ``spawn``
+    then returns what ``fn`` returned there.  If ``fn`` raises there, the
+    other ranks are killed and the error propagates.  If another rank fails
+    while ``fn`` runs there, the calling process's groups are aborted 5
+    seconds later, so that a collective waiting on that rank raises there
+    (gloo raises by itself when a peer's connection closes); a group that is
+    not up yet raises after :func:`initialize`'s timeout.
     """
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     rdzv = tempfile.mkdtemp(prefix="rechub_rdzv_")
+    result = None
     try:
-        procs = [ctx.Process(target=_rank_main, args=(fn, r, nprocs, f"file://{os.path.join(rdzv, 'store')}", backend, tuple(args)), daemon=False) for r in range(nprocs)]
+        store = f"file://{os.path.join(rdzv, 'store')}"
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, nprocs, store, backend, tuple(args)), daemon=False) for r in range(nprocs) if r != here]
         for p in procs:
             p.start()
+        if here is not None:
+            done = threading.Event()
+            watchdog = threading.Thread(target=_abort_if_a_rank_fails, args=(procs, done), daemon=True)
+            watchdog.start()
+            try:
+                result = _rank_main(fn, here, nprocs, store, backend, args)
+            except BaseException:
+                for p in procs:
+                    p.kill()
+                raise
+            finally:
+                done.set()
+                watchdog.join()
         deadline = time.monotonic() + timeout_s
         # wait for all; stop early when one rank failed, as the others may wait on it forever
         while any(p.is_alive() for p in procs) and time.monotonic() < deadline and not any(p.exitcode not in (None, 0) for p in procs):
@@ -333,13 +380,15 @@ def spawn(fn, nprocs: int, args=(), backend: Optional[str] = None, timeout_s: fl
             grace = time.monotonic() + 5.0
             for p in procs:
                 p.join(timeout=max(0.0, grace - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        ranks = [r for r in range(nprocs) if r != here]
+        hung = [r for r, p in zip(ranks, procs) if p.is_alive()]
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=30)
-        failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode not in (0, None) and r not in hung}
+        failed = {r: p.exitcode for r, p in zip(ranks, procs) if p.exitcode not in (0, None) and r not in hung}
         if hung or failed:
             raise RuntimeError(f"spawn({getattr(fn, '__name__', fn)}): ranks failed {failed}, ranks killed {hung} (after {timeout_s:.0f} s or after another rank failed)")
     finally:
         shutil.rmtree(rdzv, ignore_errors=True)
+    return result

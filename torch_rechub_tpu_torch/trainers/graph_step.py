@@ -24,6 +24,9 @@ mesh, where :class:`StepGraphs` decides from what it can observe:
 - At most :data:`MAX_GRAPHS` signatures hold graphs; the least recently
   used is dropped beyond them.  :meth:`StepGraphs.drop` drops them all
   (the trainer does so when its state is loaded).
+- A model whose modules declare ``graph_safe = False`` (``basic/moe.py``'s
+  expert layer, which reads its per-expert counts on the host) runs every
+  step eagerly, counted as ``rechub.train.graph.eager``: no capture is tried.
 - A capture that fails (a read of the device by the host, a copy from
   pageable host memory, a shape that depends on the data, an unregistered
   generator) leaves nothing behind: the step runs eagerly, and so does
@@ -127,6 +130,7 @@ class StepGraphs:
         self.held: "collections.OrderedDict[tuple, _Held]" = collections.OrderedDict()
         self.refused: "collections.OrderedDict[tuple, None]" = collections.OrderedDict()
         self.last: Optional[tuple] = None  # the signature of the step before
+        self.safe = all(getattr(m, "graph_safe", True) for m in trainer.model.modules())  # a module may opt out
 
     def drop(self) -> None:
         """Drop every held graph: they hold the addresses of the state a load replaces."""
@@ -136,6 +140,9 @@ class StepGraphs:
     def step(self, batch) -> torch.Tensor:
         """One training step (``TorchTrainer.train_step``'s body after ``model.train()``); returns its loss."""
         t = self.trainer
+        if not self.safe:
+            count("rechub.train.graph.eager")
+            return t._eager_step(batch)
         try:
             key, tensors = signature(batch, t)
         except TypeError:

@@ -38,6 +38,21 @@ The program's spans, every one named ``rechub.*``, and where each opens:
   ``HSTUModel.forward``, the whole forward.
 - ``rechub.retrieval.topk``: ``serving/retrieval.py`` ``topk_scores``,
   ``torch.topk`` alone, after the product ``users @ items.T``.
+- ``rechub.mla.attention``: ``basic/mla.py`` ``MLA.forward``, the latent
+  attention with its projections; its backward opens
+  ``rechub.mla.attention.bwd`` (from the output's gradient to the input's and
+  the projections', on the thread that runs the backward).
+- ``rechub.moe.route``, ``rechub.moe.dispatch``, ``rechub.moe.experts``:
+  ``basic/moe.py`` ``MoE.forward``: the router's logits, softmax, top-k and
+  balance loss; the sort of the pairs on held experts, the gather of their
+  rows and the weighted scatter-add back; the held experts' products.  Their
+  backward opens ``rechub.moe.experts.bwd`` and ``rechub.moe.dispatch.bwd``
+  (the products' and the gather's and scatter-add's backward, inside their
+  autograd functions, on the thread that runs the backward).
+- ``rechub.dist.all_reduce``: ``parallel/distributed.py``
+  ``all_reduce_gradients``, the gradients' sum over the data group;
+  ``rechub.dist.all_gather``: its ``all_gather`` (the sparse rows' ids and
+  gradients over the data group, among others).
 
 The trainer's graph path counts, in ``counters()``:
 ``rechub.train.graph.capture`` (steps that captured their signature's
@@ -47,6 +62,13 @@ replayed held graphs, the capturing steps too), ``rechub.train.graph.eager``
 step, and every step of one that cannot be captured) and
 ``rechub.train.graph.refused`` (captures that failed, whose signature then
 stays eager).
+
+Counted by amount: ``rechub.moe.routed_pairs`` (the (token, expert) pairs
+that fell on a layer's held experts) and ``rechub.moe.max_expert_pairs``
+(the largest held expert's pairs), each summed over the expert layers'
+forwards, from the counts the dispatch reads on the host anyway;
+``rechub.dist.calls`` and ``rechub.dist.bytes`` (each collective of
+``parallel/distributed.py`` and the bytes of its input).
 
 ``with trace(log_dir):`` (or any ``torch.profiler.profile``) captures them.
 After the capture, ``spans()`` lists the recorded spans in the order they
@@ -160,10 +182,10 @@ def clear_spans() -> None:
         _COUNTS.clear()
 
 
-def count(name: str) -> None:
-    """Add one to the counter ``name``, with or without a profiler."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (one) to the counter ``name``, with or without a profiler."""
     with _LOCK:
-        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
 def counters() -> Dict[str, int]:
